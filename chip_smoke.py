@@ -1,0 +1,432 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (ditsep_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from the sources in this checkout and runs
+four phases, each printing one JSON line; any failure raises and the exit
+code is non-zero:
+
+1. device   -- card name and power limit (nvidia-smi), kernel build time;
+2. kernel   -- fir_down2d against its plain PyTorch version at the 12
+               distinct flagship shapes, f32 and bf16, NCHW and
+               channels_last, plus an odd shape and an asymmetric kernel;
+               times of the kernel, the plain version, one library call
+               and the memory bound;
+3. parity   -- the trained nf=32 checkpoint separates a 1 s mixture with
+               the same explicit noise on the card (TF32 off) and on the
+               CPU; they agree within 1e-3 (and bf16 on the card is
+               compared with f32 by SI-SDR);
+4. flagship -- the nf=128 diffsep_icassp config with seeded random weights
+               through ``ditsep_tpu_torch.cli.separate`` on 8.415 s, 8 kHz
+               WAVs at N=30 (NFE 60), then ``DiffSepTrainer.separate`` on a
+               batch in f32 and in bf16 with the same noise and weights
+               (zero-init layers redrawn at unit scale), and a profile of
+               one f32 forward.
+
+It then prints the ``kernels`` JSON line, and as its last line
+``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
+repository beside it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+CKPT = REPO / "examples" / "checkpoints" / "masked_synthetic_ema.npz"
+FS = 8000
+FLAGSHIP_SAMPLES = 67320          # 8.415 s at 8 kHz -> 576 frames after %64
+N_STEPS = 30                      # NFE 60 with one corrector step
+N_FILES = 4                       # WAVs through the CLI
+BATCH = 4                         # batch of the direct separate calls
+# 6 down blocks (on h and on x) + 6 input-pyramid levels
+LAUNCHES_PER_FORWARD = 18
+# published memory bandwidth, bytes/s (NVIDIA data sheets); other cards
+# are taken at the H100 SXM's 3.35 TB/s
+BANDWIDTH = (("H100 PCIe", 2.0e12), ("H200", 4.8e12))
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def gpu_name_and_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def bandwidth_for(name: str) -> float:
+    for key, bw in BANDWIDTH:
+        if key in name:
+            return bw
+    return 3.35e12
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bf16_ulp(v: float) -> float:
+    return 2.0 ** (math.floor(math.log2(abs(v))) - 7)
+
+
+def phase_kernel(ctx):
+    """fir_down2d against downsample_2d_plain at every flagship shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = []
+    for i, c in enumerate((128, 128, 256, 256, 256, 256)):
+        h, w = 256 >> i, 576 >> i
+        shapes += [(1, c, h, w), (1, 6, h, w)]
+    cases = [(s, (1, 3, 3, 1), 1.0) for s in shapes]
+    cases += [((2, 6, 17, 9), (1, 3, 3, 1), 1.0),
+              ((2, 32, 64, 144), (1, 2, 3, 4), 2.5)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for shape, k, gain in cases:
+        base = torch.randn(shape, generator=g, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            for fmt in (torch.contiguous_format, torch.channels_last):
+                x = base.to(dtype).contiguous(memory_format=fmt)
+                y = ck.downsample_2d_cuda(x, k, 2, gain)
+                ref = ck.downsample_2d_plain(x, k, 2, gain)
+                torch.cuda.synchronize()
+                check(y.shape == ref.shape and y.dtype == dtype
+                      and y.is_contiguous(memory_format=fmt),
+                      f"fir_down2d output shape/dtype/layout at {shape}")
+                err = (y.float() - ref.float()).abs().max().item()
+                peak = ref.float().abs().max().item()
+                tol = 1e-6 * peak if dtype == torch.float32 else bf16_ulp(peak)
+                check(err <= tol, f"fir_down2d {shape} {dtype} {fmt}: "
+                                  f"max err {err} > {tol}")
+                worst[dtype] = max(worst[dtype], err)
+
+    # times at the level-0 shape of the main path (the CLI's batch of 1)
+    taps_h, taps_w = ck.separable_taps(np.asarray([1.0, 3.0, 3.0, 1.0]), 1.0)
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(1, 128, 256, 576, generator=g, device="cuda").to(dtype)
+        wk = torch.outer(torch.tensor(taps_h), torch.tensor(taps_w))
+        wk = wk.to(device="cuda", dtype=dtype).expand(128, 1, 4, 4)
+        lib = lambda: F.conv2d(x, wk, stride=2, padding=1, groups=128)
+        y = ck.fir_down2d(x, taps_h, taps_w)
+        # the library call computes the same function (checked, not used)
+        lerr = (lib().float() - y.float()).abs().max().item()
+        peak = y.float().abs().max().item()
+        ltol = 1e-5 * peak if dtype == torch.float32 else 2 * bf16_ulp(peak)
+        check(lerr <= ltol, f"library call disagrees with the kernel "
+                            f"({lerr} > {ltol})")
+        nbytes = (x.numel() + y.numel()) * x.element_size()
+        times[str(dtype).split(".")[-1]] = {
+            "kernel_ms": cuda_ms(lambda: ck.fir_down2d(x, taps_h, taps_w)),
+            "plain_ms": cuda_ms(lambda: ck.downsample_2d_plain(
+                x, [1, 3, 3, 1])),
+            "library_ms": cuda_ms(lib),
+            "bound_ms": nbytes / ctx["bandwidth"] * 1e3,
+        }
+    ctx["kernel_times"] = times
+    ctx["kernel_err"] = worst
+    emit({"phase": "kernel", "kernel": "fir_down2d", "cases": len(cases) * 4,
+          "max_abs_err_f32": worst[torch.float32],
+          "max_abs_err_bf16": worst[torch.bfloat16],
+          "tolerance": "f32 1e-6*max|ref|, bf16 1 ulp of max|ref|",
+          "shape": [1, 128, 256, 576], **times,
+          "launches_per_forward": LAUNCHES_PER_FORWARD,
+          "card": ctx["card"]})
+
+
+def phase_parity(ctx):
+    """Trained nf=32 checkpoint: card (TF32 off) against CPU, same noise."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.configs import (
+        build_diffsep_trainer, diffsep, override,
+    )
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = override(diffsep(), {
+        "model.score_model.nf": 32,
+        "model.score_model.ch_mult": (1, 1, 2, 2),
+        "model.score_model.attn_resolutions": (32,),
+        "model.score_model.mask_padding": False})
+    rng = np.random.default_rng(1)
+    mix = (0.1 * rng.standard_normal((1, 1, FS))).astype(np.float32)
+    n = 5
+    noise = (rng.standard_normal((1, 2, FS)).astype(np.float32),
+             rng.standard_normal((n, 1, 1, 2, FS)).astype(np.float32),
+             rng.standard_normal((n, 1, 2, FS)).astype(np.float32))
+    out = {}
+    # full f32 on the card for this comparison: cuDNN convs default to TF32
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device, dtype in (("cuda", "f32"), ("cpu", "f32"),
+                              ("cuda", "bf16")):
+            cfg["model"]["score_model"]["dtype"] = dtype
+            trainer = build_diffsep_trainer(cfg, device=device,
+                                            params_npz=str(CKPT))
+            ck.fir_down2d.launches = 0
+            est, nfe = trainer.separate(torch.from_numpy(mix).to(device),
+                                        N=n, noise=noise)
+            out[device, dtype] = (est.cpu().numpy(), nfe,
+                                  ck.fir_down2d.launches)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    (gpu, nfe_gpu, launches_gpu), (cpu, nfe_cpu, launches_cpu) = (
+        out["cuda", "f32"], out["cpu", "f32"])
+    bf16 = out["cuda", "bf16"][0]
+    check(np.isfinite(bf16).all(), "card bf16 output finiteness")
+    rel = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
+    check(gpu.shape == (1, 2, FS) and np.isfinite(gpu).all(),
+          "card output shape / finiteness")
+    check(nfe_gpu == nfe_cpu == 2 * n, "NFE")
+    check(rel <= 1e-3, f"card vs CPU relative error {rel} > 1e-3")
+    check(launches_gpu == 9 * 2 * n and launches_cpu == 0,
+          f"kernel launches card {launches_gpu}, CPU {launches_cpu}")
+    emit({"phase": "parity", "checkpoint": str(CKPT.relative_to(REPO)),
+          "config": "nf=32 ch_mult=(1,1,2,2) attn=(32,) mask_padding=off",
+          "samples": FS, "N": n, "tf32": False, "max_rel_err": rel,
+          "tolerance": 1e-3, "launches_card": launches_gpu,
+          "bf16_vs_f32_si_sdr_db": float(si_sdr_db(bf16, gpu).min()),
+          "card": ctx["card"]})
+
+
+def si_sdr_db(est, ref):
+    """Scale-invariant SDR of est against ref (numpy, per item/source)."""
+    import numpy as np
+    est = est.astype(np.float64) - est.mean(-1, keepdims=True)
+    ref = ref.astype(np.float64) - ref.mean(-1, keepdims=True)
+    a = (est * ref).sum(-1, keepdims=True) / (ref * ref).sum(-1,
+                                                             keepdims=True)
+    t = a * ref
+    return 10 * np.log10((t ** 2).sum(-1) / ((est - t) ** 2).sum(-1))
+
+
+def unit_scale_zero_init_layers(model, seed: int) -> None:
+    """Redraw the layers that DDPM init scales by 1e-10 (init_scale 0) at
+    unit scale, on the CPU from a seeded generator. With them near zero
+    the random-weight score is ~1e-10 and every dtype gives the same
+    samples, so the bf16-vs-f32 comparison would test nothing."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if getattr(m, "init_scale", None) == 0.0:
+            m.init_scale = 1.0
+            m.reset_parameters(g)
+
+
+def profile_forward(trainer, mix, z):
+    """One score-network forward at the flagship batch under
+    torch.profiler: device time by kernel, the FIR kernel's share, and the
+    device's idle share of the forward's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t = torch.full((mix.shape[0],), 0.5, device="cuda")
+    xt = mix / 2 + 0.1 * z
+    with torch.no_grad():
+        trainer.model_fwd(xt, t, mix)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.model_fwd(xt, t, mix)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    # device kernels only: the aten ops above them carry the same time
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    fir_ms = sum(r[1] for r in rows if "fir_down2d" in r[0])
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": (1 - busy_ms / wall_ms) if wall_ms else None,
+            "fir_down2d_ms": fir_ms,
+            "fir_down2d_share": fir_ms / busy_ms if busy_ms else None,
+            "top": [{"kernel": k[:90], "ms": ms, "calls": n}
+                    for k, ms, n in rows[:15]]}
+
+
+def phase_flagship(ctx):
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.cli import separate as cli
+    from ditsep_tpu_torch.configs import build_diffsep_trainer, diffsep_icassp
+    from ditsep_tpu_torch.data import read_wav, write_wav
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(2)
+    mixes = []
+    for _ in range(N_FILES):
+        # two band-limited random "sources", summed
+        srcs = [np.convolve(rng.standard_normal(FLAGSHIP_SAMPLES),
+                            np.hanning(9 + 8 * s), mode="same")
+                for s in range(2)]
+        mix = sum(srcs)
+        mixes.append((0.3 * mix / np.abs(mix).max()).astype(np.float32))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        inp, outp = Path(tmp, "in"), Path(tmp, "out")
+        inp.mkdir()
+        for i, m in enumerate(mixes):
+            write_wav(str(inp / f"mix{i}.wav"), m, FS)
+        # -- the main path, through the entry point a user calls ----------
+        torch.cuda.synchronize()
+        ck.fir_down2d.launches = 0
+        t0 = time.perf_counter()
+        nfe_cli = cli.main(["--config", "diffsep_icassp", "--input",
+                            str(inp), "--output", str(outp), "--sampler-N",
+                            str(N_STEPS), "--seed", "0"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        ctx["main_path_launches"] = ck.fir_down2d.launches
+        check(nfe_cli == 2 * N_STEPS, f"CLI NFE {nfe_cli}")
+        check(ctx["main_path_launches"]
+              == LAUNCHES_PER_FORWARD * nfe_cli * N_FILES,
+              f"CLI kernel launches {ctx['main_path_launches']}")
+        for s in ("s0", "s1"):
+            for i in range(N_FILES):
+                data, fs = read_wav(str(outp / s / f"mix{i}.wav"))
+                check(fs == FS and data.shape == (FLAGSHIP_SAMPLES,)
+                      and np.isfinite(data).all(), f"CLI output {s}/{i}")
+        # the inputs are 16-bit WAVs: batch them as the CLI read them
+        batch = np.stack([read_wav(str(inp / f"mix{i}.wav"))[0]
+                          for i in range(BATCH)])[:, None, :]
+
+    mix = torch.from_numpy(batch).cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    shape = (BATCH, 2, FLAGSHIP_SAMPLES)
+    noise = (torch.randn(shape, generator=g, device="cuda"),
+             torch.randn((N_STEPS, 1) + shape, generator=g, device="cuda"),
+             torch.randn((N_STEPS,) + shape, generator=g, device="cuda"))
+    results = {}
+    for dtype in ("f32", "bf16"):
+        cfg = diffsep_icassp()
+        cfg["model"]["score_model"]["dtype"] = dtype
+        trainer = build_diffsep_trainer(cfg, device="cpu", seed=0)
+        unit_scale_zero_init_layers(trainer.model, seed=0)
+        trainer.model.to("cuda")
+        warm = (noise[0], noise[1][:2], noise[2][:2])  # 2 steps: cuDNN setup
+        trainer.separate(mix, N=2, noise=warm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.fir_down2d.launches = 0
+        t0 = time.perf_counter()
+        est, nfe = trainer.separate(mix, N=N_STEPS, noise=noise)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        check(nfe == 2 * N_STEPS, f"{dtype} NFE {nfe}")
+        check(tuple(est.shape) == shape and bool(torch.isfinite(est).all()),
+              f"{dtype} output shape / finiteness")
+        check(ck.fir_down2d.launches == LAUNCHES_PER_FORWARD * nfe,
+              f"{dtype} kernel launches {ck.fir_down2d.launches}")
+        results[dtype] = {
+            "seconds": sec, "utt_per_s": BATCH / sec,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": ck.fir_down2d.launches, "nfe": nfe,
+            "est": est.float().cpu().numpy()}
+        if dtype == "f32":
+            ctx["profile"] = profile_forward(trainer, mix, noise[0])
+        del trainer, est
+        torch.cuda.empty_cache()
+    agree = si_sdr_db(results["bf16"].pop("est"), results["f32"].pop("est"))
+    emit({"phase": "flagship", "config": "diffsep_icassp (nf=128, random "
+          "weights seed 0)", "samples": FLAGSHIP_SAMPLES, "N": N_STEPS,
+          "cli": {"files": N_FILES, "seconds": cli_s,
+                  "utt_per_s": N_FILES / cli_s, "nfe_per_file": nfe_cli,
+                  "launches": ctx["main_path_launches"]},
+          "batch": BATCH, "tf32_conv": True, **results,
+          "bf16_vs_f32_si_sdr_db": {"mean": float(agree.mean()),
+                                    "min": float(agree.min())},
+          "card": ctx["card"]})
+    emit({"phase": "profile", "what": "one f32 score forward, batch "
+          f"{BATCH}, {FLAGSHIP_SAMPLES} samples (TF32 convs)",
+          **ctx["profile"], "card": ctx["card"]})
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    if not (REPO / "ditsep_tpu_torch").is_dir() or not CKPT.exists():
+        print("chip_smoke: run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+
+    card = gpu_name_and_power()
+    print(card, flush=True)
+    ctx = {"card": card, "bandwidth": bandwidth_for(card)}
+    t0 = time.perf_counter()
+    ck.fir_down2d.library.load()
+    ptxas = [ln.strip() for ln in ck.fir_down2d.library.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "device", "card": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "kernel_build_s": time.perf_counter() - t0, "ptxas": ptxas,
+          "bandwidth_bytes_per_s": ctx["bandwidth"]})
+
+    phase_kernel(ctx)
+    phase_parity(ctx)
+    phase_flagship(ctx)
+
+    t = ctx["kernel_times"]["float32"]
+    emit({"kernels": [{
+        "name": "fir_down2d", "route": "cuda",
+        "source": "ditsep_tpu_torch/csrc/fir_down2d.cu",
+        "replaces": "ditsep_tpu/ops/pallas_kernels.py:148",
+        "launches": ctx["main_path_launches"],
+        "max_abs_err": ctx["kernel_err"][torch.float32],
+        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": "bytes",
+        "library_ms": t["library_ms"]}]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

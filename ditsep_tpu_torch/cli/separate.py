@@ -1,0 +1,79 @@
+"""Folder-to-folder separation: read every wav in --input, run PC sampling,
+write s0/ s1/ ... subfolders with the separated sources, scaled by mix
+projection. Runs on the CUDA card unless --cpu is given.
+
+    python -m ditsep_tpu_torch.cli.separate --config diffsep_icassp \\
+        --input DIR --output DIR [--params X.npz] [--sampler-N 30] \\
+        [--seed 0] [--cpu] [--bf16] [--override a.b=v ...]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ditsep_tpu_torch.cli.common import load_config
+from ditsep_tpu_torch.configs import build_diffsep_trainer
+from ditsep_tpu_torch.data import read_wav, write_wav
+from ditsep_tpu_torch.utils.device import resolve_device
+
+
+def scale_output(mix: np.ndarray, est: np.ndarray) -> np.ndarray:
+    """Project the mixture onto each estimate for output scaling."""
+    num = (est * mix).sum(axis=-1, keepdims=True)
+    den = np.maximum((est * est).sum(axis=-1, keepdims=True), 1e-10)
+    return est * num / den
+
+
+def main(argv=None) -> int:
+    """Returns the score-network evaluations (NFE) spent per file."""
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--config", default="diffsep")
+    p.add_argument("--input", required=True, help="folder of wav files")
+    p.add_argument("--output", required=True, help="output folder")
+    p.add_argument("--params", default=None,
+                   help="npz score-model params exported by ditsep_tpu")
+    p.add_argument("--sampler-N", type=int, default=30)
+    p.add_argument("--seed", type=int, default=0,
+                   help="seeds the random weights and the sampler noise")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU")
+    p.add_argument("--bf16", action="store_true",
+                   help="compute the score network in bfloat16")
+    p.add_argument("--override", nargs="*", default=[],
+                   help="config overrides a.b.c=value")
+    args = p.parse_args(argv)
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    cfg = load_config(args.config, args.override)
+    if args.bf16:
+        cfg["model"]["score_model"]["dtype"] = "bf16"
+
+    trainer = build_diffsep_trainer(cfg, device=device, seed=args.seed,
+                                    params_npz=args.params)
+    n_src = trainer.cfg.n_speakers
+    fs = cfg["datamodule"].get("fs", 8000)
+    files = sorted(f for f in os.listdir(args.input) if f.endswith(".wav"))
+    if not files:
+        raise SystemExit(f"no wav files in {args.input}")
+    for i in range(n_src):
+        Path(args.output, f"s{i}").mkdir(parents=True, exist_ok=True)
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    nfe = 0
+    for f in files:
+        mix, _ = read_wav(os.path.join(args.input, f))
+        mix = np.atleast_2d(mix).reshape(1, 1, -1).astype(np.float32)
+        est, nfe = trainer.separate(torch.from_numpy(mix).to(device),
+                                    N=args.sampler_N, generator=generator)
+        est = scale_output(mix[0], est[0].float().cpu().numpy())
+        for i in range(n_src):
+            write_wav(str(Path(args.output, f"s{i}", f)), est[i], fs)
+    print(f"separated {len(files)} files into {args.output}/s0..s{n_src-1} "
+          f"(nfe {nfe} per file)")
+    return nfe
+
+
+if __name__ == "__main__":
+    main()

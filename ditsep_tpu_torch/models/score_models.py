@@ -1,0 +1,139 @@
+"""STFT-domain score model around the NCSN++ backbone.
+
+Port of ditsep_tpu/models/score_models.py:ScoreModelNCSNpp. The public API
+takes channel-first waveforms (B, C, T) as the JAX package does; the
+backbone runs on a logical NCHW spectrogram (B, 2C, F, frames), the
+layout of the original torch DiTSep.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ditsep_tpu_torch.models.ncsnpp import NCSNpp
+from ditsep_tpu_torch.ops.stft import istft, stft
+
+Tensor = torch.Tensor
+
+
+def _mag_rescale(spec: Tensor, new_mag_over_mag) -> Tensor:
+    """Rescale a complex spectrogram's magnitude, keeping its phase, as
+    ``s * f(|s|)/|s|``; the ratio is guarded to 0 where ``|s| = 0``."""
+    mag = spec.abs()
+    ratio = new_mag_over_mag(mag.clamp(min=1e-20))
+    return spec * torch.where(mag > 0, ratio, torch.zeros_like(ratio))
+
+
+def _spec_transform_forward(spec: Tensor, transform: str, exponent: float,
+                            factor: float) -> Tensor:
+    """Magnitude compression. Quirk kept from the reference: 'exponent'
+    multiplies by the SIGNED factor here but divides by abs(factor) in the
+    backward transform."""
+    if transform == "exponent":
+        if exponent != 1.0:
+            e = abs(exponent)
+            spec = _mag_rescale(spec, lambda m: m ** (e - 1.0))
+        return spec * factor
+    if transform == "log":
+        spec = _mag_rescale(spec, lambda m: torch.log1p(m) / m)
+        return spec * abs(factor)
+    if transform == "none":
+        return spec
+    raise ValueError("transform must be one of 'exponent'|'log'|'none'")
+
+
+def _spec_transform_backward(spec: Tensor, transform: str, exponent: float,
+                             factor: float) -> Tensor:
+    """Inverse of :func:`_spec_transform_forward`."""
+    if transform == "exponent":
+        spec = spec / abs(factor)
+        if exponent != 1.0:
+            e = abs(exponent)
+            spec = _mag_rescale(spec, lambda m: m ** (1.0 / e - 1.0))
+        return spec
+    if transform == "log":
+        spec = spec / abs(factor)
+        return _mag_rescale(spec, lambda m: (torch.exp(m) - 1.0) / m)
+    if transform == "none":
+        return spec
+    raise ValueError("transform must be one of 'exponent'|'log'|'none'")
+
+
+class ScoreModelNCSNpp(nn.Module):
+    """forward(xt, time_cond, mix): concat channels -> pad n_fft-hop ->
+    STFT -> magnitude compression -> re/im channels -> pad frames %64 ->
+    NCSN++ -> inverse of each step -> iSTFT."""
+
+    def __init__(
+        self,
+        num_sources: int = 2,
+        n_fft: int = 510,
+        hop_length: int = 128,
+        transform: str = "exponent",
+        spec_abs_exponent: float = 0.5,
+        spec_factor: float = 0.15,
+        nf: int = 64,
+        ch_mult: Tuple[int, ...] = (1, 1, 2, 2, 2, 2, 2),
+        num_res_blocks: int = 2,
+        attn_resolutions: Tuple[int, ...] = (16,),
+        resamp_with_conv: bool = True,
+        image_size: int = 256,
+        centered: bool = False,
+        dropout: float = 0.0,
+        fir: bool = True,
+        mask_padding: bool = False,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        if mask_padding:
+            raise NotImplementedError("mask_padding is not ported yet")
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.transform = transform
+        self.spec_abs_exponent = spec_abs_exponent
+        self.spec_factor = spec_factor
+        self.backbone = NCSNpp(
+            nf=nf, ch_mult=tuple(ch_mult), num_res_blocks=num_res_blocks,
+            attn_resolutions=tuple(attn_resolutions),
+            resamp_with_conv=resamp_with_conv, image_size=image_size,
+            centered=centered, dropout=dropout, fir=fir,
+            num_channels_in=2 * num_sources + 2,
+            num_channels_out=2 * num_sources, dtype=dtype)
+
+    def pre_process(self, x: Tensor) -> Tuple[Tensor, int, int]:
+        """(B, C, T) waveform -> (B, 2C, F, frames) real NCHW spectrogram.
+        Returns (spec, n_samples, frame_pad)."""
+        n_samples = x.shape[-1]
+        x = F.pad(x, (0, self.n_fft - self.hop_length))
+        spec = stft(x, self.n_fft, self.hop_length)  # (B, C, F, frames)
+        spec = _spec_transform_forward(
+            spec, self.transform, self.spec_abs_exponent, self.spec_factor)
+        h = torch.cat([spec.real, spec.imag], dim=1)
+        rem = h.shape[-1] % 64
+        n_pad = 0 if rem == 0 else 64 - rem
+        if n_pad:
+            h = F.pad(h, (0, n_pad))
+        return h.contiguous(), n_samples, n_pad
+
+    def post_process(self, h: Tensor, n_samples: int, n_pad: int) -> Tensor:
+        """(B, 2C, F, frames) -> (B, C, T) float32 waveform."""
+        h = h.float()  # the spectral inverse runs in f32 (complex64)
+        if n_pad:
+            h = h[..., :-n_pad]
+        c = h.shape[1] // 2
+        spec = torch.complex(h[:, :c], h[:, c:])
+        spec = _spec_transform_backward(
+            spec, self.transform, self.spec_abs_exponent, self.spec_factor)
+        return istft(spec, self.n_fft, self.hop_length, length=n_samples)
+
+    def forward(self, xt: Tensor, time_cond: Tensor, mix: Tensor, *,
+                lengths: Optional[Tensor] = None) -> Tensor:
+        """xt (B, n_src, T), time_cond (B,), mix (B, 1, T) -> (B, n_src, T)."""
+        if lengths is not None:
+            raise NotImplementedError("per-item lengths are not ported yet")
+        h, n_samples, n_pad = self.pre_process(torch.cat([xt, mix], dim=1))
+        h = self.backbone(h, time_cond)
+        return self.post_process(h, n_samples, n_pad)

@@ -1,0 +1,37 @@
+"""Predictor steps for reverse-SDE sampling (port of
+ditsep_tpu/sdes/predictors.py). Each returns ``(x, x_mean)``; ``noise``
+replaces the draw from ``generator`` with an explicit standard-normal
+tensor."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ditsep_tpu_torch.sdes.core import BaseSDE, bcast_right
+from ditsep_tpu_torch.utils.registry import Registry
+
+PredictorRegistry = Registry("Predictor")
+
+
+def _normal_like(x: torch.Tensor, generator: Optional[torch.Generator]):
+    return torch.randn(x.shape, generator=generator, device=x.device,
+                       dtype=x.dtype)
+
+
+@PredictorRegistry.register("reverse_diffusion")
+def reverse_diffusion_predictor(sde: BaseSDE, score_fn, x, t, cond,
+                                generator=None, dt=None,
+                                probability_flow: bool = False, noise=None):
+    """Reverse-diffusion discretization step."""
+    f, G = sde.reverse_discretize(score_fn, x, t, cond, dt=dt,
+                                  probability_flow=probability_flow)
+    z = _normal_like(x, generator) if noise is None else noise
+    x_mean = x - f
+    return x_mean + bcast_right(G, x.ndim) * z, x_mean
+
+
+@PredictorRegistry.register("none")
+def none_predictor(sde, score_fn, x, t, cond, generator=None, dt=None,
+                   probability_flow: bool = False, noise=None):
+    return x, x
