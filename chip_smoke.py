@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout and runs
-four phases, each printing one JSON line; any failure raises and the exit
-code is non-zero:
+Builds the port's CUDA kernels from the sources in this checkout (one
+nvcc per source, all at once) and runs six phases, each printing JSON
+lines; any failure raises and the exit code is non-zero:
 
 1. device   -- card name and power limit (nvidia-smi), kernel build time;
 2. kernel   -- fir_down2d against its plain PyTorch version at the 12
@@ -13,20 +13,35 @@ code is non-zero:
                channels_last, plus an odd shape and an asymmetric kernel;
                times of the kernel, the plain version, one library call
                and the memory bound;
-3. parity   -- the trained nf=32 checkpoint separates a 1 s mixture with
+3. fused_bias_act -- fba_fwd and fba_bwd against their plain versions in
+               f32 and bf16, channel axis -1 and 1, at an odd shape and at
+               (4, 256, 576, 128) (a level-0 activation of the flagship
+               U-Net at batch 4), each launch counted; times against the
+               byte bound; then the op's path, ``ops.fused_act.
+               fused_leaky_relu`` forward and backward through autograd;
+4. conv3x3  -- conv3x3_9tap and conv3x3_async_halo against their plain
+               version at two odd small shapes, then the conv probe's path
+               (``ditsep_tpu_torch.scripts.conv_probe``): both kernels at
+               the probe shape, batch 1, against the plain version, borders
+               exactly 0, and the three timed rows (cuDNN, 9-tap, async
+               halo) at batch 16;
+5. parity   -- the trained nf=32 checkpoint separates a 1 s mixture with
                the same explicit noise on the card (TF32 off) and on the
                CPU; they agree within 1e-3 (and bf16 on the card is
                compared with f32 by SI-SDR);
-4. flagship -- the nf=128 diffsep_icassp config with seeded random weights
+6. flagship -- the nf=128 diffsep_icassp config with seeded random weights
                through ``ditsep_tpu_torch.cli.separate`` on 8.415 s, 8 kHz
                WAVs at N=30 (NFE 60), then ``DiffSepTrainer.separate`` on a
                batch in f32 and in bf16 with the same noise and weights
                (zero-init layers redrawn at unit scale), and a profile of
                one f32 forward.
 
-It then prints the ``kernels`` JSON line, and as its last line
-``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
-repository beside it, it exits non-zero and prints no result.
+Every launch count is set to 0 just before each path (the fused bias-act
+op, the conv probe, the separation CLI) and read just after it. The
+script then prints the ``kernels`` JSON line (all five kernels), and as
+its last line ``{"ok": true, "device": {...}}``. Without CUDA, or without
+the rest of the repository beside it, it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -50,6 +65,8 @@ LAUNCHES_PER_FORWARD = 18
 # published memory bandwidth, bytes/s (NVIDIA data sheets); other cards
 # are taken at the H100 SXM's 3.35 TB/s
 BANDWIDTH = (("H100 PCIe", 2.0e12), ("H200", 4.8e12))
+FBA_SHAPE = (4, 256, 576, 128)    # level-0 activation, batch 4, NHWC
+CONV_STACK, CONV_REPS = 10, 5     # the conv probe's timed stacks
 
 
 def emit(obj) -> None:
@@ -94,6 +111,39 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def bf16_ulp(v: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(v))) - 7)
+
+
+def wrappers() -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+    return {"fir_down2d": ck.fir_down2d, "fba_fwd": ck.fused_bias_act_fwd,
+            "fba_bwd": ck.fused_bias_act_bwd,
+            "conv3x3_9tap": ck.conv3x3_9tap,
+            "conv3x3_async_halo": ck.conv3x3_async_halo}
+
+
+def reset_counts() -> None:
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def counts() -> dict:
+    return {name: w.launches for name, w in wrappers().items()}
+
+
+def build_all() -> dict:
+    """Build every kernel library at once (one nvcc each); seconds and
+    ptxas lines per source."""
+    from concurrent.futures import ThreadPoolExecutor
+    libs = {w.library.source.name: w.library for w in wrappers().values()}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.load(), libs.values()))
+    out = {"build_s": time.perf_counter() - t0}
+    for name, lib in libs.items():
+        out[name] = [ln.strip() for ln in lib.build_log.splitlines()
+                     if "registers" in ln or "spill" in ln]
+    return out
 
 
 def phase_kernel(ctx):
@@ -162,6 +212,158 @@ def phase_kernel(ctx):
           "shape": [1, 128, 256, 576], **times,
           "launches_per_forward": LAUNCHES_PER_FORWARD,
           "card": ctx["card"]})
+
+
+def phase_fused_bias_act(ctx):
+    """fba_fwd / fba_bwd against their plain versions; times; the op's
+    path (fused_leaky_relu forward and backward through autograd)."""
+    import torch
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+    from ditsep_tpu_torch.ops.fused_act import fused_leaky_relu
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    slope, scale = 0.2, math.sqrt(2.0)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_cases = 0
+    for shape in ((7919, 64), FBA_SHAPE):
+        base = torch.randn(shape, generator=g, device="cuda")
+        gbase = torch.randn(shape, generator=g, device="cuda")
+        for axis in (-1, 1):
+            bbase = torch.randn(shape[axis], generator=g, device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                x, b, gy = base.to(dtype), bbase.to(dtype), gbase.to(dtype)
+                before = counts()
+                y = ck.fused_bias_act_fwd(x, b, slope, scale, axis)
+                dx = ck.fused_bias_act_bwd(x, b, gy, slope, scale, axis)
+                torch.cuda.synchronize()
+                after = counts()
+                check(after["fba_fwd"] - before["fba_fwd"] == 1
+                      and after["fba_bwd"] - before["fba_bwd"] == 1,
+                      f"fba launch counts at {shape} axis {axis}")
+                for got, ref, what in (
+                        (y, ck.fused_bias_act_plain(x, b, slope, scale,
+                                                    axis), "fwd"),
+                        (dx, ck.fused_bias_act_bwd_plain(x, b, gy, slope,
+                                                         scale, axis),
+                         "bwd")):
+                    check(got.shape == ref.shape and got.dtype == dtype,
+                          f"fba {what} shape/dtype at {shape}")
+                    err = (got.float() - ref.float()).abs().max().item()
+                    peak = ref.float().abs().max().item()
+                    tol = (1e-6 * peak if dtype == torch.float32
+                           else bf16_ulp(peak))
+                    check(err <= tol, f"fba {what} {shape} axis {axis} "
+                                      f"{dtype}: max err {err} > {tol}")
+                    worst[dtype] = max(worst[dtype], err)
+                n_cases += 1
+                del x, b, gy, y, dx
+    # times at the level-0 shape, channel axis last
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(FBA_SHAPE, generator=g, device="cuda").to(dtype)
+        gy = torch.randn(FBA_SHAPE, generator=g, device="cuda").to(dtype)
+        b = torch.randn(FBA_SHAPE[-1], generator=g, device="cuda").to(dtype)
+        dx = ck.fused_bias_act_bwd(x, b, gy)
+        esize = x.element_size()
+        times[str(dtype).split(".")[-1]] = {
+            "fwd_ms": cuda_ms(lambda: ck.fused_bias_act_fwd(x, b)),
+            "fwd_plain_ms": cuda_ms(lambda: ck.fused_bias_act_plain(x, b)),
+            "fwd_bound_ms": (2 * x.numel() + b.numel()) * esize
+            / ctx["bandwidth"] * 1e3,
+            "bwd_ms": cuda_ms(lambda: ck.fused_bias_act_bwd(x, b, gy)),
+            "bwd_plain_ms": cuda_ms(
+                lambda: ck.fused_bias_act_bwd_plain(x, b, gy)),
+            "bwd_bound_ms": (3 * x.numel() + b.numel()) * esize
+            / ctx["bandwidth"] * 1e3,
+            # dbias = sum(dx), outside the kernel as in the JAX package
+            "dbias_sum_ms": cuda_ms(lambda: dx.sum((0, 1, 2))),
+        }
+        del x, gy, b, dx
+    # the op's path: forward and backward through autograd, f32
+    x = torch.randn(FBA_SHAPE, generator=g, device="cuda",
+                    requires_grad=True)
+    b = torch.randn(FBA_SHAPE[-1], generator=g, device="cuda",
+                    requires_grad=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fused_leaky_relu(x, b)
+    gx, gb = torch.autograd.grad((out ** 2).sum(), (x, b))
+    torch.cuda.synchronize()
+    path = counts()
+    check(path["fba_fwd"] == 1 and path["fba_bwd"] == 1,
+          f"fused_leaky_relu path launches {path}")
+    check(bool(torch.isfinite(gx).all()) and gb.shape == b.shape,
+          "fused_leaky_relu gradients")
+    want_gb = (2 * out.detach() * ck.fused_bias_act_bwd_plain(
+        x.detach(), b.detach(), torch.ones_like(out))).sum((0, 1, 2))
+    gb_err = ((gb - want_gb).abs().max() / want_gb.abs().max()).item()
+    check(gb_err <= 1e-4, f"dbias relative error {gb_err}")
+    ctx["fba"] = {"times": times, "err": worst, "launches": path}
+    emit({"phase": "fused_bias_act", "cases": n_cases,
+          "max_abs_err_f32": worst[torch.float32],
+          "max_abs_err_bf16": worst[torch.bfloat16],
+          "tolerance": "f32 1e-6*max|ref|, bf16 1 ulp of max|ref|",
+          "shape": list(FBA_SHAPE), "channel_axis": -1, **times,
+          "path_launches": path, "dbias_rel_err": gb_err,
+          "card": ctx["card"]})
+
+
+def phase_conv3x3(ctx):
+    """Both conv kernels against their plain version at odd shapes; then
+    the conv probe's path: parity at the probe shape and three timed
+    rows at batch 16."""
+    import torch
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+    from ditsep_tpu_torch.ops.conv3x3 import (
+        conv3x3_bordered, conv3x3_bordered_async,
+    )
+    from ditsep_tpu_torch.scripts import conv_probe
+
+    worst = 0.0
+    for shape in ((2, 13, 37, 32, 48), (3, 9, 17, 16, 160)):
+        for padw, fn in ((1, conv3x3_bordered),
+                         (4, lambda x, w: conv3x3_bordered_async(x, w, 4))):
+            x, x1, x4, w9 = conv_probe.make_inputs(*shape, 5, "cuda")
+            xb = x1 if padw == 1 else x4
+            y = fn(xb, w9)
+            ref = ck.conv3x3_bordered_plain(xb, w9, padw)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = bf16_ulp(ref.float().abs().max().item())
+            check(err <= tol, f"conv3x3 padw={padw} {shape}: {err} > {tol}")
+            check(conv_probe.border_max(y, padw) == 0.0,
+                  f"conv3x3 padw={padw} {shape}: nonzero border")
+            worst = max(worst, err)
+    # the conv probe's path, through its entry point
+    torch.cuda.synchronize()
+    reset_counts()
+    probe = conv_probe.main(["--batch", "16", "--stack", str(CONV_STACK),
+                             "--reps", str(CONV_REPS)])
+    torch.cuda.synchronize()
+    path = counts()
+    per_variant = 1 + CONV_STACK * (CONV_REPS + 1)
+    check(path["conv3x3_9tap"] == per_variant
+          and path["conv3x3_async_halo"] == per_variant,
+          f"conv probe launches {path}, want {per_variant} each")
+    par = probe["parity"]
+    worst = max(worst, par["max_abs_err_9tap"], par["max_abs_err_async_halo"])
+    rows = {r["variant"]: r for r in probe["rows"]}
+    # the plain version at the timed shape (batch 16)
+    x, x1, x4, w9 = conv_probe.make_inputs(16, conv_probe.H, conv_probe.W,
+                                           conv_probe.C, conv_probe.C2, 6,
+                                           "cuda")
+    plain = {"cuda_9tap": cuda_ms(
+        lambda: ck.conv3x3_bordered_plain(x1, w9, 1), iters=2, warmup=1),
+        "cuda_async_halo": cuda_ms(
+        lambda: ck.conv3x3_bordered_plain(x4, w9, 4), iters=2, warmup=1)}
+    del x, x1, x4, w9
+    torch.cuda.empty_cache()
+    ctx["conv"] = {"rows": rows, "plain": plain, "err": worst,
+                   "launches": path}
+    emit({"phase": "conv3x3", "odd_shapes_max_abs_err": worst,
+          "tolerance": "1 bf16 ulp of max|ref|; borders exactly 0",
+          "probe_parity": par, "rows": probe["rows"], "plain_ms": plain,
+          "path_launches": path, "card": ctx["card"]})
 
 
 def phase_parity(ctx):
@@ -307,7 +509,7 @@ def phase_flagship(ctx):
             write_wav(str(inp / f"mix{i}.wav"), m, FS)
         # -- the main path, through the entry point a user calls ----------
         torch.cuda.synchronize()
-        ck.fir_down2d.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         nfe_cli = cli.main(["--config", "diffsep_icassp", "--input",
                             str(inp), "--output", str(outp), "--sampler-N",
@@ -315,6 +517,7 @@ def phase_flagship(ctx):
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         ctx["main_path_launches"] = ck.fir_down2d.launches
+        ctx["cli_launches"] = counts()
         check(nfe_cli == 2 * N_STEPS, f"CLI NFE {nfe_cli}")
         check(ctx["main_path_launches"]
               == LAUNCHES_PER_FORWARD * nfe_cli * N_FILES,
@@ -369,7 +572,8 @@ def phase_flagship(ctx):
           "weights seed 0)", "samples": FLAGSHIP_SAMPLES, "N": N_STEPS,
           "cli": {"files": N_FILES, "seconds": cli_s,
                   "utt_per_s": N_FILES / cli_s, "nfe_per_file": nfe_cli,
-                  "launches": ctx["main_path_launches"]},
+                  "launches": ctx["main_path_launches"],
+                  "launches_by_kernel": ctx["cli_launches"]},
           "batch": BATCH, "tf32_conv": True, **results,
           "bf16_vs_f32_si_sdr_db": {"mean": float(agree.mean()),
                                     "min": float(agree.min())},
@@ -394,26 +598,27 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from ditsep_tpu_torch.ops import cuda_kernels as ck
 
     card = gpu_name_and_power()
     print(card, flush=True)
     ctx = {"card": card, "bandwidth": bandwidth_for(card)}
-    t0 = time.perf_counter()
-    ck.fir_down2d.library.load()
-    ptxas = [ln.strip() for ln in ck.fir_down2d.library.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    build = build_all()
     emit({"phase": "device", "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": time.perf_counter() - t0, "ptxas": ptxas,
+          "kernel_build_s": build.pop("build_s"), "ptxas": build,
           "bandwidth_bytes_per_s": ctx["bandwidth"]})
 
     phase_kernel(ctx)
+    phase_fused_bias_act(ctx)
+    phase_conv3x3(ctx)
     phase_parity(ctx)
     phase_flagship(ctx)
 
     t = ctx["kernel_times"]["float32"]
-    emit({"kernels": [{
+    fba = ctx["fba"]["times"]["float32"]
+    conv = ctx["conv"]
+    lib_ms = conv["rows"]["cudnn_native"]["ms_per_conv"]
+    kernels = [{
         "name": "fir_down2d", "route": "cuda",
         "source": "ditsep_tpu_torch/csrc/fir_down2d.cu",
         "replaces": "ditsep_tpu/ops/pallas_kernels.py:148",
@@ -421,7 +626,30 @@ def main() -> int:
         "max_abs_err": ctx["kernel_err"][torch.float32],
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": "bytes",
-        "library_ms": t["library_ms"]}]})
+        "library_ms": t["library_ms"]}]
+    for name, line, key in (("fba_fwd", 82, "fwd"), ("fba_bwd", 109, "bwd")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ditsep_tpu_torch/csrc/fused_bias_act.cu",
+            "replaces": f"ditsep_tpu/ops/pallas_kernels.py:{line}",
+            "launches": ctx["fba"]["launches"][name],
+            "max_abs_err": ctx["fba"]["err"][torch.float32],
+            "ms": fba[f"{key}_ms"], "plain_ms": fba[f"{key}_plain_ms"],
+            "bound_ms": fba[f"{key}_bound_ms"], "bound_by": "bytes",
+            "library_ms": None})
+    for name, line, row in (("conv3x3_9tap", 95, "cuda_9tap"),
+                            ("conv3x3_async_halo", 208, "cuda_async_halo")):
+        r = conv["rows"][row]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ditsep_tpu_torch/csrc/conv3x3.cu",
+            "replaces": f"scripts/pallas_conv_probe.py:{line}",
+            "launches": conv["launches"][name],
+            "max_abs_err": conv["err"],
+            "ms": r["ms_per_conv"], "plain_ms": conv["plain"][row],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": lib_ms})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 import time
@@ -30,6 +31,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from ditsep_tpu_torch.ops.upfirdn2d import pad_or_crop, setup_fir_kernel, upfirdn2d
 
@@ -209,3 +211,301 @@ def downsample_2d_cuda(x: Tensor, k: Optional[Sequence[float]] = None,
             f"factor={factor}, k shape {k_arr.shape}")
     taps_h, taps_w = separable_taps(k_arr, gain)
     return fir_down2d(x, taps_h, taps_w)
+
+
+# -------------------------------------------- fused bias + leaky ReLU ------
+_FBA_LIBRARY = CudaLibrary("fused_bias_act.cu")
+_FBA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _bias_view(x: Tensor, bias: Tensor, channel_axis: int) -> Tensor:
+    shape = [1] * x.ndim
+    shape[channel_axis] = -1
+    return bias.float().reshape(shape)
+
+
+def fused_bias_act_plain(x: Tensor, bias: Tensor, slope: float = 0.2,
+                         scale: float = math.sqrt(2.0),
+                         channel_axis: int = -1) -> Tensor:
+    """Plain version of ``fba_fwd``: leaky_relu(x + bias, slope) * scale,
+    the bias broadcast over ``channel_axis``; f32 arithmetic, one rounding
+    to x's dtype (the kernel's)."""
+    s = x.float() + _bias_view(x, bias, channel_axis)
+    return (torch.where(s >= 0, s, slope * s) * scale).to(x.dtype)
+
+
+def fused_bias_act_bwd_plain(x: Tensor, bias: Tensor, g: Tensor,
+                             slope: float = 0.2,
+                             scale: float = math.sqrt(2.0),
+                             channel_axis: int = -1) -> Tensor:
+    """Plain version of ``fba_bwd``: dx = g * (scale where x + bias >= 0,
+    else slope * scale), the sign recomputed from x + bias."""
+    s = x.float() + _bias_view(x, bias, channel_axis)
+    d = torch.where(s >= 0, scale, float(np.float32(slope * scale)))
+    return (g.float() * d).to(x.dtype)
+
+
+def _fba_layout(x: Tensor, bias: Tensor, channel_axis: int,
+                *others: Tensor) -> Tuple[int, int]:
+    """Check what ``fused_bias_act.cu`` takes; return (inner, C)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_bias_act needs a CUDA tensor, got {x.device}")
+    if x.dtype not in _FBA_DTYPES:
+        raise ValueError(f"fused_bias_act takes float32 or bfloat16, "
+                         f"got {x.dtype}")
+    if x.ndim < 1:
+        raise ValueError("fused_bias_act needs at least one axis")
+    ax = channel_axis % x.ndim
+    if ax not in (x.ndim - 1, 1):
+        raise ValueError(f"fused_bias_act takes the channel axis last or at "
+                         f"1, got axis {channel_axis} of {x.ndim}")
+    c = x.shape[ax]
+    if bias.shape != (c,) or bias.dtype != x.dtype or bias.device != x.device:
+        raise ValueError(f"fused_bias_act needs a ({c},) {x.dtype} bias on "
+                         f"{x.device}, got {tuple(bias.shape)} {bias.dtype} "
+                         f"on {bias.device}")
+    for t in others:
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError("fused_bias_act: the gradient must match x's "
+                             "shape, dtype and device")
+    if not all(t.is_contiguous() for t in (x, bias) + others):
+        raise ValueError(f"fused_bias_act takes contiguous tensors, got "
+                         f"strides {x.stride()}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"fused_bias_act indexes with 32 bits: "
+                         f"{x.numel()} elements")
+    return math.prod(x.shape[ax + 1:]), c
+
+
+def _stream(x: Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+class _FusedBiasActKernel:
+    """Shared checks and launch of the two entry points of
+    fused_bias_act.cu; ``entry`` names the one this wrapper launches."""
+
+    entry = ""
+
+    def __init__(self):
+        self.library = _FBA_LIBRARY
+        self.launches = 0
+        self._fn = None
+
+    def _launch(self, x: Tensor, bias: Tensor, g: Optional[Tensor],
+                p0: float, p1: float, channel_axis: int) -> Tensor:
+        grads = () if g is None else (g,)
+        inner, c = _fba_layout(x, bias, channel_axis, *grads)
+        out = torch.empty_like(x)
+        if out.numel() == 0:
+            return out
+        if self._fn is None:
+            fn = getattr(self.library.load(), self.entry)
+            fn.argtypes = ([ctypes.c_void_p] * (3 + len(grads))
+                           + [ctypes.c_int] + [ctypes.c_int64] * 3
+                           + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        ptrs = [t.data_ptr() for t in (x, bias, *grads, out)]
+        with torch.cuda.device(x.device):
+            err = self._fn(*ptrs, _FBA_DTYPES[x.dtype], x.numel(), inner, c,
+                           p0, p1, _stream(x))
+        if err != 0:
+            raise RuntimeError(f"{self.entry} launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1
+        return out
+
+
+class FusedBiasActFwd(_FusedBiasActKernel):
+    """Wrapper of ``fba_fwd`` in ``csrc/fused_bias_act.cu``: leaky ReLU of
+    x + bias, times scale, the bias on the last axis or axis 1.
+
+    Replaces ditsep_tpu/ops/pallas_kernels.py:_fba_fwd_kernel (through
+    fused_bias_act_pallas). f32 or bf16, contiguous, < 2^31 elements."""
+
+    entry = "fba_fwd"
+
+    def __call__(self, x: Tensor, bias: Tensor, slope: float = 0.2,
+                 scale: float = math.sqrt(2.0),
+                 channel_axis: int = -1) -> Tensor:
+        return self._launch(x, bias, None, slope, scale, channel_axis)
+
+
+class FusedBiasActBwd(_FusedBiasActKernel):
+    """Wrapper of ``fba_bwd`` in ``csrc/fused_bias_act.cu``: dx of the
+    fused bias-act from x, bias and the output gradient g (no mask).
+
+    Replaces ditsep_tpu/ops/pallas_kernels.py:_fba_bwd_kernel (through
+    _fba_bwd). Takes what ``FusedBiasActFwd`` takes; g like x."""
+
+    entry = "fba_bwd"
+
+    def __call__(self, x: Tensor, bias: Tensor, g: Tensor,
+                 slope: float = 0.2, scale: float = math.sqrt(2.0),
+                 channel_axis: int = -1) -> Tensor:
+        # slope * scale rounds to f32 once, as in the plain version
+        return self._launch(x, bias, g, scale, slope * scale, channel_axis)
+
+
+fused_bias_act_fwd = FusedBiasActFwd()
+fused_bias_act_bwd = FusedBiasActBwd()
+
+
+class FusedBiasActFunction(torch.autograd.Function):
+    """The fused bias-act with both passes as kernels (the counterpart of
+    ``fused_bias_act_pallas``'s custom VJP). Saves x and bias, no mask;
+    dbias = sum(dx) over all but the channel axis, in PyTorch, as the JAX
+    package takes it outside its kernel. Not twice differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, bias, slope, scale, channel_axis):
+        ctx.save_for_backward(x, bias)
+        ctx.args = (slope, scale, channel_axis)
+        return fused_bias_act_fwd(x, bias, slope, scale, channel_axis)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, bias = ctx.saved_tensors
+        slope, scale, channel_axis = ctx.args
+        dx = fused_bias_act_bwd(x, bias, g.contiguous(), slope, scale,
+                                channel_axis)
+        dbias = None
+        if ctx.needs_input_grad[1]:
+            ax = channel_axis % x.ndim
+            dbias = dx.sum(tuple(d for d in range(x.ndim) if d != ax))
+        return dx, dbias, None, None, None
+
+
+# ------------------------------------- 3x3 conv, implicit GEMM, bordered ---
+_CONV_LIBRARY = CudaLibrary("conv3x3.cu")
+CONV_TILE = (16, 16)     # output rows x columns of a block's tile (TH, TW)
+
+
+def conv3x3_bordered_plain(x: Tensor, w9: Tensor, padw: int = 1) -> Tensor:
+    """Plain version of ``conv3x3_9tap`` / ``conv3x3_async_halo``.
+
+    x (B, H+2, W+2*padw, C) with zero borders, w9 (9, C, C2) (tap
+    ky*3+kx). The 9 shifted (B*H*W, C) @ (C, C2) products are accumulated
+    in f32 and cast once to x's dtype; the output (B, H+2, W+2*padw, C2)
+    has exact-zero borders (rows 0 and H+1, padw columns each side)."""
+    b, hp, wp, _ = x.shape
+    h, w = hp - 2, wp - 2 * padw
+    xf, wf = x.float(), w9.float()
+    acc = torch.zeros((b, h, w, w9.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    for ky in range(3):
+        for kx in range(3):
+            c0 = padw - 1 + kx
+            acc += torch.matmul(xf[:, ky:ky + h, c0:c0 + w], wf[ky * 3 + kx])
+    y = torch.zeros((b, hp, wp, w9.shape[2]), dtype=x.dtype, device=x.device)
+    y[:, 1:1 + h, padw:padw + w] = acc.to(x.dtype)
+    return y
+
+
+class _Conv3x3Kernel:
+    """Shared checks and launch of the two entry points of conv3x3.cu."""
+
+    entry = ""
+    is_async = False
+
+    def __init__(self):
+        self.library = _CONV_LIBRARY
+        self.launches = 0
+        self._fn = None
+
+    def _function(self):
+        if self._fn is None:
+            fn = getattr(self.library.load(), self.entry)
+            n_int = 7 if self.is_async else 5
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * n_int
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def _check(self, x: Tensor, w9: Tensor, padw: int) -> None:
+        n = self.entry
+        if x.device.type != "cuda" or w9.device != x.device:
+            raise ValueError(f"{n} needs x and w9 on one CUDA device, got "
+                             f"{x.device} and {w9.device}")
+        if x.dtype != torch.bfloat16 or w9.dtype != torch.bfloat16:
+            raise ValueError(f"{n} takes bfloat16, got {x.dtype} and "
+                             f"{w9.dtype}")
+        if x.ndim != 4 or w9.ndim != 3 or w9.shape[:2] != (9, x.shape[3]):
+            raise ValueError(f"{n} takes x (B, Hp, Wp, C) and w9 (9, C, C2), "
+                             f"got {tuple(x.shape)} and {tuple(w9.shape)}")
+        b, hp, wp, c = x.shape
+        c2 = w9.shape[2]
+        if c % 16 or c2 % 16 or c == 0 or c2 == 0:
+            raise ValueError(f"{n} takes C and C2 that are multiples of 16, "
+                             f"got {c} and {c2}")
+        if hp < 3 or padw < 1 or wp - 2 * padw < 1:
+            raise ValueError(f"{n}: no interior in {tuple(x.shape)} with "
+                             f"padw={padw}")
+        if not (x.is_contiguous() and w9.is_contiguous()):
+            raise ValueError(f"{n} takes contiguous tensors, got strides "
+                             f"{x.stride()} and {w9.stride()}")
+        if x.data_ptr() % 16 or w9.data_ptr() % 16:
+            raise ValueError(f"{n} needs 16-byte aligned tensors")
+        if b > 65535 or b * hp * wp * max(c, c2) >= 2 ** 31:
+            raise ValueError(f"{n}: {tuple(x.shape)} -> C2={c2} is too "
+                             "large")
+
+    def __call__(self, x: Tensor, w9: Tensor, padw: int) -> Tensor:
+        self._check(x, w9, padw)
+        fn = self._function()
+        b, hp, wp, c = x.shape
+        c2 = w9.shape[2]
+        y = torch.empty((b, hp, wp, c2), dtype=x.dtype, device=x.device)
+        extra = self.launch_args(x, padw)
+        with torch.cuda.device(x.device):
+            err = fn(x.data_ptr(), w9.data_ptr(), y.data_ptr(), b, hp, wp, c,
+                     c2, *extra, _stream(x))
+        if err != 0:  # 1 (invalid value): e.g. C too deep for shared memory
+            raise RuntimeError(f"{self.entry} launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1
+        return y
+
+    def launch_args(self, x: Tensor, padw: int) -> tuple:
+        """The entry point's arguments after (x, w, y, B, Hp, Wp, C, C2)."""
+        if padw != 1:
+            raise ValueError(f"{self.entry} takes padw=1, got {padw}")
+        return ()
+
+
+class Conv3x3(_Conv3x3Kernel):
+    """Wrapper of ``conv3x3_9tap`` in ``csrc/conv3x3.cu``: the bordered
+    3x3 conv (padw 1), one 16x16-pixel tile per block, bf16 mma.sync.
+
+    Replaces scripts/pallas_conv_probe.py:_conv_kernel (through
+    conv3x3_pallas)."""
+
+    entry = "conv3x3_9tap"
+
+
+class Conv3x3AsyncHalo(_Conv3x3Kernel):
+    """Wrapper of ``conv3x3_async_halo`` in ``csrc/conv3x3.cu``: the same
+    conv on a layout with ``padw`` border columns a side; each block walks
+    several row tiles and prefetches the next halo window with cp.async.
+
+    Replaces scripts/pallas_conv_probe.py:_conv_dma_kernel (through
+    conv3x3_pallas_dma)."""
+
+    entry, is_async = "conv3x3_async_halo", True
+
+    def launch_args(self, x: Tensor, padw: int) -> tuple:
+        b, hp, wp, _ = x.shape
+        row_tiles = -(-(hp - 2) // CONV_TILE[0])
+        col_tiles = -(-(wp - 2 * padw) // CONV_TILE[1])
+        # about four blocks per SM in all, each walking >= 2 row tiles
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        groups = -(-4 * sms // (b * col_tiles))
+        rows = min(row_tiles, max(2, -(-row_tiles // groups)))
+        return (padw, rows)
+
+
+conv3x3_9tap = Conv3x3()
+conv3x3_async_halo = Conv3x3AsyncHalo()

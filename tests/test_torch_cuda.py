@@ -5,11 +5,13 @@ PyTorch. There, skip the repository's conftest (it configures JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+import math
+
 import pytest
 import torch
 
 from ditsep_tpu_torch.models import NCSNpp
-from ditsep_tpu_torch.ops import cuda_kernels, fir
+from ditsep_tpu_torch.ops import conv3x3, cuda_kernels, fir, fused_act
 
 
 @pytest.fixture
@@ -90,3 +92,154 @@ def test_ncsnpp_on_card_goes_through_kernel(cuda_device):
             torch.backends.cudnn.allow_tf32 = prev
     assert cuda_kernels.fir_down2d.launches - before == 3 * (3 - 1)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def _fba_counts():
+    return (cuda_kernels.fused_bias_act_fwd.launches,
+            cuda_kernels.fused_bias_act_bwd.launches)
+
+
+def _tolerance(ref, dtype, f32_rel=1e-6):
+    peak = ref.float().abs().max().item()
+    return f32_rel * peak if dtype == torch.float32 else _ulp_bf16(peak)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,axis", [
+    ((2, 4, 8, 128), -1), ((2, 4, 8, 128), 1),
+    ((7919, 64), -1), ((7919, 64), 1),    # prime rows; axis 1 is last
+    ((3, 5, 7, 9), 1), ((3, 5, 7, 9), -1),  # no 16-byte vectors
+])
+def test_fused_bias_act_kernels_match_plain(cuda_device, dtype, shape, axis):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    b = torch.randn(shape[axis], generator=g, device=cuda_device).to(dtype)
+    gy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    fwd0, bwd0 = _fba_counts()
+    y = cuda_kernels.fused_bias_act_fwd(x, b, 0.2, math.sqrt(2), axis)
+    dx = cuda_kernels.fused_bias_act_bwd(x, b, gy, 0.2, math.sqrt(2), axis)
+    torch.cuda.synchronize()
+    assert _fba_counts() == (fwd0 + 1, bwd0 + 1)
+    ref = cuda_kernels.fused_bias_act_plain(x, b, 0.2, math.sqrt(2), axis)
+    dref = cuda_kernels.fused_bias_act_bwd_plain(x, b, gy, 0.2,
+                                                 math.sqrt(2), axis)
+    assert y.dtype == dx.dtype == dtype and y.shape == dx.shape == shape
+    assert (y.float() - ref.float()).abs().max() <= _tolerance(ref, dtype)
+    assert (dx.float() - dref.float()).abs().max() <= _tolerance(dref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [-1, 1])
+def test_fused_leaky_relu_autograd_on_card(cuda_device, axis):
+    """Forward and backward both launch their kernel; gradients match the
+    plain version's autograd on the CPU."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 16, 8, 32, generator=gen)
+    b = torch.randn(x.shape[axis], generator=gen)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        xd = x.to(dev).requires_grad_()
+        bd = b.to(dev).requires_grad_()
+        before = _fba_counts()
+        out = fused_act.fused_leaky_relu(xd, bd, channel_axis=axis)
+        gx, gb = torch.autograd.grad((out ** 2).sum(), (xd, bd))
+        after = _fba_counts()
+        want = (0, 0) if dev == "cpu" else (1, 1)
+        assert (after[0] - before[0], after[1] - before[1]) == want
+        grads.append((out.detach().cpu(), gx.cpu(), gb.cpu()))
+    (o_c, gx_c, gb_c), (o_g, gx_g, gb_g) = grads
+    assert (o_g - o_c).abs().max() <= 1e-6 * o_c.abs().max()
+    assert (gx_g - gx_c).abs().max() <= 1e-5
+    assert (gb_g - gb_c).abs().max() <= 1e-4 * gb_c.abs().max()
+    # bias=None is a zero bias and still launches the kernel
+    before = _fba_counts()
+    y = fused_act.fused_leaky_relu(x.to(cuda_device), channel_axis=axis)
+    assert _fba_counts()[0] == before[0] + 1
+    assert torch.equal(y.cpu(), cuda_kernels.fused_bias_act_plain(
+        x, torch.zeros(x.shape[axis]), channel_axis=axis))
+
+
+@pytest.mark.cuda
+def test_fused_bias_act_raises_not_falls_back(cuda_device):
+    x = torch.randn(2, 8, 4, 16, device=cuda_device)
+    b = torch.randn(16, device=cuda_device)
+    before = _fba_counts()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_act.fused_leaky_relu(x.half(), b.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_act.fused_leaky_relu(x.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), b)
+    with pytest.raises(ValueError, match="channel axis"):
+        fused_act.fused_leaky_relu(x, b[:4], channel_axis=2)
+    with pytest.raises(ValueError, match="bias"):
+        fused_act.fused_leaky_relu(x, b[:8])
+    with pytest.raises(ValueError, match="gradient"):
+        cuda_kernels.fused_bias_act_bwd(x, b, x[:1])
+    assert _fba_counts() == before
+
+
+def _conv_case(device, b, h, w, c, c2, padw, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = 0.1 * torch.randn(b, h, w, c, generator=gen)
+    w9 = 0.05 * torch.randn(9, c, c2, generator=gen)
+    x = torch.nn.functional.pad(x, (0, 0, padw, padw, 1, 1))
+    return (x.to(device=device, dtype=torch.bfloat16),
+            w9.to(device=device, dtype=torch.bfloat16))
+
+
+def _borders(y, padw):
+    return torch.cat([y[:, :1].flatten(), y[:, -1:].flatten(),
+                      y[:, :, :padw].flatten(), y[:, :, -padw:].flatten()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["9tap", "async_halo"])
+@pytest.mark.parametrize("shape", [
+    (1, 576, 256, 128, 128),   # the probe's conv at batch 1
+    (2, 13, 37, 32, 48),       # ragged tiles, C2 not a multiple of 128
+    (3, 8, 16, 16, 160),       # one tile, two output-channel passes
+])
+def test_conv3x3_kernels_match_plain(cuda_device, kernel, shape):
+    b, h, w, c, c2 = shape
+    padw = 1 if kernel == "9tap" else 4
+    x, w9 = _conv_case(cuda_device, b, h, w, c, c2, padw)
+    wrapper = (cuda_kernels.conv3x3_9tap if kernel == "9tap"
+               else cuda_kernels.conv3x3_async_halo)
+    before = wrapper.launches
+    y = (conv3x3.conv3x3_bordered(x, w9) if kernel == "9tap"
+         else conv3x3.conv3x3_bordered_async(x, w9, padw))
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ref = cuda_kernels.conv3x3_bordered_plain(x, w9, padw)
+    assert y.shape == ref.shape == (b, h + 2, w + 2 * padw, c2)
+    assert y.dtype == torch.bfloat16
+    assert (y.float() - ref.float()).abs().max() <= _tolerance(
+        ref, torch.bfloat16)
+    assert bool((_borders(y, padw) == 0).all())
+
+
+@pytest.mark.cuda
+def test_conv3x3_raises_not_falls_back(cuda_device):
+    x, w9 = _conv_case(cuda_device, 1, 8, 16, 32, 32, 1)
+    before = (cuda_kernels.conv3x3_9tap.launches,
+              cuda_kernels.conv3x3_async_halo.launches)
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv3x3.conv3x3_bordered(x.float(), w9.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3.conv3x3_bordered(x.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), w9)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        conv3x3.conv3x3_bordered(x[..., :24].contiguous(),
+                                 w9[:, :24].contiguous())
+    with pytest.raises(ValueError, match="multiples of 16"):
+        conv3x3.conv3x3_bordered_async(x, w9[..., :8].contiguous(), 1)
+    with pytest.raises(ValueError, match="padw"):
+        cuda_kernels.conv3x3_9tap(x, w9, 2)
+    # two halo windows of C = 160 exceed a block's shared memory: the
+    # launch is refused and the wrapper raises
+    xd, wd = _conv_case(cuda_device, 1, 8, 16, 160, 16, 4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        conv3x3.conv3x3_bordered_async(xd, wd)
+    assert (cuda_kernels.conv3x3_9tap.launches,
+            cuda_kernels.conv3x3_async_halo.launches) == before
