@@ -24,7 +24,8 @@ lines; any failure raises and the exit code is non-zero:
                (``ditsep_tpu_torch.scripts.conv_probe``): both kernels at
                the probe shape, batch 1, against the plain version, borders
                exactly 0, and the three timed rows (cuDNN, 9-tap, async
-               halo) at batch 16;
+               halo) at batch 16; then both kernels against the plain
+               version at batch 16, the timed rows' own inputs;
 5. parity   -- the trained nf=32 checkpoint separates a 1 s mixture with
                the same explicit noise on the card (TF32 off) and on the
                CPU; they agree within 1e-3 (and bf16 on the card is
@@ -47,7 +48,6 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import tempfile
 import time
@@ -62,9 +62,6 @@ N_FILES = 4                       # WAVs through the CLI
 BATCH = 4                         # batch of the direct separate calls
 # 6 down blocks (on h and on x) + 6 input-pyramid levels
 LAUNCHES_PER_FORWARD = 18
-# published memory bandwidth, bytes/s (NVIDIA data sheets); other cards
-# are taken at the H100 SXM's 3.35 TB/s
-BANDWIDTH = (("H100 PCIe", 2.0e12), ("H200", 4.8e12))
 FBA_SHAPE = (4, 256, 576, 128)    # level-0 activation, batch 4, NHWC
 CONV_STACK, CONV_REPS = 10, 5     # the conv probe's timed stacks
 
@@ -76,21 +73,6 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
-
-
-def gpu_name_and_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
-def bandwidth_for(name: str) -> float:
-    for key, bw in BANDWIDTH:
-        if key in name:
-            return bw
-    return 3.35e12
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -107,10 +89,6 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bf16_ulp(v: float) -> float:
-    return 2.0 ** (math.floor(math.log2(abs(v))) - 7)
 
 
 def wrappers() -> dict:
@@ -175,7 +153,8 @@ def phase_kernel(ctx):
                       f"fir_down2d output shape/dtype/layout at {shape}")
                 err = (y.float() - ref.float()).abs().max().item()
                 peak = ref.float().abs().max().item()
-                tol = 1e-6 * peak if dtype == torch.float32 else bf16_ulp(peak)
+                tol = (1e-6 * peak if dtype == torch.float32
+                       else ck.bf16_ulp(peak))
                 check(err <= tol, f"fir_down2d {shape} {dtype} {fmt}: "
                                   f"max err {err} > {tol}")
                 worst[dtype] = max(worst[dtype], err)
@@ -192,7 +171,8 @@ def phase_kernel(ctx):
         # the library call computes the same function (checked, not used)
         lerr = (lib().float() - y.float()).abs().max().item()
         peak = y.float().abs().max().item()
-        ltol = 1e-5 * peak if dtype == torch.float32 else 2 * bf16_ulp(peak)
+        ltol = (1e-5 * peak if dtype == torch.float32
+                else 2 * ck.bf16_ulp(peak))
         check(lerr <= ltol, f"library call disagrees with the kernel "
                             f"({lerr} > {ltol})")
         nbytes = (x.numel() + y.numel()) * x.element_size()
@@ -251,7 +231,7 @@ def phase_fused_bias_act(ctx):
                     err = (got.float() - ref.float()).abs().max().item()
                     peak = ref.float().abs().max().item()
                     tol = (1e-6 * peak if dtype == torch.float32
-                           else bf16_ulp(peak))
+                           else ck.bf16_ulp(peak))
                     check(err <= tol, f"fba {what} {shape} axis {axis} "
                                       f"{dtype}: max err {err} > {tol}")
                     worst[dtype] = max(worst[dtype], err)
@@ -311,7 +291,8 @@ def phase_fused_bias_act(ctx):
 def phase_conv3x3(ctx):
     """Both conv kernels against their plain version at odd shapes; then
     the conv probe's path: parity at the probe shape and three timed
-    rows at batch 16."""
+    rows at batch 16; then both kernels against the plain version at
+    batch 16."""
     import torch
     from ditsep_tpu_torch.ops import cuda_kernels as ck
     from ditsep_tpu_torch.ops.conv3x3 import (
@@ -329,7 +310,7 @@ def phase_conv3x3(ctx):
             ref = ck.conv3x3_bordered_plain(xb, w9, padw)
             torch.cuda.synchronize()
             err = (y.float() - ref.float()).abs().max().item()
-            tol = bf16_ulp(ref.float().abs().max().item())
+            tol = ck.bf16_ulp(ref.float().abs().max().item())
             check(err <= tol, f"conv3x3 padw={padw} {shape}: {err} > {tol}")
             check(conv_probe.border_max(y, padw) == 0.0,
                   f"conv3x3 padw={padw} {shape}: nonzero border")
@@ -348,21 +329,40 @@ def phase_conv3x3(ctx):
     par = probe["parity"]
     worst = max(worst, par["max_abs_err_9tap"], par["max_abs_err_async_halo"])
     rows = {r["variant"]: r for r in probe["rows"]}
-    # the plain version at the timed shape (batch 16)
+    # the timed shape (batch 16): the plain version's time, and both
+    # kernels held against it there, where the async kernel's blocks walk
+    # many row tiles (the double buffer wraps) and the grid spans waves
     x, x1, x4, w9 = conv_probe.make_inputs(16, conv_probe.H, conv_probe.W,
                                            conv_probe.C, conv_probe.C2, 6,
                                            "cuda")
-    plain = {"cuda_9tap": cuda_ms(
-        lambda: ck.conv3x3_bordered_plain(x1, w9, 1), iters=2, warmup=1),
-        "cuda_async_halo": cuda_ms(
-        lambda: ck.conv3x3_bordered_plain(x4, w9, 4), iters=2, warmup=1)}
+    plain, timed_err = {}, {}
+    for row, xb, padw, fn in (
+            ("cuda_9tap", x1, 1, conv3x3_bordered),
+            ("cuda_async_halo", x4, conv_probe.PADW,
+             lambda x, w: conv3x3_bordered_async(x, w, conv_probe.PADW))):
+        ref = ck.conv3x3_bordered_plain(xb, w9, padw)
+        y = fn(xb, w9)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        tol = ck.bf16_ulp(ref.float().abs().max().item())
+        check(err <= tol, f"conv3x3 {row} at batch 16: {err} > {tol}")
+        check(conv_probe.border_max(y, padw) == 0.0,
+              f"conv3x3 {row} at batch 16: nonzero border")
+        timed_err[row] = err
+        worst = max(worst, err)
+        del ref, y
+        plain[row] = cuda_ms(lambda: ck.conv3x3_bordered_plain(xb, w9, padw),
+                             iters=2, warmup=1)
+    rows_per_block = ck.conv3x3_async_halo.rows_per_block(x4, conv_probe.PADW)
     del x, x1, x4, w9
     torch.cuda.empty_cache()
     ctx["conv"] = {"rows": rows, "plain": plain, "err": worst,
                    "launches": path}
-    emit({"phase": "conv3x3", "odd_shapes_max_abs_err": worst,
+    emit({"phase": "conv3x3", "max_abs_err": worst,
           "tolerance": "1 bf16 ulp of max|ref|; borders exactly 0",
-          "probe_parity": par, "rows": probe["rows"], "plain_ms": plain,
+          "probe_parity": par, "batch16_max_abs_err": timed_err,
+          "batch16_async_rows_per_block": rows_per_block,
+          "rows": probe["rows"], "plain_ms": plain,
           "path_launches": path, "card": ctx["card"]})
 
 
@@ -599,9 +599,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
 
-    card = gpu_name_and_power()
+    from ditsep_tpu_torch.utils.device import card_line, card_peaks
+    card = card_line()
     print(card, flush=True)
-    ctx = {"card": card, "bandwidth": bandwidth_for(card)}
+    ctx = {"card": card, "bandwidth": card_peaks(card)[1]}
     build = build_all()
     emit({"phase": "device", "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,

@@ -385,7 +385,8 @@ extern "C" int conv3x3_9tap(const void* x, const void* w, void* y,
   return launch<false>(x, w, y, b, hp, wp, c, c2, 1, 1, stream);
 }
 
-// rows_per_block: row tiles (of 8 rows) each block walks, prefetching.
+// rows_per_block: row tiles (of TH = 16 rows) each block walks,
+// prefetching the next one's halo window while it computes the current.
 extern "C" int conv3x3_async_halo(const void* x, const void* w, void* y,
                                   int64_t b, int64_t hp, int64_t wp,
                                   int64_t c, int64_t c2, int64_t padw,

@@ -108,8 +108,15 @@ __global__ void fba_bwd_kernel(const T* __restrict__ x,
   }
 }
 
+// Up to 32 blocks of `threads` per SM of the current device (the wrapper
+// makes the tensor's device current); the grid-stride loop covers the rest.
 unsigned grid_for(uint32_t n_vec, int threads) {
-  const uint32_t max_blocks = 132 * 32;  // grid-stride beyond that
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms < 1)
+    sms = 1;  // any error stays pending for the caller's cudaGetLastError
+  const uint32_t max_blocks = (uint32_t)sms * 32;
   uint32_t blocks = (n_vec + threads - 1) / threads;
   return blocks < max_blocks ? (blocks ? blocks : 1) : max_blocks;
 }

@@ -51,10 +51,17 @@ def _nvcc() -> str:
 
 
 class CudaLibrary:
-    """One ``csrc/<name>.cu`` source built into ``lib<name>-<hash>.so``."""
+    """One ``csrc/<name>.cu`` source built into ``lib<name>-<hash>.so``.
 
-    def __init__(self, source: str):
+    ``edits``, (text, replacement) pairs, build a variant of the source
+    (``scripts/conv_ablation.py`` times such variants): each text must be
+    in the source, and the edited source is compiled from the build
+    directory under its own hash."""
+
+    def __init__(self, source: str,
+                 edits: Sequence[Tuple[str, str]] = ()):
         self.source = CSRC_DIR / source
+        self.edits = tuple(edits)
         self._lib: Optional[ctypes.CDLL] = None
         self.build_seconds: Optional[float] = None  # None: cache hit
         self.build_log = ""
@@ -64,16 +71,30 @@ class CudaLibrary:
             self._lib = ctypes.CDLL(str(self.build()))
         return self._lib
 
+    def target(self) -> Tuple[str, Path]:
+        """The (edited) source text and the library it builds into."""
+        src = self.source.read_text()
+        for old, new in self.edits:
+            if old not in src:
+                raise RuntimeError(f"edit of {self.source.name}: {old!r} is "
+                                   "not in the source")
+            src = src.replace(old, new)
+        digest = hashlib.sha256((src + " ".join(NVCC_FLAGS)).encode())
+        name = f"lib{self.source.stem}-{digest.hexdigest()[:16]}.so"
+        return src, BUILD_DIR / name
+
     def build(self) -> Path:
         """Compile the source unless a library of the same hash exists."""
-        src = self.source.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
-        out = BUILD_DIR / f"lib{self.source.stem}-{digest.hexdigest()[:16]}.so"
+        src, out = self.target()
         if out.exists():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cu = self.source
+        if self.edits:
+            cu = out.with_suffix(".cu")
+            cu.write_text(src)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(cu)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         self.build_seconds = time.perf_counter() - t0
@@ -84,6 +105,12 @@ class CudaLibrary:
                 f"{self.build_log}")
         os.replace(tmp, out)  # atomic: concurrent builders never see half
         return out
+
+
+def bf16_ulp(v: float) -> float:
+    """One bf16 unit in the last place at magnitude ``v``: the tolerance of
+    a bf16 kernel against its plain version."""
+    return 2.0 ** (math.floor(math.log2(abs(v))) - 7)
 
 
 # ---------------------------------------------- FIR 2x downsample (4 taps) --
@@ -405,13 +432,14 @@ def conv3x3_bordered_plain(x: Tensor, w9: Tensor, padw: int = 1) -> Tensor:
 
 
 class _Conv3x3Kernel:
-    """Shared checks and launch of the two entry points of conv3x3.cu."""
+    """Shared checks and launch of the two entry points of conv3x3.cu
+    (``library``: a variant build of it, for the ablation script)."""
 
     entry = ""
     is_async = False
 
-    def __init__(self):
-        self.library = _CONV_LIBRARY
+    def __init__(self, library: Optional[CudaLibrary] = None):
+        self.library = library or _CONV_LIBRARY
         self.launches = 0
         self._fn = None
 
@@ -453,13 +481,14 @@ class _Conv3x3Kernel:
             raise ValueError(f"{n}: {tuple(x.shape)} -> C2={c2} is too "
                              "large")
 
-    def __call__(self, x: Tensor, w9: Tensor, padw: int) -> Tensor:
-        self._check(x, w9, padw)
+    def _launch(self, x: Tensor, w9: Tensor, padw: int,
+                extra: tuple) -> Tensor:
+        """``extra``: the entry point's arguments after (x, w, y, B, Hp,
+        Wp, C, C2); ``_check`` has passed."""
         fn = self._function()
         b, hp, wp, c = x.shape
         c2 = w9.shape[2]
         y = torch.empty((b, hp, wp, c2), dtype=x.dtype, device=x.device)
-        extra = self.launch_args(x, padw)
         with torch.cuda.device(x.device):
             err = fn(x.data_ptr(), w9.data_ptr(), y.data_ptr(), b, hp, wp, c,
                      c2, *extra, _stream(x))
@@ -468,12 +497,6 @@ class _Conv3x3Kernel:
                                f"{err}")
         self.launches += 1
         return y
-
-    def launch_args(self, x: Tensor, padw: int) -> tuple:
-        """The entry point's arguments after (x, w, y, B, Hp, Wp, C, C2)."""
-        if padw != 1:
-            raise ValueError(f"{self.entry} takes padw=1, got {padw}")
-        return ()
 
 
 class Conv3x3(_Conv3x3Kernel):
@@ -485,26 +508,46 @@ class Conv3x3(_Conv3x3Kernel):
 
     entry = "conv3x3_9tap"
 
+    def __call__(self, x: Tensor, w9: Tensor, padw: int = 1) -> Tensor:
+        if padw != 1:
+            raise ValueError(f"{self.entry} takes padw=1, got {padw}")
+        self._check(x, w9, padw)
+        return self._launch(x, w9, padw, ())
+
 
 class Conv3x3AsyncHalo(_Conv3x3Kernel):
     """Wrapper of ``conv3x3_async_halo`` in ``csrc/conv3x3.cu``: the same
     conv on a layout with ``padw`` border columns a side; each block walks
-    several row tiles and prefetches the next halo window with cp.async.
+    ``rows_per_block`` row tiles of one column of tiles and prefetches the
+    next halo window with cp.async.
 
     Replaces scripts/pallas_conv_probe.py:_conv_dma_kernel (through
     conv3x3_pallas_dma)."""
 
     entry, is_async = "conv3x3_async_halo", True
 
-    def launch_args(self, x: Tensor, padw: int) -> tuple:
+    def __call__(self, x: Tensor, w9: Tensor, padw: int = 4,
+                 rows_per_block: Optional[int] = None) -> Tensor:
+        self._check(x, w9, padw)
+        if rows_per_block is None:
+            rows_per_block = self.rows_per_block(x, padw)
+        if rows_per_block < 1:
+            raise ValueError(f"{self.entry}: rows_per_block must be >= 1, "
+                             f"got {rows_per_block}")
+        return self._launch(x, w9, padw, (padw, rows_per_block))
+
+    @staticmethod
+    def rows_per_block(x: Tensor, padw: int) -> int:
+        """An SM holds one block at a time (512 threads of 128 registers
+        fill its register file): one wave of blocks while the columns of
+        tiles leave SMs idle, else one block per column walking all its
+        row tiles (scripts/conv_ablation.py times the choices)."""
         b, hp, wp, _ = x.shape
         row_tiles = -(-(hp - 2) // CONV_TILE[0])
         col_tiles = -(-(wp - 2 * padw) // CONV_TILE[1])
-        # about four blocks per SM in all, each walking >= 2 row tiles
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        groups = -(-4 * sms // (b * col_tiles))
-        rows = min(row_tiles, max(2, -(-row_tiles // groups)))
-        return (padw, rows)
+        blocks_per_column = max(1, sms // (b * col_tiles))
+        return -(-row_tiles // blocks_per_column)
 
 
 conv3x3_9tap = Conv3x3()

@@ -1,43 +1,49 @@
 """Where the time of the conv kernels goes, on one CUDA card.
 
 The card's machine has no kernel profiler (ncu, nsys), so this script
-takes the kernels apart instead: it builds variants of
-``ditsep_tpu_torch/csrc/conv3x3.cu``, each with one part of the work cut
-out, and times every variant's two entry points at the conv probe's shape.
-The variants compute wrong results by design; they are timed, never used.
-The difference between ``base`` and a variant is the time that part costs
-where it cannot hide behind the rest.
+takes the kernels apart instead:
+
+1. Ablation: it builds variants of ``ditsep_tpu_torch/csrc/conv3x3.cu``
+   (``CudaLibrary`` with source edits), each with one part of the work cut
+   out, and times every variant's two entry points at the conv probe's
+   shape. The variants compute wrong results by design; they are timed,
+   never used. The difference between ``base`` and a variant is the time
+   that part costs where it cannot hide behind the rest.
+2. Sweep: ``conv3x3_async_halo`` of the real build with each number of
+   row tiles a block walks, at ``--batch`` and at batch 1. Every output
+   must equal the one of the wrapper's own choice bit for bit (the
+   arithmetic of a tile does not depend on the walk), which checks the
+   double buffer's wrap at every length.
 
     python -m ditsep_tpu_torch.scripts.conv_ablation [--batch 16] [--reps 10]
 
-Variants (built into ``build/ditsep_tpu_torch/ablation/``, all at once):
+Variants:
   base         the source as it is;
   no_mma       no tensor-core products (the fragment loads stay);
   no_wload     no weight loads from device memory (the smem stores stay);
   no_halo      no input reads (zeros land in the halo tile);
   no_store     no output stores (the staging tile stays).
-It prints one JSON line per variant and entry point.
+It prints one JSON line per variant and entry point, then one per sweep
+point.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
-import torch.nn.functional as F
 
 from ditsep_tpu_torch.ops.cuda_kernels import (
-    BUILD_DIR, CSRC_DIR, NVCC_FLAGS, _nvcc, conv3x3_async_halo,
+    CONV_TILE, Conv3x3, Conv3x3AsyncHalo, CudaLibrary, conv3x3_async_halo,
 )
 from ditsep_tpu_torch.scripts.conv_probe import (
-    C, C2, H, PADW, W, card_line, card_peaks, conv_flops,
+    C, C2, H, PADW, W, conv_flops, make_inputs,
 )
-from ditsep_tpu_torch.utils.device import resolve_device
+from ditsep_tpu_torch.utils.device import card_line, card_peaks, resolve_device
 
-# variant -> (text in conv3x3.cu, replacement); every text must be found
+# variant -> (text in conv3x3.cu, replacement); CudaLibrary raises if a
+# text is missing, so a stale edit cannot time the unchanged kernel
 EDITS = {
     "base": [],
     "no_mma": [("mma_16816(acc[mi][2 * jp], a[mi], b[0], b[1]);",
@@ -57,21 +63,59 @@ EDITS = {
 }
 
 
-def build(name: str) -> ctypes.CDLL:
-    src = (CSRC_DIR / "conv3x3.cu").read_text()
-    for old, new in EDITS[name]:
-        if old not in src:
-            raise RuntimeError(f"ablation {name}: {old!r} not in conv3x3.cu")
-        src = src.replace(old, new)
-    out = BUILD_DIR / "ablation"
-    out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / f"conv3x3_{name}.cu", out / f"libconv3x3_{name}.so"
-    cu.write_text(src)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
-    return ctypes.CDLL(str(so))
+def device_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn`` over ``reps`` calls after one, by events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ablation(batch: int, reps: int, card: str) -> list:
+    libs = {name: CudaLibrary("conv3x3.cu", edits) for name, edits
+            in EDITS.items()}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.load(), libs.values()))
+    _, x1, x4, w9 = make_inputs(batch, H, W, C, C2, 0, "cuda")
+    peak = card_peaks(torch.cuda.get_device_name(0))[0]
+    flops = conv_flops(batch, H, W, C, C2)
+    out = []
+    for name, lib in libs.items():
+        for kernel, xb in ((Conv3x3(lib), x1), (Conv3x3AsyncHalo(lib), x4)):
+            ms = device_ms(lambda: kernel(xb, w9, 1 if xb is x1 else PADW),
+                           reps)
+            out.append({"variant": name, "entry": kernel.entry,
+                        "batch": batch, "ms": ms,
+                        "pct_peak": 100 * flops / (ms * 1e-3) / peak,
+                        "card": card})
+            print(json.dumps(out[-1]), flush=True)
+    return out
+
+
+def sweep(batch: int, reps: int, card: str) -> list:
+    out = []
+    _, _, x4, w9 = make_inputs(batch, H, W, C, C2, 1, "cuda")
+    chosen = conv3x3_async_halo.rows_per_block(x4, PADW)
+    want = conv3x3_async_halo(x4, w9, PADW)
+    row_tiles = -(-H // CONV_TILE[0])
+    for rows in sorted({1, 2, 3, 4, 6, 9, 12, 18, row_tiles, chosen}):
+        got = conv3x3_async_halo(x4, w9, PADW, rows_per_block=rows)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"conv3x3_async_halo: rows_per_block={rows} "
+                               f"differs from rows_per_block={chosen}")
+        ms = device_ms(lambda: conv3x3_async_halo(
+            x4, w9, PADW, rows_per_block=rows), reps)
+        out.append({"sweep": "rows_per_block", "batch": batch,
+                    "rows_per_block": rows, "chosen": rows == chosen,
+                    "ms": ms, "card": card})
+        print(json.dumps(out[-1]), flush=True)
+    return out
 
 
 def main(argv=None) -> list:
@@ -81,47 +125,9 @@ def main(argv=None) -> list:
     args = ap.parse_args(argv)
     resolve_device("cuda")
     card = card_line()
-    with ThreadPoolExecutor(len(EDITS)) as pool:
-        libs = dict(zip(EDITS, pool.map(build, EDITS)))
-    g = torch.Generator(device="cuda").manual_seed(0)
-    x = 0.1 * torch.randn(args.batch, H, W, C, generator=g, device="cuda")
-    xs = {1: F.pad(x, (0, 0, 1, 1, 1, 1)).bfloat16(),
-          PADW: F.pad(x, (0, 0, PADW, PADW, 1, 1)).bfloat16()}
-    w9 = (0.05 * torch.randn(9, C, C2, generator=g, device="cuda")).bfloat16()
-    stream = torch.cuda.current_stream().cuda_stream
-    peak = card_peaks(torch.cuda.get_device_name(0))[0]
-    flops = conv_flops(args.batch, H, W, C, C2)
-    out = []
-    for name, lib in libs.items():
-        for entry, padw, extra in (("conv3x3_9tap", 1, ()),
-                                   ("conv3x3_async_halo", PADW,
-                                    conv3x3_async_halo.launch_args(
-                                        xs[PADW], PADW))):
-            fn = getattr(lib, entry)
-            fn.argtypes = ([ctypes.c_void_p] * 3
-                           + [ctypes.c_int64] * (5 + len(extra))
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            xb = xs[padw]
-            y = torch.empty(xb.shape[:3] + (C2,), dtype=xb.dtype,
-                            device="cuda")
-            call = lambda: fn(xb.data_ptr(), w9.data_ptr(), y.data_ptr(),
-                              *xb.shape, C2, *extra, stream)
-            if call() != 0:
-                raise RuntimeError(f"{name} {entry}: launch failed")
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(args.reps):
-                call()
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end) / args.reps
-            out.append({"variant": name, "entry": entry, "batch": args.batch,
-                        "ms": ms, "pct_peak": 100 * flops / (ms * 1e-3)
-                        / peak, "card": card})
-            print(json.dumps(out[-1]), flush=True)
+    out = ablation(args.batch, args.reps, card)
+    for batch in sorted({args.batch, 1}, reverse=True):
+        out += sweep(batch, args.reps, card)
     return out
 
 

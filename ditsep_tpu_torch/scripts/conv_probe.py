@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 
 import numpy as np
@@ -34,22 +33,11 @@ import torch.nn.functional as F
 from ditsep_tpu_torch.ops.conv3x3 import (
     conv3x3_bordered, conv3x3_bordered_async,
 )
-from ditsep_tpu_torch.ops.cuda_kernels import conv3x3_bordered_plain
-from ditsep_tpu_torch.utils.device import resolve_device
+from ditsep_tpu_torch.ops.cuda_kernels import bf16_ulp, conv3x3_bordered_plain
+from ditsep_tpu_torch.utils.device import card_line, card_peaks, resolve_device
 
 H, W, C, C2 = 576, 256, 128, 128
 PADW = 4  # border columns a side of the async-halo layout
-# dense bf16 tensor-core peak and memory bandwidth (NVIDIA data sheets);
-# other cards are taken at the H100 SXM's 989 TFLOP/s and 3.35 TB/s
-PEAKS = (("H100 PCIe", 756e12, 2.0e12), ("H200", 989e12, 4.8e12))
-
-
-def card_peaks(name: str):
-    """(bf16 FLOP/s, bytes/s) of the card named ``name``."""
-    for key, flops, bw in PEAKS:
-        if key in name:
-            return flops, bw
-    return 989e12, 3.35e12
 
 
 def conv_flops(b: int, h: int, w: int, c: int, c2: int) -> float:
@@ -73,10 +61,6 @@ def make_inputs(b, h, w, c, c2, seed, device):
 def border_max(y: torch.Tensor, padw: int) -> float:
     parts = (y[:, :1], y[:, -1:], y[:, :, :padw], y[:, :, -padw:])
     return max(p.float().abs().max().item() for p in parts)
-
-
-def bf16_ulp(v: float) -> float:
-    return 2.0 ** (np.floor(np.log2(abs(v))) - 7)
 
 
 def parity(b=1, h=H, w=W, c=C, c2=C2, device="cuda", seed=0) -> dict:
@@ -164,15 +148,6 @@ def time_rows(batch: int = 16, stack: int = 30, reps: int = 5,
                      "bound_by": ("operations" if flops / peak
                                   >= nbytes / bandwidth else "bytes")})
     return rows
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 def main(argv=None) -> dict:

@@ -13,8 +13,11 @@ import pytest
 import torch
 
 from ditsep_tpu_torch.ops import conv3x3_bordered, conv3x3_bordered_async
-from ditsep_tpu_torch.ops.cuda_kernels import conv3x3_bordered_plain
+from ditsep_tpu_torch.ops.cuda_kernels import (
+    CudaLibrary, conv3x3_bordered_plain,
+)
 from ditsep_tpu_torch.scripts import conv_probe
+from ditsep_tpu_torch.utils.device import card_peaks
 from test_torch_separate import _imported_modules
 
 REPO = Path(__file__).resolve().parents[1]
@@ -98,20 +101,27 @@ def test_probe_cpu_parity_mode():
 def test_probe_bound_and_peak_tables():
     flops = conv_probe.conv_flops(16, 576, 256, 128, 128)
     assert flops == pytest.approx(6.96e11, rel=1e-3)
-    peak, bw = conv_probe.card_peaks("NVIDIA H100 80GB HBM3")
+    peak, bw = card_peaks("NVIDIA H100 80GB HBM3")
     assert (peak, bw) == (989e12, 3.35e12)
     assert flops / peak * 1e3 == pytest.approx(0.704, rel=1e-3)
+    assert card_peaks("NVIDIA H100 PCIe") == (756e12, 2.0e12)
 
 
-def test_ablation_edits_apply_to_the_source():
-    """Each ablation variant's cut must find its text in conv3x3.cu once,
-    or the ablation would time the unchanged kernel under another name."""
-    from ditsep_tpu_torch.scripts.conv_ablation import EDITS
-    src = (REPO / "ditsep_tpu_torch" / "csrc" / "conv3x3.cu").read_text()
-    assert EDITS["base"] == []
-    for name, edits in EDITS.items():
-        for old, new in edits:
-            assert src.count(old) == 1 and old != new, (name, old)
+def test_ablation_edits_apply_to_the_source(tmp_path):
+    """A variant build (the ablation's) compiles the edited source under
+    its own hash, and an edit whose text is not in the source raises
+    before anything is compiled, so a stale edit cannot time the
+    unchanged kernel under another name."""
+    cu = tmp_path / "k.cu"
+    cu.write_text("int f() { return 1; }\n")
+    base = CudaLibrary(str(cu))
+    variant = CudaLibrary(str(cu), [("return 1", "return 2")])
+    src, out = variant.target()
+    assert src == "int f() { return 2; }\n"
+    assert out != base.target()[1] and out.name.startswith("libk-")
+    assert base.target()[0] == cu.read_text()
+    with pytest.raises(RuntimeError, match="not in the source"):
+        CudaLibrary(str(cu), [("return 3", "")]).build()
 
 
 @pytest.mark.parametrize("name", ["ops/conv3x3.py", "scripts/conv_probe.py",

@@ -12,6 +12,7 @@ import torch
 
 from ditsep_tpu_torch.models import NCSNpp
 from ditsep_tpu_torch.ops import conv3x3, cuda_kernels, fir, fused_act
+from ditsep_tpu_torch.ops.cuda_kernels import bf16_ulp
 
 
 @pytest.fixture
@@ -19,11 +20,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
-
-
-def _ulp_bf16(v: float) -> float:
-    """One bf16 unit in the last place at magnitude ``v``."""
-    return 2.0 ** (torch.tensor(v).abs().log2().floor().item() - 7)
 
 
 @pytest.mark.cuda
@@ -50,7 +46,7 @@ def test_fir_down2d_matches_plain(cuda_device, dtype, channels_last, shape,
     assert y.is_contiguous(memory_format=torch.channels_last
                            if channels_last else torch.contiguous_format)
     peak = ref.float().abs().max().item()
-    tol = 1e-6 * peak if dtype == torch.float32 else _ulp_bf16(peak)
+    tol = 1e-6 * peak if dtype == torch.float32 else bf16_ulp(peak)
     assert (y.float() - ref.float()).abs().max().item() <= tol
 
 
@@ -101,7 +97,7 @@ def _fba_counts():
 
 def _tolerance(ref, dtype, f32_rel=1e-6):
     peak = ref.float().abs().max().item()
-    return f32_rel * peak if dtype == torch.float32 else _ulp_bf16(peak)
+    return f32_rel * peak if dtype == torch.float32 else bf16_ulp(peak)
 
 
 @pytest.mark.cuda
@@ -220,6 +216,27 @@ def test_conv3x3_kernels_match_plain(cuda_device, kernel, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_block", [1, 2, 3, 7, None])
+def test_conv3x3_async_halo_walks_row_tiles(cuda_device, rows_per_block):
+    """H = 100 is 7 row tiles of 16 and W = 20 two ragged column tiles:
+    walks of 2, 3 and 7 tiles wrap the two halo buffers (7 = the whole
+    column, in one block); each walk gives the same bits, within 1 ulp of
+    the plain version. None: the wrapper's own choice."""
+    x, w9 = _conv_case(cuda_device, 2, 100, 20, 32, 48, 4)
+    kernel = cuda_kernels.conv3x3_async_halo
+    before = kernel.launches
+    y = kernel(x, w9, 4, rows_per_block=rows_per_block)
+    one = kernel(x, w9, 4, rows_per_block=1)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(y, one)
+    ref = cuda_kernels.conv3x3_bordered_plain(x, w9, 4)
+    assert (y.float() - ref.float()).abs().max() <= _tolerance(
+        ref, torch.bfloat16)
+    assert bool((_borders(y, 4) == 0).all())
+
+
+@pytest.mark.cuda
 def test_conv3x3_raises_not_falls_back(cuda_device):
     x, w9 = _conv_case(cuda_device, 1, 8, 16, 32, 32, 1)
     before = (cuda_kernels.conv3x3_9tap.launches,
@@ -236,6 +253,8 @@ def test_conv3x3_raises_not_falls_back(cuda_device):
         conv3x3.conv3x3_bordered_async(x, w9[..., :8].contiguous(), 1)
     with pytest.raises(ValueError, match="padw"):
         cuda_kernels.conv3x3_9tap(x, w9, 2)
+    with pytest.raises(ValueError, match="rows_per_block"):
+        cuda_kernels.conv3x3_async_halo(x, w9, 1, rows_per_block=0)
     # two halo windows of C = 160 exceed a block's shared memory: the
     # launch is refused and the wrapper raises
     xd, wd = _conv_case(cuda_device, 1, 8, 16, 160, 16, 4)
