@@ -19,8 +19,12 @@ lines; any failure raises and the exit code is non-zero:
                U-Net at batch 4), each launch counted; times against the
                byte bound; then the op's path, ``ops.fused_act.
                fused_leaky_relu`` forward and backward through autograd;
-4. conv3x3  -- conv3x3_9tap and conv3x3_async_halo against their plain
-               version at two odd small shapes, then the conv probe's path
+4. conv3x3  -- the two kernels' launch plans (slice width, M tile, shared
+               bytes, CTAs; ptxas registers and spills), conv3x3_9tap and
+               conv3x3_async_halo against their plain version at two odd
+               small shapes (ragged tiles, C2 = 48 and 160) and at the
+               deepest C each took before (288 and 144), then the conv
+               probe's path
                (``ditsep_tpu_torch.scripts.conv_probe``): both kernels at
                the probe shape, batch 1, against the plain version, borders
                exactly 0, and the three timed rows (cuDNN, 9-tap, async
@@ -48,6 +52,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import sys
 import tempfile
 import time
@@ -109,9 +114,26 @@ def counts() -> dict:
     return {name: w.launches for name, w in wrappers().items()}
 
 
+def ptxas_usage(log: str) -> dict:
+    """Registers, stack and spills that ``-Xptxas -v`` reports, by kernel
+    (the conv kernel's instances as conv3x3_kernel<NS, ASYNC>)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            c = re.search(r"conv3x3_kernelILi(\d+)ELb([01])E", name)
+            if c:
+                name = (f"conv3x3_kernel<{c.group(1)}, "
+                        f"{'true' if c.group(2) == '1' else 'false'}>")
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return out
+
+
 def build_all() -> dict:
     """Build every kernel library at once (one nvcc each); seconds and
-    ptxas lines per source."""
+    ptxas usage per source and kernel."""
     from concurrent.futures import ThreadPoolExecutor
     libs = {w.library.source.name: w.library for w in wrappers().values()}
     t0 = time.perf_counter()
@@ -119,8 +141,7 @@ def build_all() -> dict:
         list(pool.map(lambda lib: lib.load(), libs.values()))
     out = {"build_s": time.perf_counter() - t0}
     for name, lib in libs.items():
-        out[name] = [ln.strip() for ln in lib.build_log.splitlines()
-                     if "registers" in ln or "spill" in ln]
+        out[name] = ptxas_usage(lib.build_log)
     return out
 
 
@@ -289,10 +310,10 @@ def phase_fused_bias_act(ctx):
 
 
 def phase_conv3x3(ctx):
-    """Both conv kernels against their plain version at odd shapes; then
-    the conv probe's path: parity at the probe shape and three timed
-    rows at batch 16; then both kernels against the plain version at
-    batch 16."""
+    """The conv kernels' launch plans; both kernels against their plain
+    version at odd shapes; then the conv probe's path: parity at the probe
+    shape and three timed rows at batch 16; then both kernels against the
+    plain version at batch 16."""
     import torch
     from ditsep_tpu_torch.ops import cuda_kernels as ck
     from ditsep_tpu_torch.ops.conv3x3 import (
@@ -300,10 +321,26 @@ def phase_conv3x3(ctx):
     )
     from ditsep_tpu_torch.scripts import conv_probe
 
+    # the launch plans at the probe shape, and what ptxas said
+    batch16 = {"n_tiles": 16 * -(-conv_probe.H // ck.CONV_TILE[0])
+               * -(-conv_probe.W // ck.CONV_TILE[1])}
+    plans = {k.entry: ck.conv3x3_plan(
+        conv_probe.C, conv_probe.C2, padw, k.is_async,
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        **batch16) for k, padw in ((ck.conv3x3_9tap, 1),
+                                   (ck.conv3x3_async_halo, conv_probe.PADW))}
+    emit({"phase": "conv3x3_plan", "shape": [16, conv_probe.H, conv_probe.W,
+                                              conv_probe.C, conv_probe.C2],
+          "plans": plans, "ptxas": ctx["ptxas"].get("conv3x3.cu"),
+          "card": ctx["card"]})
     worst = 0.0
-    for shape in ((2, 13, 37, 32, 48), (3, 9, 17, 16, 160)):
-        for padw, fn in ((1, conv3x3_bordered),
-                         (4, lambda x, w: conv3x3_bordered_async(x, w, 4))):
+    both = ((1, conv3x3_bordered),
+            (4, lambda x, w: conv3x3_bordered_async(x, w, 4)))
+    for shape, kernels in (((2, 13, 37, 32, 48), both),
+                           ((3, 9, 17, 16, 160), both),
+                           ((1, 21, 40, 288, 48), both[:1]),
+                           ((2, 11, 45, 144, 160), both[1:])):
+        for padw, fn in kernels:
             x, x1, x4, w9 = conv_probe.make_inputs(*shape, 5, "cuda")
             xb = x1 if padw == 1 else x4
             y = fn(xb, w9)
@@ -330,8 +367,8 @@ def phase_conv3x3(ctx):
     worst = max(worst, par["max_abs_err_9tap"], par["max_abs_err_async_halo"])
     rows = {r["variant"]: r for r in probe["rows"]}
     # the timed shape (batch 16): the plain version's time, and both
-    # kernels held against it there, where the async kernel's blocks walk
-    # many row tiles (the double buffer wraps) and the grid spans waves
+    # kernels held against it there, where each persistent CTA walks about
+    # 280 M tiles (the async kernel's two-stage ring wraps 279 times)
     x, x1, x4, w9 = conv_probe.make_inputs(16, conv_probe.H, conv_probe.W,
                                            conv_probe.C, conv_probe.C2, 6,
                                            "cuda")
@@ -353,7 +390,6 @@ def phase_conv3x3(ctx):
         del ref, y
         plain[row] = cuda_ms(lambda: ck.conv3x3_bordered_plain(xb, w9, padw),
                              iters=2, warmup=1)
-    rows_per_block = ck.conv3x3_async_halo.rows_per_block(x4, conv_probe.PADW)
     del x, x1, x4, w9
     torch.cuda.empty_cache()
     ctx["conv"] = {"rows": rows, "plain": plain, "err": worst,
@@ -361,7 +397,7 @@ def phase_conv3x3(ctx):
     emit({"phase": "conv3x3", "max_abs_err": worst,
           "tolerance": "1 bf16 ulp of max|ref|; borders exactly 0",
           "probe_parity": par, "batch16_max_abs_err": timed_err,
-          "batch16_async_rows_per_block": rows_per_block,
+          "plans": plans,
           "rows": probe["rows"], "plain_ms": plain,
           "path_launches": path, "card": ctx["card"]})
 
@@ -604,6 +640,7 @@ def main() -> int:
     print(card, flush=True)
     ctx = {"card": card, "bandwidth": card_peaks(card)[1]}
     build = build_all()
+    ctx["ptxas"] = {k: v for k, v in build.items() if k != "build_s"}
     emit({"phase": "device", "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernel_build_s": build.pop("build_s"), "ptxas": build,

@@ -407,7 +407,66 @@ class FusedBiasActFunction(torch.autograd.Function):
 
 # ------------------------------------- 3x3 conv, implicit GEMM, bordered ---
 _CONV_LIBRARY = CudaLibrary("conv3x3.cu")
-CONV_TILE = (16, 16)     # output rows x columns of a block's tile (TH, TW)
+CONV_TILE = (8, 16)      # output rows x columns of an M tile (TH, TW)
+CONV_SMEM_LIMIT = 232448  # shared memory a block can use on an H100
+_CONV_KB = 64             # input channels a halo block (a ring stage's box)
+_CONV_STAGE_BYTES = 23552  # one 64-channel halo stage (23,040 B) to 1 KiB
+_CONV_WG_BLOCK_BYTES = 13312  # 9-tap: a warpgroup's 10 x 10 x 64 block to 1 KiB
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def conv3x3_smem_bytes(c: int, ns: int, is_async: bool) -> int:
+    """Shared memory of one CTA of ``csrc/conv3x3.cu`` (its smem_layout),
+    with K = C padded to kp, a multiple of 64: the 9 x kp x NS weight
+    slice; two warpgroups' 10 x 10 halos of kp / 64 blocks (9-tap) or two
+    64-channel TMA stages and four mbarriers (async); 128 x NS staging;
+    1 KiB to align the base."""
+    th, tw = CONV_TILE
+    kp = _round_up(c, _CONV_KB)
+    halo = (2 * _CONV_STAGE_BYTES if is_async
+            else 2 * (kp // _CONV_KB) * _CONV_WG_BLOCK_BYTES)
+    return (_round_up(9 * kp * ns * 2, 1024) + halo + th * tw * ns * 2
+            + (32 if is_async else 0) + 1024)
+
+
+def conv3x3_plan(c: int, c2: int, padw: int, is_async: bool, sms: int = 132,
+                 n_tiles: Optional[int] = None) -> dict:
+    """The launch plan of ``conv3x3_9tap`` / ``conv3x3_async_halo``.
+
+    ``ns``: output channels a CTA keeps resident (64, or the widest of 32
+    and 16 whose weights, halo and staging fit a block's shared memory; no
+    wider than C2 needs); ``n_slices`` = ceil(C2 / ns); ``smem_bytes``;
+    ``tile``: the M tile (rows, columns); ``threads``; ``ctas``: the
+    persistent grid, the largest multiple of ``n_slices`` within ``sms``
+    (so each CTA keeps one slice), at most one CTA an item when
+    ``n_tiles`` M tiles are given. Raises ValueError for a shape the
+    kernels do not take."""
+    if c < 16 or c2 < 16 or c % 16 or c2 % 16:
+        raise ValueError(f"conv3x3 takes C and C2 that are multiples of 16, "
+                         f"got {c} and {c2}")
+    if padw < 1 or (not is_async and padw != 1):
+        raise ValueError(f"conv3x3: padw={padw} (9-tap: 1; async: >= 1)")
+    ns = 64
+    while ns > 16 and ns // 2 >= c2:
+        ns //= 2
+    while conv3x3_smem_bytes(c, ns, is_async) > CONV_SMEM_LIMIT:
+        if ns == 16:
+            raise ValueError(
+                f"conv3x3 C={c}: the weights, halo and staging need "
+                f"{conv3x3_smem_bytes(c, 16, is_async)} bytes of shared "
+                f"memory even at 16 output channels a CTA, more than "
+                f"{CONV_SMEM_LIMIT}")
+        ns //= 2
+    n_slices = -(-c2 // ns)
+    ctas = n_slices * max(1, sms // n_slices)
+    if n_tiles is not None:
+        ctas = min(ctas, n_slices * n_tiles)
+    return {"ns": ns, "n_slices": n_slices, "tile": CONV_TILE,
+            "smem_bytes": conv3x3_smem_bytes(c, ns, is_async),
+            "threads": 384 if is_async else 256, "ctas": ctas}
 
 
 def conv3x3_bordered_plain(x: Tensor, w9: Tensor, padw: int = 1) -> Tensor:
@@ -432,8 +491,9 @@ def conv3x3_bordered_plain(x: Tensor, w9: Tensor, padw: int = 1) -> Tensor:
 
 
 class _Conv3x3Kernel:
-    """Shared checks and launch of the two entry points of conv3x3.cu
-    (``library``: a variant build of it, for the ablation script)."""
+    """Shared checks, plan and launch of the two entry points of
+    conv3x3.cu (``library``: a variant build of it, for the ablation
+    script)."""
 
     entry = ""
     is_async = False
@@ -446,12 +506,20 @@ class _Conv3x3Kernel:
     def _function(self):
         if self._fn is None:
             fn = getattr(self.library.load(), self.entry)
-            n_int = 7 if self.is_async else 5
+            n_int = 8 if self.is_async else 7
             fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * n_int
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
+
+    def plan(self, x: Tensor, w9: Tensor, padw: int) -> dict:
+        """``conv3x3_plan`` for these tensors on their card."""
+        b, hp, wp, c = x.shape
+        tiles = (b * -(-(hp - 2) // CONV_TILE[0])
+                 * -(-(wp - 2 * padw) // CONV_TILE[1]))
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        return conv3x3_plan(c, w9.shape[2], padw, self.is_async, sms, tiles)
 
     def _check(self, x: Tensor, w9: Tensor, padw: int) -> None:
         n = self.entry
@@ -477,22 +545,27 @@ class _Conv3x3Kernel:
                              f"{x.stride()} and {w9.stride()}")
         if x.data_ptr() % 16 or w9.data_ptr() % 16:
             raise ValueError(f"{n} needs 16-byte aligned tensors")
-        if b > 65535 or b * hp * wp * max(c, c2) >= 2 ** 31:
+        if b * hp * wp * max(c, c2) >= 2 ** 31:
             raise ValueError(f"{n}: {tuple(x.shape)} -> C2={c2} is too "
                              "large")
 
     def _launch(self, x: Tensor, w9: Tensor, padw: int,
-                extra: tuple) -> Tensor:
-        """``extra``: the entry point's arguments after (x, w, y, B, Hp,
-        Wp, C, C2); ``_check`` has passed."""
+                ctas: Optional[int]) -> Tensor:
+        """Check, plan (``ctas``: another grid than the plan's, for the
+        tests and the ablation's sweep) and launch."""
+        self._check(x, w9, padw)
+        plan = self.plan(x, w9, padw)
+        if ctas is not None and ctas < 1:
+            raise ValueError(f"{self.entry}: ctas must be >= 1, got {ctas}")
         fn = self._function()
         b, hp, wp, c = x.shape
         c2 = w9.shape[2]
         y = torch.empty((b, hp, wp, c2), dtype=x.dtype, device=x.device)
+        pads = (padw,) if self.is_async else ()
         with torch.cuda.device(x.device):
             err = fn(x.data_ptr(), w9.data_ptr(), y.data_ptr(), b, hp, wp, c,
-                     c2, *extra, _stream(x))
-        if err != 0:  # 1 (invalid value): e.g. C too deep for shared memory
+                     c2, *pads, plan["ns"], ctas or plan["ctas"], _stream(x))
+        if err != 0:  # 1 (invalid value): a shape or plan it does not take
             raise RuntimeError(f"{self.entry} launch failed: CUDA error "
                                f"{err}")
         self.launches += 1
@@ -501,25 +574,28 @@ class _Conv3x3Kernel:
 
 class Conv3x3(_Conv3x3Kernel):
     """Wrapper of ``conv3x3_9tap`` in ``csrc/conv3x3.cu``: the bordered
-    3x3 conv (padw 1), one 16x16-pixel tile per block, bf16 mma.sync.
+    3x3 conv (padw 1); persistent CTAs keep a slice of the weights in
+    shared memory, wgmma reads both operands by descriptor; each
+    warpgroup loads its half of an M tile's halo with plain 16-byte
+    loads.
 
     Replaces scripts/pallas_conv_probe.py:_conv_kernel (through
     conv3x3_pallas)."""
 
     entry = "conv3x3_9tap"
 
-    def __call__(self, x: Tensor, w9: Tensor, padw: int = 1) -> Tensor:
+    def __call__(self, x: Tensor, w9: Tensor, padw: int = 1,
+                 ctas: Optional[int] = None) -> Tensor:
         if padw != 1:
             raise ValueError(f"{self.entry} takes padw=1, got {padw}")
-        self._check(x, w9, padw)
-        return self._launch(x, w9, padw, ())
+        return self._launch(x, w9, padw, ctas)
 
 
 class Conv3x3AsyncHalo(_Conv3x3Kernel):
     """Wrapper of ``conv3x3_async_halo`` in ``csrc/conv3x3.cu``: the same
-    conv on a layout with ``padw`` border columns a side; each block walks
-    ``rows_per_block`` row tiles of one column of tiles and prefetches the
-    next halo window with cp.async.
+    conv on a layout with ``padw`` border columns a side; a producer
+    warpgroup keeps TMA loads of the halo (64-channel blocks) in flight
+    into an mbarrier ring while two warpgroups compute.
 
     Replaces scripts/pallas_conv_probe.py:_conv_dma_kernel (through
     conv3x3_pallas_dma)."""
@@ -527,27 +603,8 @@ class Conv3x3AsyncHalo(_Conv3x3Kernel):
     entry, is_async = "conv3x3_async_halo", True
 
     def __call__(self, x: Tensor, w9: Tensor, padw: int = 4,
-                 rows_per_block: Optional[int] = None) -> Tensor:
-        self._check(x, w9, padw)
-        if rows_per_block is None:
-            rows_per_block = self.rows_per_block(x, padw)
-        if rows_per_block < 1:
-            raise ValueError(f"{self.entry}: rows_per_block must be >= 1, "
-                             f"got {rows_per_block}")
-        return self._launch(x, w9, padw, (padw, rows_per_block))
-
-    @staticmethod
-    def rows_per_block(x: Tensor, padw: int) -> int:
-        """An SM holds one block at a time (512 threads of 128 registers
-        fill its register file): one wave of blocks while the columns of
-        tiles leave SMs idle, else one block per column walking all its
-        row tiles (scripts/conv_ablation.py times the choices)."""
-        b, hp, wp, _ = x.shape
-        row_tiles = -(-(hp - 2) // CONV_TILE[0])
-        col_tiles = -(-(wp - 2 * padw) // CONV_TILE[1])
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        blocks_per_column = max(1, sms // (b * col_tiles))
-        return -(-row_tiles // blocks_per_column)
+                 ctas: Optional[int] = None) -> Tensor:
+        return self._launch(x, w9, padw, ctas)
 
 
 conv3x3_9tap = Conv3x3()

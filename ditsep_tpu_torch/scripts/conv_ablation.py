@@ -9,19 +9,22 @@ takes the kernels apart instead:
    shape. The variants compute wrong results by design; they are timed,
    never used. The difference between ``base`` and a variant is the time
    that part costs where it cannot hide behind the rest.
-2. Sweep: ``conv3x3_async_halo`` of the real build with each number of
-   row tiles a block walks, at ``--batch`` and at batch 1. Every output
-   must equal the one of the wrapper's own choice bit for bit (the
-   arithmetic of a tile does not depend on the walk), which checks the
-   double buffer's wrap at every length.
+2. Sweep: both kernels of the real build with several persistent grids
+   (CTA counts), at ``--batch`` and at batch 1. Every output must equal
+   the one of the plan's own grid bit for bit (a CTA computes each of its
+   items whole, in a fixed order); grids that are not a multiple of the
+   slice count make CTAs change slice, which reloads their weights.
 
     python -m ditsep_tpu_torch.scripts.conv_ablation [--batch 16] [--reps 10]
 
 Variants:
   base         the source as it is;
-  no_mma       no tensor-core products (the fragment loads stay);
-  no_wload     no weight loads from device memory (the smem stores stay);
-  no_halo      no input reads (zeros land in the halo tile);
+  no_mma       no wgmma (the halo still arrives, stage by stage);
+  no_wload     no weight reads from device memory (the one-time load's
+               shared-memory stores stay);
+  no_halo      no input reads: the 9-tap kernel's halo loads land zeros,
+               the async kernel's producer issues no TMA (it completes
+               the stage's barrier itself);
   no_store     no output stores (the staging tile stays).
 It prints one JSON line per variant and entry point, then one per sweep
 point.
@@ -35,7 +38,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from ditsep_tpu_torch.ops.cuda_kernels import (
-    CONV_TILE, Conv3x3, Conv3x3AsyncHalo, CudaLibrary, conv3x3_async_halo,
+    Conv3x3, Conv3x3AsyncHalo, CudaLibrary, conv3x3_9tap, conv3x3_async_halo,
 )
 from ditsep_tpu_torch.scripts.conv_probe import (
     C, C2, H, PADW, W, conv_flops, make_inputs,
@@ -46,20 +49,16 @@ from ditsep_tpu_torch.utils.device import card_line, card_peaks, resolve_device
 # text is missing, so a stale edit cannot time the unchanged kernel
 EDITS = {
     "base": [],
-    "no_mma": [("mma_16816(acc[mi][2 * jp], a[mi], b[0], b[1]);",
-                "if (kk < 0) mma_16816(acc[mi][2 * jp], a[mi], b[0], b[1]);"),
-               ("mma_16816(acc[mi][2 * jp + 1], a[mi], b[2], b[3]);",
-                "if (kk < 0) mma_16816(acc[mi][2 * jp + 1], a[mi], b[2], "
-                "b[3]);")],
-    "no_wload": [("regs[r] = *reinterpret_cast<const uint4*>(",
-                  "regs[r] = make_uint4(idx, 0, 0, 0);\n"
-                  "      if (idx < 0) regs[r] = "
-                  "*reinterpret_cast<const uint4*>(")],
-    "no_halo": [("if (valid) v = *reinterpret_cast<const uint4*>(src);", ""),
-                ("cp_async16(dst, src, valid);",
-                 "cp_async16(dst, src, false);")],
-    "no_store": [("if (i < p.h && j < p.w_out && n < nc)",
-                  "if (i < 0 && j < p.w_out && n < nc)")],
+    "no_mma": [("wgmma_ss<NS>(acc, a_desc<PITCH>(",
+                "if (kb < 0) wgmma_ss<NS>(acc, a_desc<PITCH>(")],
+    "no_wload": [("if (col < p.c2 && k < p.c)", "if (col < 0 && k < p.c)")],
+    "no_halo": [("if (idx < WG_PIX * 8 && pr < p.hp",
+                 "if (idx < 0 && pr < p.hp"),
+                ("mbar_arrive_tx(full, STAGE_TX);", "mbar_arrive(full);"),
+                ("tma_load_4d(sbase + p.halo_off",
+                 "if (n > (1u << 31)) tma_load_4d(sbase + p.halo_off")],
+    "no_store": [("if (i < p.h && j < p.w_out && n < p.c2)",
+                  "if (i < 0 && j < p.w_out && n < p.c2)")],
 }
 
 
@@ -100,21 +99,24 @@ def ablation(batch: int, reps: int, card: str) -> list:
 
 def sweep(batch: int, reps: int, card: str) -> list:
     out = []
-    _, _, x4, w9 = make_inputs(batch, H, W, C, C2, 1, "cuda")
-    chosen = conv3x3_async_halo.rows_per_block(x4, PADW)
-    want = conv3x3_async_halo(x4, w9, PADW)
-    row_tiles = -(-H // CONV_TILE[0])
-    for rows in sorted({1, 2, 3, 4, 6, 9, 12, 18, row_tiles, chosen}):
-        got = conv3x3_async_halo(x4, w9, PADW, rows_per_block=rows)
-        if not torch.equal(got, want):
-            raise RuntimeError(f"conv3x3_async_halo: rows_per_block={rows} "
-                               f"differs from rows_per_block={chosen}")
-        ms = device_ms(lambda: conv3x3_async_halo(
-            x4, w9, PADW, rows_per_block=rows), reps)
-        out.append({"sweep": "rows_per_block", "batch": batch,
-                    "rows_per_block": rows, "chosen": rows == chosen,
-                    "ms": ms, "card": card})
-        print(json.dumps(out[-1]), flush=True)
+    _, x1, x4, w9 = make_inputs(batch, H, W, C, C2, 1, "cuda")
+    for kernel, xb, padw in ((conv3x3_9tap, x1, 1),
+                             (conv3x3_async_halo, x4, PADW)):
+        plan = kernel.plan(xb, w9, padw)
+        want = kernel(xb, w9, padw)
+        for ctas in sorted({2, 7, plan["ctas"] // 2, plan["ctas"] - 1,
+                            plan["ctas"], 2 * plan["ctas"]}):
+            got = kernel(xb, w9, padw, ctas=ctas)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"{kernel.entry}: ctas={ctas} differs "
+                                   f"from the plan's {plan['ctas']}")
+            ms = device_ms(lambda: kernel(xb, w9, padw, ctas=ctas),
+                           1 if ctas < 16 else reps)
+            out.append({"sweep": "ctas", "entry": kernel.entry,
+                        "batch": batch, "ctas": ctas,
+                        "chosen": ctas == plan["ctas"], "ms": ms,
+                        "card": card})
+            print(json.dumps(out[-1]), flush=True)
     return out
 
 

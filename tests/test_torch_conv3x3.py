@@ -14,7 +14,8 @@ import torch
 
 from ditsep_tpu_torch.ops import conv3x3_bordered, conv3x3_bordered_async
 from ditsep_tpu_torch.ops.cuda_kernels import (
-    CudaLibrary, conv3x3_bordered_plain,
+    CONV_SMEM_LIMIT, CudaLibrary, conv3x3_bordered_plain, conv3x3_plan,
+    conv3x3_smem_bytes,
 )
 from ditsep_tpu_torch.scripts import conv_probe
 from ditsep_tpu_torch.utils.device import card_peaks
@@ -107,6 +108,60 @@ def test_probe_bound_and_peak_tables():
     assert card_peaks("NVIDIA H100 PCIe") == (756e12, 2.0e12)
 
 
+# output channels a CTA keeps resident, by C, at C2 = 128: 64 while the
+# 9 x kp x 64 weights (kp: C padded to a multiple of 64) fit beside the
+# halo and staging, then 32, then 16
+_PLAN_NS = {16: 64, 32: 64, 128: 64, 144: 32, 160: 32, 288: 16}
+
+
+@pytest.mark.parametrize("is_async", [False, True], ids=["9tap", "async"])
+@pytest.mark.parametrize("c", sorted(_PLAN_NS))
+def test_conv3x3_plan_fits_shared_memory(c, is_async):
+    plan = conv3x3_plan(c, 128, 4 if is_async else 1, is_async)
+    assert plan["ns"] == _PLAN_NS[c]
+    assert plan["smem_bytes"] <= CONV_SMEM_LIMIT
+    assert plan["n_slices"] == 128 // plan["ns"]
+    assert plan["tile"] == (8, 16)
+    assert plan["threads"] == (384 if is_async else 256)
+    # one CTA an SM, rounded down so that each keeps one slice
+    assert plan["ctas"] == 132 // plan["n_slices"] * plan["n_slices"]
+    assert plan["smem_bytes"] == conv3x3_smem_bytes(c, plan["ns"], is_async)
+    if plan["ns"] < 64:  # the next wider slice would not fit
+        assert conv3x3_smem_bytes(c, 2 * plan["ns"],
+                                  is_async) > CONV_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("is_async,c_max", [(False, 320), (True, 576)],
+                         ids=["9tap", "async"])
+def test_conv3x3_plan_refuses_past_the_limit(is_async, c_max):
+    padw = 4 if is_async else 1
+    assert conv3x3_plan(c_max, 128, padw, is_async)["ns"] == 16
+    with pytest.raises(ValueError, match="shared memory"):
+        conv3x3_plan(c_max + 16, 128, padw, is_async)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        conv3x3_plan(24, 128, padw, is_async)
+    if not is_async:
+        with pytest.raises(ValueError, match="padw"):
+            conv3x3_plan(128, 128, 4, is_async)
+
+
+def test_conv3x3_plan_at_the_probe_shape_and_odd_widths():
+    """The probe's conv: NS = 64, two slices, 132 CTAs, the shared memory
+    the kernels' design states (212.0 KB async, 218.1 KB 9-tap); narrow or
+    ragged C2; a grid capped at one CTA an item."""
+    nine, dma = conv3x3_plan(128, 128, 1, False), conv3x3_plan(128, 128, 4, True)
+    assert (nine["ns"], nine["n_slices"], nine["ctas"]) == (64, 2, 132)
+    assert (dma["ns"], dma["n_slices"], dma["ctas"]) == (64, 2, 132)
+    assert (nine["smem_bytes"], dma["smem_bytes"]) == (218112, 212000)
+    assert conv3x3_plan(32, 16, 1, False)["ns"] == 16
+    assert conv3x3_plan(32, 32, 4, True)["ns"] == 32
+    assert conv3x3_plan(32, 48, 1, False)["n_slices"] == 1
+    ragged = conv3x3_plan(16, 160, 4, True)
+    assert (ragged["ns"], ragged["n_slices"], ragged["ctas"]) == (64, 3, 132)
+    assert conv3x3_plan(128, 128, 1, False, sms=132, n_tiles=5)["ctas"] == 10
+    assert conv3x3_plan(128, 128, 1, False, sms=7)["ctas"] == 6
+
+
 def test_ablation_edits_apply_to_the_source(tmp_path):
     """A variant build (the ablation's) compiles the edited source under
     its own hash, and an edit whose text is not in the source raises
@@ -122,6 +177,17 @@ def test_ablation_edits_apply_to_the_source(tmp_path):
     assert base.target()[0] == cu.read_text()
     with pytest.raises(RuntimeError, match="not in the source"):
         CudaLibrary(str(cu), [("return 3", "")]).build()
+
+
+def test_ablation_variants_edit_the_conv_source():
+    """Every variant of scripts/conv_ablation.py finds its texts in
+    csrc/conv3x3.cu, so none times the unchanged kernel."""
+    from ditsep_tpu_torch.scripts.conv_ablation import EDITS
+    base = CudaLibrary("conv3x3.cu").target()
+    for name, edits in EDITS.items():
+        src, out = CudaLibrary("conv3x3.cu", edits).target()
+        assert (src == base[0]) == (name == "base"), name
+        assert (out == base[1]) == (name == "base"), name
 
 
 @pytest.mark.parametrize("name", ["ops/conv3x3.py", "scripts/conv_probe.py",

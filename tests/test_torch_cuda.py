@@ -189,19 +189,24 @@ def _borders(y, padw):
                       y[:, :, :padw].flatten(), y[:, :, -padw:].flatten()])
 
 
+_CONV_WRAPPERS = {"9tap": "conv3x3_9tap", "async_halo": "conv3x3_async_halo"}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["9tap", "async_halo"])
-@pytest.mark.parametrize("shape", [
-    (1, 576, 256, 128, 128),   # the probe's conv at batch 1
-    (2, 13, 37, 32, 48),       # ragged tiles, C2 not a multiple of 128
-    (3, 8, 16, 16, 160),       # one tile, two output-channel passes
+@pytest.mark.parametrize("kernel,shape", [
+    (k, s) for k in ("9tap", "async_halo") for s in (
+        (1, 576, 256, 128, 128),   # the probe's conv at batch 1
+        (2, 13, 37, 32, 48),       # ragged tiles, C2 not a multiple of 64
+        (3, 8, 16, 16, 160),       # one tile, three output-channel slices
+    )] + [
+    ("9tap", (1, 21, 40, 288, 48)),         # the deepest C of PR 2's 9-tap
+    ("async_halo", (2, 11, 45, 144, 160)),  # and of its async kernel
 ])
 def test_conv3x3_kernels_match_plain(cuda_device, kernel, shape):
     b, h, w, c, c2 = shape
     padw = 1 if kernel == "9tap" else 4
     x, w9 = _conv_case(cuda_device, b, h, w, c, c2, padw)
-    wrapper = (cuda_kernels.conv3x3_9tap if kernel == "9tap"
-               else cuda_kernels.conv3x3_async_halo)
+    wrapper = getattr(cuda_kernels, _CONV_WRAPPERS[kernel])
     before = wrapper.launches
     y = (conv3x3.conv3x3_bordered(x, w9) if kernel == "9tap"
          else conv3x3.conv3x3_bordered_async(x, w9, padw))
@@ -216,24 +221,27 @@ def test_conv3x3_kernels_match_plain(cuda_device, kernel, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows_per_block", [1, 2, 3, 7, None])
-def test_conv3x3_async_halo_walks_row_tiles(cuda_device, rows_per_block):
-    """H = 100 is 7 row tiles of 16 and W = 20 two ragged column tiles:
-    walks of 2, 3 and 7 tiles wrap the two halo buffers (7 = the whole
-    column, in one block); each walk gives the same bits, within 1 ulp of
-    the plain version. None: the wrapper's own choice."""
-    x, w9 = _conv_case(cuda_device, 2, 100, 20, 32, 48, 4)
-    kernel = cuda_kernels.conv3x3_async_halo
-    before = kernel.launches
-    y = kernel(x, w9, 4, rows_per_block=rows_per_block)
-    one = kernel(x, w9, 4, rows_per_block=1)
+@pytest.mark.parametrize("kernel", ["9tap", "async_halo"])
+@pytest.mark.parametrize("ctas", [1, 2, 7, None])
+def test_conv3x3_cta_counts_give_same_bits(cuda_device, kernel, ctas):
+    """H = 100, W = 20: 13 x 2 M tiles of 8 x 16 an image, 52 in all; C2 =
+    160 is three slices of 64. One CTA walks all 156 items (the async
+    ring of two stages wraps 156 times), 2 and 7 CTAs change slice between
+    items (reloading their weights); each grid gives the bits of the
+    plan's, within 1 ulp of the plain version. None: the plan's grid."""
+    padw = 1 if kernel == "9tap" else 4
+    x, w9 = _conv_case(cuda_device, 2, 100, 20, 128, 160, padw)
+    wrapper = getattr(cuda_kernels, _CONV_WRAPPERS[kernel])
+    before = wrapper.launches
+    y = wrapper(x, w9, padw, ctas=ctas)
+    want = wrapper(x, w9, padw)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 2
-    assert torch.equal(y, one)
-    ref = cuda_kernels.conv3x3_bordered_plain(x, w9, 4)
+    assert wrapper.launches == before + 2
+    assert torch.equal(y, want)
+    ref = cuda_kernels.conv3x3_bordered_plain(x, w9, padw)
     assert (y.float() - ref.float()).abs().max() <= _tolerance(
         ref, torch.bfloat16)
-    assert bool((_borders(y, 4) == 0).all())
+    assert bool((_borders(y, padw) == 0).all())
 
 
 @pytest.mark.cuda
@@ -253,12 +261,15 @@ def test_conv3x3_raises_not_falls_back(cuda_device):
         conv3x3.conv3x3_bordered_async(x, w9[..., :8].contiguous(), 1)
     with pytest.raises(ValueError, match="padw"):
         cuda_kernels.conv3x3_9tap(x, w9, 2)
-    with pytest.raises(ValueError, match="rows_per_block"):
-        cuda_kernels.conv3x3_async_halo(x, w9, 1, rows_per_block=0)
-    # two halo windows of C = 160 exceed a block's shared memory: the
-    # launch is refused and the wrapper raises
-    xd, wd = _conv_case(cuda_device, 1, 8, 16, 160, 16, 4)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        conv3x3.conv3x3_bordered_async(xd, wd)
+    with pytest.raises(ValueError, match="ctas"):
+        cuda_kernels.conv3x3_async_halo(x, w9, 1, ctas=0)
+    # past the plan's depth (9-tap C = 336, async C = 592) the weights,
+    # halo and staging do not fit a block's shared memory even at 16
+    # output channels a CTA: the wrapper raises before any launch
+    for c, padw, fn in ((336, 1, conv3x3.conv3x3_bordered),
+                        (592, 4, conv3x3.conv3x3_bordered_async)):
+        xd, wd = _conv_case(cuda_device, 1, 8, 16, c, 16, padw)
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(xd, wd)
     assert (cuda_kernels.conv3x3_9tap.launches,
             cuda_kernels.conv3x3_async_halo.launches) == before
