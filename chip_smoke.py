@@ -10,9 +10,14 @@ lines; any failure raises and the exit code is non-zero:
 1. device   -- card name and power limit (nvidia-smi), kernel build time;
 2. kernel   -- fir_down2d against its plain PyTorch version at the 12
                distinct flagship shapes, f32 and bf16, NCHW and
-               channels_last, plus an odd shape and an asymmetric kernel;
-               times of the kernel, the plain version, one library call
-               and the memory bound;
+               channels_last, plus an odd shape and an asymmetric kernel,
+               and its scalar path against its vector path bit for bit
+               wherever the plan takes the vector one; then
+               ``scripts/fir_timing.py``: the kernel, the plain version,
+               one library call and the byte bound at the 12 main-path
+               shapes at batch 1 and 4 (NCHW, f32 and bf16; channels_last
+               at level 0) and the sums over the 18 launches of a
+               forward;
 3. fused_bias_act -- fba_fwd and fba_bwd against their plain versions in
                f32 and bf16, channel axis -1 and 1, at an odd shape and at
                (4, 256, 576, 128) (a level-0 activation of the flagship
@@ -80,22 +85,6 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from ditsep_tpu_torch.ops import cuda_kernels as ck
@@ -116,7 +105,8 @@ def counts() -> dict:
 
 def ptxas_usage(log: str) -> dict:
     """Registers, stack and spills that ``-Xptxas -v`` reports, by kernel
-    (the conv kernel's instances as conv3x3_kernel<NS, ASYNC>)."""
+    (the conv kernel's instances as conv3x3_kernel<NS, ASYNC>, the FIR
+    kernel's as fir_down2d_nchw / _nhwc<dtype, V, path>)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -126,6 +116,12 @@ def ptxas_usage(log: str) -> dict:
             if c:
                 name = (f"conv3x3_kernel<{c.group(1)}, "
                         f"{'true' if c.group(2) == '1' else 'false'}>")
+            f = re.search(r"(fir_down2d_n(?:chw|hwc))I(f|13__nv_bfloat16)"
+                          r"Li(\d+)ELb([01])E", name)
+            if f:
+                dtype = "float" if f.group(2) == "f" else "bf16"
+                name = (f"{f.group(1)}<{dtype}, V={f.group(3)}, "
+                        f"{'vector' if f.group(4) == '1' else 'scalar'}>")
         elif name and ("registers" in ln or "spill" in ln):
             out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
     return out
@@ -146,23 +142,24 @@ def build_all() -> dict:
 
 
 def phase_kernel(ctx):
-    """fir_down2d against downsample_2d_plain at every flagship shape."""
+    """fir_down2d against downsample_2d_plain at every flagship shape, the
+    forced vector and scalar paths bit for bit; then its times at every
+    main-path shape (``scripts/fir_timing.py``)."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from ditsep_tpu_torch.ops import cuda_kernels as ck
+    from ditsep_tpu_torch.scripts import fir_timing
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    shapes = []
-    for i, c in enumerate((128, 128, 256, 256, 256, 256)):
-        h, w = 256 >> i, 576 >> i
-        shapes += [(1, c, h, w), (1, 6, h, w)]
+    shapes = [s for _, _, s in fir_timing.main_path_shapes(1)]
     cases = [(s, (1, 3, 3, 1), 1.0) for s in shapes]
     cases += [((2, 6, 17, 9), (1, 3, 3, 1), 1.0),
               ((2, 32, 64, 144), (1, 2, 3, 4), 2.5)]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    paths = {"vector": 0, "scalar": 0}
     for shape, k, gain in cases:
         base = torch.randn(shape, generator=g, device="cuda")
+        taps = ck.separable_taps(np.asarray(k, np.float64), gain)
         for dtype in (torch.float32, torch.bfloat16):
             for fmt in (torch.contiguous_format, torch.channels_last):
                 x = base.to(dtype).contiguous(memory_format=fmt)
@@ -179,40 +176,45 @@ def phase_kernel(ctx):
                 check(err <= tol, f"fir_down2d {shape} {dtype} {fmt}: "
                                   f"max err {err} > {tol}")
                 worst[dtype] = max(worst[dtype], err)
+                path = ck.fir_down2d.plan(x)["path"]
+                paths[path] += 1
+                if path == "vector":  # the scalar path gives the same bits
+                    sca = ck.fir_down2d(x, *taps, force_path="scalar")
+                    check(torch.equal(y, sca), f"fir_down2d {shape} {dtype} "
+                                               f"{fmt}: the vector and "
+                                               "scalar paths differ")
 
-    # times at the level-0 shape of the main path (the CLI's batch of 1)
-    taps_h, taps_w = ck.separable_taps(np.asarray([1.0, 3.0, 3.0, 1.0]), 1.0)
-    times = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.randn(1, 128, 256, 576, generator=g, device="cuda").to(dtype)
-        wk = torch.outer(torch.tensor(taps_h), torch.tensor(taps_w))
-        wk = wk.to(device="cuda", dtype=dtype).expand(128, 1, 4, 4)
-        lib = lambda: F.conv2d(x, wk, stride=2, padding=1, groups=128)
-        y = ck.fir_down2d(x, taps_h, taps_w)
-        # the library call computes the same function (checked, not used)
-        lerr = (lib().float() - y.float()).abs().max().item()
-        peak = y.float().abs().max().item()
-        ltol = (1e-5 * peak if dtype == torch.float32
-                else 2 * ck.bf16_ulp(peak))
-        check(lerr <= ltol, f"library call disagrees with the kernel "
-                            f"({lerr} > {ltol})")
-        nbytes = (x.numel() + y.numel()) * x.element_size()
-        times[str(dtype).split(".")[-1]] = {
-            "kernel_ms": cuda_ms(lambda: ck.fir_down2d(x, taps_h, taps_w)),
-            "plain_ms": cuda_ms(lambda: ck.downsample_2d_plain(
-                x, [1, 3, 3, 1])),
-            "library_ms": cuda_ms(lib),
-            "bound_ms": nbytes / ctx["bandwidth"] * 1e3,
-        }
-    ctx["kernel_times"] = times
+    rows = fir_timing.time_main_path(ctx["bandwidth"])
+    timed = [r for r in rows if not r.get("per_forward")]
+    level0 = {r["dtype"]: r for r in timed if r["layout"] == "nchw"
+              and tuple(r["shape"]) == (1, 128, 256, 576)}
+    ctx["kernel_times"] = level0
     ctx["kernel_err"] = worst
     emit({"phase": "kernel", "kernel": "fir_down2d", "cases": len(cases) * 4,
           "max_abs_err_f32": worst[torch.float32],
           "max_abs_err_bf16": worst[torch.bfloat16],
           "tolerance": "f32 1e-6*max|ref|, bf16 1 ulp of max|ref|",
-          "shape": [1, 128, 256, 576], **times,
+          "paths": paths, "vector_equals_scalar_bits": paths["vector"],
+          "shape": [1, 128, 256, 576],
+          **{k: {m: v[m] for m in ("kernel_ms", "plain_ms", "library_ms",
+                                   "bound_ms")} for k, v in level0.items()},
           "launches_per_forward": LAUNCHES_PER_FORWARD,
           "card": ctx["card"]})
+    keys = ("kernel_ms", "bound_ms", "library_ms", "plain_ms", "call_ms",
+            "library_call_ms", "in_l2")
+    emit({"phase": "kernel_times", "kernel": "fir_down2d",
+          "timing": "device ms: CUDA graph of at least 30 calls cycling "
+                    "through twice the L2 where 256 calls can (else "
+                    "in_l2); call ms: CUDA events around 30 back-to-back "
+                    "calls",
+          "columns": ["shape", "dtype", "layout", *keys],
+          "rows": [[r["shape"], r["dtype"], r["layout"],
+                    *(r[k] for k in keys)] for r in timed],
+          "card": ctx["card"]})
+    for r in rows:
+        if r.get("per_forward"):
+            emit({"phase": "kernel_per_forward", "kernel": "fir_down2d", **r,
+                  "card": ctx["card"]})
 
 
 def phase_fused_bias_act(ctx):
@@ -221,6 +223,7 @@ def phase_fused_bias_act(ctx):
     import torch
     from ditsep_tpu_torch.ops import cuda_kernels as ck
     from ditsep_tpu_torch.ops.fused_act import fused_leaky_relu
+    from ditsep_tpu_torch.utils.timing import call_ms
 
     g = torch.Generator(device="cuda").manual_seed(4)
     slope, scale = 0.2, math.sqrt(2.0)
@@ -267,17 +270,17 @@ def phase_fused_bias_act(ctx):
         dx = ck.fused_bias_act_bwd(x, b, gy)
         esize = x.element_size()
         times[str(dtype).split(".")[-1]] = {
-            "fwd_ms": cuda_ms(lambda: ck.fused_bias_act_fwd(x, b)),
-            "fwd_plain_ms": cuda_ms(lambda: ck.fused_bias_act_plain(x, b)),
+            "fwd_ms": call_ms(lambda: ck.fused_bias_act_fwd(x, b)),
+            "fwd_plain_ms": call_ms(lambda: ck.fused_bias_act_plain(x, b)),
             "fwd_bound_ms": (2 * x.numel() + b.numel()) * esize
             / ctx["bandwidth"] * 1e3,
-            "bwd_ms": cuda_ms(lambda: ck.fused_bias_act_bwd(x, b, gy)),
-            "bwd_plain_ms": cuda_ms(
+            "bwd_ms": call_ms(lambda: ck.fused_bias_act_bwd(x, b, gy)),
+            "bwd_plain_ms": call_ms(
                 lambda: ck.fused_bias_act_bwd_plain(x, b, gy)),
             "bwd_bound_ms": (3 * x.numel() + b.numel()) * esize
             / ctx["bandwidth"] * 1e3,
             # dbias = sum(dx), outside the kernel as in the JAX package
-            "dbias_sum_ms": cuda_ms(lambda: dx.sum((0, 1, 2))),
+            "dbias_sum_ms": call_ms(lambda: dx.sum((0, 1, 2))),
         }
         del x, gy, b, dx
     # the op's path: forward and backward through autograd, f32
@@ -320,6 +323,7 @@ def phase_conv3x3(ctx):
         conv3x3_bordered, conv3x3_bordered_async,
     )
     from ditsep_tpu_torch.scripts import conv_probe
+    from ditsep_tpu_torch.utils.timing import call_ms
 
     # the launch plans at the probe shape, and what ptxas said
     batch16 = {"n_tiles": 16 * -(-conv_probe.H // ck.CONV_TILE[0])
@@ -388,7 +392,7 @@ def phase_conv3x3(ctx):
         timed_err[row] = err
         worst = max(worst, err)
         del ref, y
-        plain[row] = cuda_ms(lambda: ck.conv3x3_bordered_plain(xb, w9, padw),
+        plain[row] = call_ms(lambda: ck.conv3x3_bordered_plain(xb, w9, padw),
                              iters=2, warmup=1)
     del x, x1, x4, w9
     torch.cuda.empty_cache()

@@ -157,6 +157,100 @@ def downsample_2d_plain(x: Tensor, k: Optional[Sequence[float]] = None,
     return y.to(x.dtype)
 
 
+FIR_THREADS = 256      # threads a block of fir_down2d, at most
+FIR_MAX_GRID_Y = 65535  # planes (NCHW) or images (channels_last) a launch
+                        # spans in gridDim.y; the kernel loops past it
+# output rows a thread by layout, the kernel's kRowsNchw / kRowsNhwc: the
+# fastest at the flagship's level-0 shapes on an H100
+FIR_ROWS = {"nchw": 2, "channels_last": 5}
+_FIR_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def _dense(shape: Sequence[int], strides: Sequence[int],
+           order: Sequence[int]) -> bool:
+    """Whether ``strides`` are dense in ``order`` (innermost axis first),
+    ignoring axes of size 1, as ``Tensor.is_contiguous`` does."""
+    want = 1
+    for ax in order:
+        if shape[ax] != 1 and strides[ax] != want:
+            return False
+        want *= shape[ax]
+    return True
+
+
+def fir_down2d_plan(shape: Sequence[int], strides: Sequence[int],
+                    dtype: torch.dtype, misalign: int,
+                    force_path: Optional[str] = None) -> dict:
+    """The launch plan of ``csrc/fir_down2d.cu`` for an (N, C, H, W) tensor
+    of these strides and dtype whose data pointer is ``misalign`` bytes
+    past a 16-byte boundary.
+
+    ``layout``: "nchw" (contiguous, checked first as ``Tensor.
+    is_contiguous`` is) or "channels_last"; ``path``: "vector" (16-byte
+    loads and stores: NCHW with W a multiple of 2V, channels_last with C a
+    multiple of V, and ``misalign`` 0) or "scalar" (element loads, any
+    shape), unless ``force_path`` names one (a "vector" that does not
+    apply raises); ``v``: outputs (NCHW) or channels (channels_last) a
+    thread stores per output row, V = 4 (f32) or 8 (bf16) on the vector
+    path, 1 on the scalar one; ``groups``: such groups in an output row
+    (NCHW) or pixel (channels_last); ``rows``: output rows a thread (R,
+    ``FIR_ROWS`` of the layout); ``block`` (bx, by) and ``grid`` (gx, gy) as the kernel takes them:
+    NCHW bx groups along W x by thread rows of R output rows, gx = column
+    tiles x row tiles; channels_last bx channel groups x by output
+    columns, gx = channel tiles x column tiles x row tiles; gy planes or
+    images, at most 65,535 (the kernel loops past it); ``tile``: output
+    rows and columns of a block. Raises ValueError for what the kernel
+    does not take."""
+    if len(shape) != 4:
+        raise ValueError(f"fir_down2d takes (N, C, H, W), got {shape}")
+    if dtype not in _FIR_ESIZE:
+        raise ValueError(f"fir_down2d takes float32 or bfloat16, got {dtype}")
+    n, c, h, w = shape
+    if h < 2 or w < 2:
+        raise ValueError(f"fir_down2d needs H, W >= 2, got {tuple(shape)}")
+    if max(n * c, h, w) >= 2 ** 31:
+        raise ValueError(f"fir_down2d indexes with 32 bits: {tuple(shape)}")
+    if force_path not in (None, "vector", "scalar"):
+        raise ValueError(f"fir_down2d force_path is 'vector' or 'scalar', "
+                         f"got {force_path!r}")
+    if _dense(shape, strides, (3, 2, 1, 0)):
+        layout = "nchw"
+    elif _dense(shape, strides, (1, 3, 2, 0)):
+        layout = "channels_last"
+    else:
+        raise ValueError(f"fir_down2d takes contiguous NCHW or channels_last "
+                         f"strides, got strides {tuple(strides)}")
+    vec = 16 // _FIR_ESIZE[dtype]
+    fits = misalign == 0 and (w % (2 * vec) == 0 if layout == "nchw"
+                              else c % vec == 0)
+    if force_path == "vector" and not fits:
+        raise ValueError(f"fir_down2d: the vector path does not apply to "
+                         f"{tuple(shape)} {layout} {dtype} at pointer "
+                         f"offset {misalign} mod 16")
+    path = force_path or ("vector" if fits else "scalar")
+    v = vec if path == "vector" else 1
+    r = FIR_ROWS[layout]
+    ho, wo = h // 2, w // 2
+    cdiv = lambda a, b: -(-a // b)
+    if layout == "nchw":
+        groups = wo // v
+        tiles = cdiv(groups, FIR_THREADS)
+        bx = groups if tiles == 1 else _round_up(cdiv(groups, tiles), 32)
+        by = max(1, min(FIR_THREADS // bx, cdiv(ho, r)))
+        gx = cdiv(groups, bx) * cdiv(ho, by * r)
+        gy, tile = min(n * c, FIR_MAX_GRID_Y), (by * r, bx * v)
+    else:
+        groups = c // v
+        bx = max(1, min(groups, FIR_THREADS))
+        by = max(1, min(FIR_THREADS // bx, wo))
+        gx = cdiv(groups, bx) * cdiv(wo, by) * cdiv(ho, r)
+        gy, tile = min(n, FIR_MAX_GRID_Y), (r, by)
+    if gx >= 2 ** 31:
+        raise ValueError(f"fir_down2d: {tuple(shape)} needs {gx} blocks")
+    return {"layout": layout, "path": path, "v": v, "groups": groups,
+            "rows": r, "block": (bx, by), "grid": (gx, gy), "tile": tile}
+
+
 class FirDown2d:
     """Wrapper of ``csrc/fir_down2d.cu``: 4-tap separable FIR + 2x
     decimation on both spatial axes of a logical NCHW tensor, one pass.
@@ -164,7 +258,10 @@ class FirDown2d:
     Replaces ditsep_tpu/ops/pallas_kernels.py:fir_down2_h_pallas /
     downsample_2d_pallas. Takes f32 or bf16, contiguous NCHW or
     channels_last strides, any H, W >= 2; returns (N, C, H//2, W//2) in
-    the input's dtype and memory format."""
+    the input's dtype and memory format. Each call launches the plan of
+    ``fir_down2d_plan`` (cached by shape, strides, dtype and alignment);
+    ``force_path`` ("vector" or "scalar") is for the checks that hold the
+    two paths to the same bits."""
 
     _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -172,52 +269,60 @@ class FirDown2d:
         self.library = CudaLibrary("fir_down2d.cu")
         self.launches = 0
         self._fn = None
+        self._plans = {}
+        self._taps = {}
 
     def _function(self):
         if self._fn is None:
             fn = self.library.load().fir_down2d
-            fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                           + [ctypes.c_int64] * 8
-                           + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
+                           + [ctypes.c_int] * 3 + [ctypes.c_int64] * 4
+                           + [ctypes.c_int] * 2
+                           + [ctypes.c_int64, ctypes.c_int]
+                           + [ctypes.c_void_p, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
+    def plan(self, x: Tensor, force_path: Optional[str] = None) -> dict:
+        """``fir_down2d_plan`` for ``x``, cached."""
+        key = (tuple(x.shape), x.stride(), x.dtype, x.data_ptr() % 16,
+               force_path)
+        plan = self._plans.get(key)
+        if plan is None:
+            if len(self._plans) >= 256:  # bound it for callers of many shapes
+                self._plans.clear()
+            plan = self._plans[key] = fir_down2d_plan(*key)
+        return plan
+
     def __call__(self, x: Tensor, taps_h: Sequence[float],
-                 taps_w: Sequence[float]) -> Tensor:
+                 taps_w: Sequence[float],
+                 force_path: Optional[str] = None) -> Tensor:
         """``taps_h`` / ``taps_w``: the 4 flipped taps of each axis."""
         if x.device.type != "cuda":
             raise ValueError(f"fir_down2d needs a CUDA tensor, got {x.device}")
-        if x.dtype not in self._DTYPES:
-            raise ValueError(f"fir_down2d takes float32 or bfloat16, "
-                             f"got {x.dtype}")
-        if x.ndim != 4:
-            raise ValueError(f"fir_down2d takes (N, C, H, W), got {x.shape}")
-        n, c, h, w = x.shape
-        if h < 2 or w < 2:
-            raise ValueError(f"fir_down2d needs H, W >= 2, got {x.shape}")
         if len(taps_h) != 4 or len(taps_w) != 4:
             raise ValueError("fir_down2d takes 4 taps per axis")
-        if x.is_contiguous():
-            fmt, channels_last = torch.contiguous_format, 0
-        elif x.is_contiguous(memory_format=torch.channels_last):
-            fmt, channels_last = torch.channels_last, 1
-        else:
-            raise ValueError(
-                f"fir_down2d takes contiguous NCHW or channels_last strides, "
-                f"got strides {x.stride()}")
+        plan = self.plan(x, force_path)
+        n, c, h, w = x.shape
+        fmt = (torch.channels_last if plan["layout"] == "channels_last"
+               else torch.contiguous_format)
         y = torch.empty((n, c, h // 2, w // 2), dtype=x.dtype,
                         device=x.device, memory_format=fmt)
         if y.numel() == 0:
             return y
         fn = self._function()
-        taps = (ctypes.c_float * 8)(*taps_h, *taps_w)
+        key = (*taps_h, *taps_w)
+        taps = self._taps.get(key)
+        if taps is None:
+            taps = self._taps[key] = (ctypes.c_float * 8)(*key)
+        (bx, by), (gx, gy) = plan["block"], plan["grid"]
         with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
             err = fn(x.data_ptr(), y.data_ptr(), self._DTYPES[x.dtype],
-                     n, c, h, w, *x.stride(), channels_last,
-                     ctypes.cast(taps, ctypes.c_void_p), stream)
-        if err != 0:
+                     int(fmt is torch.channels_last),
+                     int(plan["path"] == "vector"), n, c, h, w,
+                     bx, by, gx, gy, taps, _stream(x))
+        if err != 0:  # 1 (invalid value): a plan that does not fit x
             raise RuntimeError(f"fir_down2d launch failed: CUDA error {err}")
         self.launches += 1
         return y

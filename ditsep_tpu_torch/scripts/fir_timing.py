@@ -1,0 +1,212 @@
+"""Times of ``fir_down2d`` at every shape of the main path, on one CUDA card.
+
+    python -m ditsep_tpu_torch.scripts.fir_timing [--iters 30] [--force]
+
+The flagship U-Net (``diffsep_icassp``: nf=128, ch_mult (1,1,2,2,2,2,2))
+downsamples by FIR at six levels: twice in each down block, on
+(B, C_i, H_i, W_i) with C = 128, 128, 256, 256, 256, 256, and once on the
+input pyramid, (B, 6, H_i, W_i), with H_i x W_i = 256 x 576 >> i at the
+8.415 s flagship length: 18 launches a forward.
+
+For each of those 12 shapes at batch 1 and 4, in f32 and bf16, NCHW (the
+main path's layout), and at level 0 also channels_last, it prints one JSON
+line: the device time of one call (``kernel_ms``, ``plain_ms``,
+``library_ms``: calls captured in a CUDA graph and replayed between CUDA
+events, over the calls), the time a caller sees (``call_ms``,
+``library_call_ms``: ``utils/timing.py``'s CUDA events around
+back-to-back calls on one input, host overhead included where the host is
+slower than the card), and the byte bound (input read once, output written
+once, over the card's memory rate). The library call is one ``F.conv2d``
+depthwise 4x4 stride-2 conv, checked against the kernel and never used by
+the port.
+
+On the main path the layer before writes each input once, so the graph
+cycles through copies of the input and gives every call its own output
+until they span twice the card's L2 (``L2_SPAN``), in at most
+``MAX_CALLS`` calls: a DRAM-bound time, not an L2 one. ``in_l2`` marks the
+rows too small to span it that way. Then, per batch and dtype, one line of
+sums over the 18 launches of a forward (2 x down block + pyramid at each
+level).
+
+``--force`` also times the scalar path where the vector one applies. To
+time two checkouts on one card, copy this file and ``utils/timing.py``
+into the other one and run it from each. Prints JSON lines, writes no
+file.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+DOWN_CHANNELS = (128, 128, 256, 256, 256, 256)
+PYRAMID_CHANNELS = 6
+LEVEL0_HW = (256, 576)
+FIR_K = (1.0, 3.0, 3.0, 1.0)
+L2_SPAN = 2       # the bytes a timing graph cycles through, in L2 sizes
+MAX_CALLS = 256   # calls of one timing graph, at most
+
+
+def main_path_shapes(batch: int) -> list:
+    """(kind, level, NCHW shape) of the main path's fir_down2d inputs."""
+    out = []
+    for i, c in enumerate(DOWN_CHANNELS):
+        h, w = LEVEL0_HW[0] >> i, LEVEL0_HW[1] >> i
+        out += [("down", i, (batch, c, h, w)),
+                ("pyramid", i, (batch, PYRAMID_CHANNELS, h, w))]
+    return out
+
+
+def graph_ms(fns, iters: int = 30, warmup: int = 3, reps: int = 3) -> float:
+    """Device time of one call: ``iters`` calls, the i-th of ``fns[i %
+    len(fns)]``, captured in one CUDA graph and replayed ``reps`` times
+    between CUDA events, so no host time is in it; what is left besides
+    the kernels is the graph's gap between two kernel nodes. The calls'
+    outputs live until the capture ends, so each call writes its own."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(warmup):
+            fns[i % len(fns)]()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fns[i % len(fns)]() for i in range(iters)]
+    del outs  # back to the graph's own pool: the replays still write them
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * iters)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def time_shape(shape, dtype, channels_last: bool, bandwidth: float,
+               iters: int = 30, force: bool = False, seed: int = 0) -> dict:
+    """One timed row: kernel, plain version, library call, byte bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+    from ditsep_tpu_torch.utils.timing import call_ms
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    x = x.contiguous(memory_format=fmt)
+    taps_h, taps_w = ck.separable_taps(np.asarray(FIR_K), 1.0)
+    c = shape[1]
+    wk = torch.outer(torch.tensor(taps_h), torch.tensor(taps_w))
+    wk = wk.to(device="cuda", dtype=dtype).expand(c, 1, 4, 4)
+    y = ck.fir_down2d(x, taps_h, taps_w)
+    # the library call computes the same function (checked, not used)
+    lerr = (F.conv2d(x, wk, stride=2, padding=1, groups=c).float()
+            - y.float()).abs().max().item()
+    peak = y.float().abs().max().item()
+    ltol = 1e-5 * peak if dtype == torch.float32 else 2 * ck.bf16_ulp(peak)
+    if lerr > ltol:
+        raise RuntimeError(f"library call disagrees with fir_down2d at "
+                           f"{shape} {dtype}: {lerr} > {ltol}")
+    esize = x.element_size()
+    nbytes = (x.numel() + y.numel()) * esize
+    span = L2_SPAN * torch.cuda.get_device_properties(x.device).L2_cache_size
+    copies = min(MAX_CALLS, -(-span // nbytes))
+    calls = max(iters, copies)
+    xs = [x] + [x.clone() for _ in range(copies - 1)]
+    cycled = copies * x.numel() * esize + calls * y.numel() * esize
+    kern = [lambda xi=xi: ck.fir_down2d(xi, taps_h, taps_w) for xi in xs]
+    lib = [lambda xi=xi: F.conv2d(xi, wk, stride=2, padding=1, groups=c)
+           for xi in xs]
+    plain = [lambda xi=xi: ck.downsample_2d_plain(xi, FIR_K) for xi in xs]
+    row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+           "layout": "channels_last" if channels_last else "nchw",
+           "kernel_ms": graph_ms(kern, calls),
+           "plain_ms": graph_ms(plain, calls),
+           "library_ms": graph_ms(lib, calls),
+           "call_ms": call_ms(kern[0], iters),
+           "library_call_ms": call_ms(lib[0], iters),
+           "bound_ms": nbytes / bandwidth * 1e3,
+           "graph_calls": calls, "input_copies": copies,
+           "in_l2": cycled < span}
+    if force:
+        plan = ck.fir_down2d.plan(x)
+        row["plan"] = plan
+        if plan["path"] == "vector":
+            row["scalar_ms"] = graph_ms(
+                [lambda xi=xi: ck.fir_down2d(xi, taps_h, taps_w,
+                                             force_path="scalar")
+                 for xi in xs], calls)
+    return row
+
+
+def forward_sums(rows: list) -> list:
+    """Per batch and dtype, NCHW: the 18 launches of one forward (2 per
+    down block, 1 per pyramid level) summed, kernel against bound and
+    library."""
+    out = []
+    keys = sorted({(r["shape"][0], r["dtype"]) for r in rows
+                   if r["layout"] == "nchw"})
+    for batch, dtype in keys:
+        mine = [r for r in rows if r["layout"] == "nchw"
+                and r["shape"][0] == batch and r["dtype"] == dtype]
+        if len(mine) != 12:
+            continue
+        weight = lambda r: 1 if r["shape"][1] == PYRAMID_CHANNELS else 2
+        sums = {k: sum(weight(r) * r[k] for r in mine)
+                for k in ("kernel_ms", "library_ms", "bound_ms", "call_ms",
+                          "library_call_ms")}
+        out.append({"per_forward": True, "batch": batch, "dtype": dtype,
+                    "launches": sum(weight(r) for r in mine),
+                    "in_l2_launches": sum(weight(r) for r in mine
+                                          if r["in_l2"]), **sums,
+                    "kernel_over_bound": sums["kernel_ms"] / sums["bound_ms"]})
+    return out
+
+
+def time_main_path(bandwidth: float, batches=(1, 4), iters: int = 30,
+                   force: bool = False) -> list:
+    """Timed rows at every main-path shape (NCHW) of ``batches`` in f32 and
+    bf16, channels_last at level 0, then the per-forward sums."""
+    import torch
+    out = []
+    for batch in batches:
+        for dtype in (torch.float32, torch.bfloat16):
+            for _, level, shape in main_path_shapes(batch):
+                layouts = ((False, True) if level == 0
+                           and shape[1] != PYRAMID_CHANNELS else (False,))
+                for cl in layouts:
+                    out.append(time_shape(shape, dtype, cl, bandwidth, iters,
+                                          force))
+            torch.cuda.empty_cache()
+    return out + forward_sums(out)
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--batches", type=int, nargs="+", default=[1, 4])
+    ap.add_argument("--force", action="store_true",
+                    help="also time the scalar path where the vector one "
+                         "applies")
+    args = ap.parse_args(argv)
+    import torch
+    from ditsep_tpu_torch.utils.device import card_line, card_peaks
+    if not torch.cuda.is_available():
+        raise RuntimeError("fir_timing needs a CUDA card")
+    card = card_line()
+    rows = time_main_path(card_peaks(card)[1], tuple(args.batches),
+                          args.iters, args.force)
+    for r in rows:
+        print(json.dumps({**r, "card": card}), flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -7,6 +7,7 @@ PyTorch. There, skip the repository's conftest (it configures JAX):
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -29,6 +30,11 @@ def cuda_device():
     ((2, 8, 64, 144), (1, 3, 3, 1), 1.0),
     ((1, 6, 17, 9), (1, 2, 3, 4), 2.5),   # odd sizes, asymmetric kernel
     ((3, 5, 2, 2), (1, 3, 3, 1), 1.0),    # the smallest input
+    ((2, 16, 8, 18), (1, 3, 3, 1), 1.0),  # the deepest level: W = 18
+    ((1, 8, 16, 36), (1, 3, 3, 1), 1.0),  # W = 36: scalar in both dtypes
+    ((2, 4, 12, 40), (1, 2, 3, 4), 2.5),  # W % 16 != 0: bf16 scalar
+    ((1, 24, 33, 47), (1, 3, 3, 1), 1.0),  # odd H and W, C % 8 == 0
+    ((1, 3, 10, 1200), (1, 3, 3, 1), 1.0),  # two column tiles a row
 ])
 def test_fir_down2d_matches_plain(cuda_device, dtype, channels_last, shape,
                                   k, gain):
@@ -50,8 +56,87 @@ def test_fir_down2d_matches_plain(cuda_device, dtype, channels_last, shape,
     assert (y.float() - ref.float()).abs().max().item() <= tol
 
 
+def _fir_taps():
+    return cuda_kernels.separable_taps(np.asarray([1.0, 3.0, 3.0, 1.0]), 1.0)
+
+
 @pytest.mark.cuda
-def test_cuda_downsample_raises_not_falls_back(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last,shape", [
+    (False, (2, 8, 64, 144)), (False, (1, 4, 33, 160)),
+    (False, (1, 128, 256, 576)),          # level 0 of the flagship
+    (True, (2, 32, 20, 36)), (True, (1, 16, 17, 9)),
+])
+def test_fir_down2d_paths_give_same_bits(cuda_device, dtype, channels_last,
+                                         shape):
+    """Where the vector path applies, the scalar path gives its bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    kern = cuda_kernels.fir_down2d
+    assert kern.plan(x)["path"] == "vector"
+    before = kern.launches
+    vec = kern(x, *_fir_taps(), force_path="vector")
+    sca = kern(x, *_fir_taps(), force_path="scalar")
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert torch.equal(vec, sca)
+    assert torch.equal(vec, kern(x, *_fir_taps()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_fir_down2d_misaligned_base(cuda_device, dtype, channels_last):
+    """A contiguous view at storage offset 1 is not 16-byte aligned: the
+    plan takes the scalar path, and forcing the vector one raises."""
+    shape = (2, 16, 12, 32)
+    n = math.prod(shape)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    buf = torch.randn(n + 1, generator=g, device=cuda_device).to(dtype)
+    if channels_last:
+        b, c, h, w = shape
+        x = buf[1:].view(b, h, w, c).permute(0, 3, 1, 2)
+        assert x.is_contiguous(memory_format=torch.channels_last)
+    else:
+        x = buf[1:].view(shape)
+        assert x.is_contiguous()
+    assert x.data_ptr() % 16 != 0
+    assert cuda_kernels.fir_down2d.plan(x)["path"] == "scalar"
+    with pytest.raises(ValueError, match="vector path"):
+        cuda_kernels.fir_down2d(x, *_fir_taps(), force_path="vector")
+    y = fir.downsample_2d(x, [1, 3, 3, 1])
+    ref = cuda_kernels.downsample_2d_plain(x, [1, 3, 3, 1])
+    aligned = fir.downsample_2d(x.clone(memory_format=torch.preserve_format),
+                                [1, 3, 3, 1])
+    torch.cuda.synchronize()
+    assert torch.equal(y, aligned)
+    peak = ref.float().abs().max().item()
+    tol = 1e-6 * peak if dtype == torch.float32 else bf16_ulp(peak)
+    assert (y.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels_last,shape", [
+    (False, (2, 35000, 4, 16)),   # 70,000 planes: gridDim.y loops
+    (True, (70000, 8, 4, 6)),     # 70,000 images
+])
+def test_fir_down2d_many_planes(cuda_device, channels_last, shape):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=cuda_device)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    plan = cuda_kernels.fir_down2d.plan(x)
+    assert plan["grid"][1] == 65535 and plan["path"] == "vector"
+    y = fir.downsample_2d(x, [1, 3, 3, 1])
+    ref = cuda_kernels.downsample_2d_plain(x, [1, 3, 3, 1])
+    torch.cuda.synchronize()
+    assert (y - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_downsample_raises_not_falls_back(cuda_device, monkeypatch):
     x = torch.randn(1, 4, 8, 8, device=cuda_device)
     before = cuda_kernels.fir_down2d.launches
     with pytest.raises(ValueError, match="fir_down2d"):
@@ -62,6 +147,28 @@ def test_cuda_downsample_raises_not_falls_back(cuda_device):
         fir.downsample_2d(x.transpose(2, 3), [1, 3, 3, 1])
     with pytest.raises(ValueError, match="H, W >= 2"):
         fir.downsample_2d(x[:, :, :1], [1, 3, 3, 1])
+    # the launch plan's own arguments
+    with pytest.raises(ValueError, match="force_path"):
+        cuda_kernels.fir_down2d(x, *_fir_taps(), force_path="tiles")
+    with pytest.raises(ValueError, match="vector path"):  # W = 12: 12 % 8
+        cuda_kernels.fir_down2d(torch.randn(1, 4, 8, 12, device=cuda_device),
+                                *_fir_taps(), force_path="vector")
+    with pytest.raises(ValueError, match="4 taps"):
+        cuda_kernels.fir_down2d(x, [0.25] * 3, [0.25] * 4)
+    # a plan that does not fit the tensor: the kernel's own checks refuse
+    # it and nothing is launched (a grid one block off, a block past 256
+    # threads, the vector path on a base 4 bytes past a 16-byte boundary)
+    kern = cuda_kernels.fir_down2d
+    plan = kern.plan(x)
+    gx, gy = plan["grid"]
+    odd = torch.randn(1 + x.numel(), device=cuda_device)[1:].view(x.shape)
+    for bad, t in ((dict(plan, grid=(gx + 1, gy)), x),
+                   (dict(plan, block=(257, 1)), x),
+                   (dict(plan, path="vector"), odd)):
+        with monkeypatch.context() as m:
+            m.setattr(kern, "plan", lambda *_, bad=bad: bad)
+            with pytest.raises(RuntimeError, match="CUDA error 1"):
+                kern(t, *_fir_taps())
     assert cuda_kernels.fir_down2d.launches == before
 
 

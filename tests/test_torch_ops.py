@@ -88,6 +88,22 @@ def test_downsample_plain_matches_pallas(k, gain):
            cuda_kernels.downsample_2d_plain(_to_nchw(x), k, 2, gain))
 
 
+@pytest.mark.parametrize("k,gain", [([1, 3, 3, 1], 1.0), ([1, 2, 3, 4], 0.5)])
+@pytest.mark.parametrize("shape", [
+    (1, 8, 18, 256),  # the flagship's deepest plane, 8 x 18, at C = 256
+    (2, 16, 36, 5),   # the one above it, 16 x 36
+    (3, 17, 9, 2),    # odd: downsample_2d_pallas defers to the XLA
+])                    # composite there
+def test_downsample_plain_matches_pallas_deep_planes(shape, k, gain):
+    """The plain version against downsample_2d_pallas (interpret mode on
+    the CPU) at the main path's smallest planes, where the CUDA kernel
+    takes its scalar path, and at an odd plane."""
+    rng = np.random.default_rng(9)
+    x = _nhwc(rng, shape)
+    _close(downsample_2d_pallas(jnp.asarray(x), k, 2, gain),
+           cuda_kernels.downsample_2d_plain(_to_nchw(x), k, 2, gain))
+
+
 def test_downsample_plain_other_factors_and_2d_kernels():
     rng = np.random.default_rng(3)
     x = _nhwc(rng, (1, 12, 18, 2))
