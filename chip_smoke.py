@@ -44,14 +44,29 @@ lines; any failure raises and the exit code is non-zero:
                WAVs at N=30 (NFE 60), then ``DiffSepTrainer.separate`` on a
                batch in f32 and in bf16 with the same noise and weights
                (zero-init layers redrawn at unit scale), and a profile of
-               one f32 forward.
+               one f32 forward;
+7. train    -- fir_up2d (fir_down2d's backward) against its plain version
+               at the 12 down-block shapes of the train step, f32 and
+               bf16, NCHW and channels_last, plus an odd shape and an
+               asymmetric kernel, bit for bit, and its times
+               (``scripts/fir_timing.py --backward``: kernel, plain,
+               ``F.conv_transpose2d``, byte bound); the gradient through
+               ``ops.fir.downsample_2d`` on the card; two train steps of
+               the trained nf=32 checkpoint on the card (TF32 off) against
+               the CPU with the same batch and draws; the flagship
+               training path, ``ditsep_tpu_torch.cli.train_diffsep`` on
+               diffsep_icassp at batch 6 x 40,960 samples for 4 steps
+               (two epochs, each ending in a validation with a PC-30
+               separation), its steps/s, peak memory, launches, checkpoints
+               and EMA export (loaded back and separating a file); and a
+               profile of one train step.
 
 Every launch count is set to 0 just before each path (the fused bias-act
-op, the conv probe, the separation CLI) and read just after it. The
-script then prints the ``kernels`` JSON line (all five kernels), and as
-its last line ``{"ok": true, "device": {...}}``. Without CUDA, or without
-the rest of the repository beside it, it exits non-zero and prints no
-result.
+op, the conv probe, the separation CLI, the training CLI) and read just
+after it. The script then prints the ``kernels`` JSON line (all six
+kernels), and as its last line ``{"ok": true, "device": {...}}``. Without
+CUDA, or without the rest of the repository beside it, it exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
@@ -74,6 +89,14 @@ BATCH = 4                         # batch of the direct separate calls
 LAUNCHES_PER_FORWARD = 18
 FBA_SHAPE = (4, 256, 576, 128)    # level-0 activation, batch 4, NHWC
 CONV_STACK, CONV_REPS = 10, 5     # the conv probe's timed stacks
+# the training path: diffsep_icassp, 12 synthetic items of 5 s, batch 6
+TRAIN_ITEMS, TRAIN_LEN_S, TRAIN_BATCH, TRAIN_STEPS = 12, 5.0, 6, 4
+TRAIN_EPOCHS = -(-TRAIN_STEPS // (TRAIN_ITEMS // TRAIN_BATCH))  # 2
+VAL_BATCHES = 1                   # 4 validation items fill one batch of 6
+# a train step runs two forwards (init hack 5: the t=T PIT loss and the
+# shuffled score loss); its backward takes fir_up2d for the 12 down-block
+# downsamples of each (h and the skip x; the input pyramid acts on data)
+UP_LAUNCHES_PER_BACKWARD = 12
 
 
 def emit(obj) -> None:
@@ -88,7 +111,8 @@ def check(cond: bool, msg: str) -> None:
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from ditsep_tpu_torch.ops import cuda_kernels as ck
-    return {"fir_down2d": ck.fir_down2d, "fba_fwd": ck.fused_bias_act_fwd,
+    return {"fir_down2d": ck.fir_down2d, "fir_up2d": ck.fir_up2d,
+            "fba_fwd": ck.fused_bias_act_fwd,
             "fba_bwd": ck.fused_bias_act_bwd,
             "conv3x3_9tap": ck.conv3x3_9tap,
             "conv3x3_async_halo": ck.conv3x3_async_halo}
@@ -116,7 +140,8 @@ def ptxas_usage(log: str) -> dict:
             if c:
                 name = (f"conv3x3_kernel<{c.group(1)}, "
                         f"{'true' if c.group(2) == '1' else 'false'}>")
-            f = re.search(r"(fir_down2d_n(?:chw|hwc))I(f|13__nv_bfloat16)"
+            f = re.search(r"(fir_(?:down|up)2d_n(?:chw|hwc))"
+                          r"I(f|13__nv_bfloat16)"
                           r"Li(\d+)ELb([01])E", name)
             if f:
                 dtype = "float" if f.group(2) == "f" else "bf16"
@@ -139,6 +164,15 @@ def build_all() -> dict:
     for name, lib in libs.items():
         out[name] = ptxas_usage(lib.build_log)
     return out
+
+
+def kernel_tol(ref, dtype) -> float:
+    """A kernel's bar against its plain version: f32 1e-6 * max|ref|,
+    bf16 1 ulp of max|ref|."""
+    import torch
+    from ditsep_tpu_torch.ops.cuda_kernels import bf16_ulp
+    peak = ref.float().abs().max().item()
+    return 1e-6 * peak if dtype == torch.float32 else bf16_ulp(peak)
 
 
 def phase_kernel(ctx):
@@ -170,9 +204,7 @@ def phase_kernel(ctx):
                       and y.is_contiguous(memory_format=fmt),
                       f"fir_down2d output shape/dtype/layout at {shape}")
                 err = (y.float() - ref.float()).abs().max().item()
-                peak = ref.float().abs().max().item()
-                tol = (1e-6 * peak if dtype == torch.float32
-                       else ck.bf16_ulp(peak))
+                tol = kernel_tol(ref, dtype)
                 check(err <= tol, f"fir_down2d {shape} {dtype} {fmt}: "
                                   f"max err {err} > {tol}")
                 worst[dtype] = max(worst[dtype], err)
@@ -253,9 +285,7 @@ def phase_fused_bias_act(ctx):
                     check(got.shape == ref.shape and got.dtype == dtype,
                           f"fba {what} shape/dtype at {shape}")
                     err = (got.float() - ref.float()).abs().max().item()
-                    peak = ref.float().abs().max().item()
-                    tol = (1e-6 * peak if dtype == torch.float32
-                           else ck.bf16_ulp(peak))
+                    tol = kernel_tol(ref, dtype)
                     check(err <= tol, f"fba {what} {shape} axis {axis} "
                                       f"{dtype}: max err {err} > {tol}")
                     worst[dtype] = max(worst[dtype], err)
@@ -406,20 +436,41 @@ def phase_conv3x3(ctx):
           "path_launches": path, "card": ctx["card"]})
 
 
-def phase_parity(ctx):
-    """Trained nf=32 checkpoint: card (TF32 off) against CPU, same noise."""
-    import numpy as np
-    import torch
-    from ditsep_tpu_torch.configs import (
-        build_diffsep_trainer, diffsep, override,
-    )
-    from ditsep_tpu_torch.ops import cuda_kernels as ck
-
-    cfg = override(diffsep(), {
+def parity_config() -> dict:
+    """The config of the trained nf=32 checkpoint (CKPT)."""
+    from ditsep_tpu_torch.configs import diffsep, override
+    return override(diffsep(), {
         "model.score_model.nf": 32,
         "model.score_model.ch_mult": (1, 1, 2, 2),
         "model.score_model.attn_resolutions": (32,),
         "model.score_model.mask_padding": False})
+
+
+class full_f32:
+    """cuDNN convs and matmuls in full float32 inside the block (PyTorch
+    runs convs in TF32 by default)."""
+
+    def __enter__(self):
+        import torch
+        self.prev = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = self.prev
+
+
+def phase_parity(ctx):
+    """Trained nf=32 checkpoint: card (TF32 off) against CPU, same noise."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.configs import build_diffsep_trainer
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = parity_config()
     rng = np.random.default_rng(1)
     mix = (0.1 * rng.standard_normal((1, 1, FS))).astype(np.float32)
     n = 5
@@ -428,11 +479,7 @@ def phase_parity(ctx):
              rng.standard_normal((n, 1, 2, FS)).astype(np.float32))
     out = {}
     # full f32 on the card for this comparison: cuDNN convs default to TF32
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with full_f32():
         for device, dtype in (("cuda", "f32"), ("cpu", "f32"),
                               ("cuda", "bf16")):
             cfg["model"]["score_model"]["dtype"] = dtype
@@ -443,9 +490,6 @@ def phase_parity(ctx):
                                         N=n, noise=noise)
             out[device, dtype] = (est.cpu().numpy(), nfe,
                                   ck.fir_down2d.launches)
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
     (gpu, nfe_gpu, launches_gpu), (cpu, nfe_cpu, launches_cpu) = (
         out["cuda", "f32"], out["cpu", "f32"])
     bf16 = out["cuda", "bf16"][0]
@@ -494,7 +538,6 @@ def profile_forward(trainer, mix, z):
     torch.profiler: device time by kernel, the FIR kernel's share, and the
     device's idle share of the forward's wall time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t = torch.full((mix.shape[0],), 0.5, device="cuda")
@@ -508,18 +551,29 @@ def profile_forward(trainer, mix, z):
             trainer.model_fwd(xt, t, mix)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    # device kernels only: the aten ops above them carry the same time
+    return profile_summary(prof, wall_ms)
+
+
+def profile_summary(prof, wall_ms: float) -> dict:
+    """Device time by kernel (device kernels only: the aten ops above them
+    and the annotated ranges on the device, such as the optimizer's step,
+    carry the same time), busy time, idle share of ``wall_ms``, and the
+    FIR kernels' ms."""
+    from torch.autograd import DeviceType
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    fir_ms = sum(r[1] for r in rows if "fir_down2d" in r[0])
+    fir = {name: sum(r[1] for r in rows if name in r[0])
+           for name in ("fir_down2d", "fir_up2d")}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": (1 - busy_ms / wall_ms) if wall_ms else None,
-            "fir_down2d_ms": fir_ms,
-            "fir_down2d_share": fir_ms / busy_ms if busy_ms else None,
+            "fir_down2d_ms": fir["fir_down2d"],
+            "fir_down2d_share": fir["fir_down2d"] / busy_ms if busy_ms
+            else None, "fir_up2d_ms": fir["fir_up2d"],
             "top": [{"kernel": k[:90], "ms": ms, "calls": n}
                     for k, ms, n in rows[:15]]}
 
@@ -623,6 +677,320 @@ def phase_flagship(ctx):
           **ctx["profile"], "card": ctx["card"]})
 
 
+def phase_train_kernel(ctx):
+    """fir_up2d against downsample_2d_bwd_plain, bit for bit, at the train
+    step's down-block shapes and two odd cases, the scalar path against
+    the vector path; its times; the gradient through ops.fir.downsample_2d
+    on the card (the downsample had none on CUDA before fir_up2d)."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+    from ditsep_tpu_torch.ops import fir
+    from ditsep_tpu_torch.scripts import fir_timing
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(s, (1, 3, 3, 1), 1.0) for _, s in fir_timing.train_path_shapes()]
+    cases += [((2, 6, 17, 9), (1, 2, 3, 4), 2.5),
+              ((2, 32, 64, 144), (1, 2, 3, 4), 2.5)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    paths = {"vector": 0, "scalar": 0}
+    for shape, k, gain in cases:
+        n, c, h, w = shape
+        base = torch.randn((n, c, h // 2, w // 2), generator=g, device="cuda")
+        taps = ck.separable_taps(np.asarray(k, np.float64), gain)
+        for dtype in (torch.float32, torch.bfloat16):
+            for fmt in (torch.contiguous_format, torch.channels_last):
+                gy = base.to(dtype).contiguous(memory_format=fmt)
+                dx = ck.fir_up2d(gy, *taps, (h, w))
+                ref = ck.downsample_2d_bwd_plain(gy, k, (h, w), gain)
+                torch.cuda.synchronize()
+                check(dx.shape == shape and dx.dtype == dtype,
+                      f"fir_up2d output shape/dtype at {shape}")
+                err = (dx.float() - ref.float()).abs().max().item()
+                check(err <= kernel_tol(ref, dtype)
+                      and torch.equal(dx, ref),
+                      f"fir_up2d {shape} {dtype} {fmt}: max err {err}, "
+                      "not the plain version's bits")
+                worst[dtype] = max(worst[dtype], err)
+                path = ck.fir_up2d.plan(gy, (h, w))["path"]
+                paths[path] += 1
+                if path == "vector":
+                    sca = ck.fir_up2d(gy, *taps, (h, w), force_path="scalar")
+                    check(torch.equal(dx, sca), f"fir_up2d {shape} {dtype} "
+                                                f"{fmt}: paths differ")
+                del gy, dx, ref
+        del base
+    # the fault's own check: on the card, the gradient through the op
+    x = torch.randn(cases[0][0], generator=g, device="cuda",
+                    requires_grad=True)
+    y = fir.downsample_2d(x, [1, 3, 3, 1])
+    check(y.grad_fn is not None, "downsample_2d on CUDA gives no grad_fn")
+    gy = torch.randn(y.shape, generator=g, device="cuda")
+    y.backward(gy)
+    want = ck.downsample_2d_bwd_plain(gy, [1, 3, 3, 1], tuple(x.shape[2:]))
+    torch.cuda.synchronize()
+    check(torch.equal(x.grad, want), "x.grad through downsample_2d on CUDA "
+                                     "is not the plain version's")
+    with torch.no_grad():
+        check(fir.downsample_2d(x, [1, 3, 3, 1]).grad_fn is None,
+              "no_grad downsample_2d went through the autograd Function")
+    del x, y, gy, want
+    torch.cuda.empty_cache()
+    rows = fir_timing.time_train_path(ctx["bandwidth"])
+    timed = [r for r in rows if not r.get("per_train_step")]
+    level0 = {r["dtype"]: r for r in timed
+              if tuple(r["shape"]) == fir_timing.train_path_shapes()[0][1]}
+    ctx["up"] = {"err": worst, "level0": level0}
+    keys = ("kernel_ms", "bound_ms", "plain_ms", "library_ms", "call_ms",
+            "in_l2")
+    emit({"phase": "train_kernel", "kernel": "fir_up2d",
+          "cases": len(cases) * 4, "max_abs_err_f32": worst[torch.float32],
+          "max_abs_err_bf16": worst[torch.bfloat16],
+          "tolerance": "the plain version's bits (f32 1e-6*max|ref|, bf16 "
+                       "1 ulp of max|ref|)",
+          "paths": paths, "vector_equals_scalar_bits": paths["vector"],
+          "grad_through_downsample_2d": "equal to the plain version's",
+          "timing": "device ms by CUDA graphs cycling past twice the L2 "
+                    "(scripts/fir_timing.py); library: F.conv_transpose2d "
+                    "depthwise 4x4 stride 2",
+          "columns": ["shape", "dtype", "layout", *keys],
+          "rows": [[r["shape"], r["dtype"], r["layout"],
+                    *(r[k] for k in keys)] for r in timed],
+          "per_train_step": [r for r in rows if r.get("per_train_step")],
+          "card": ctx["card"]})
+
+
+def synthetic_batch(n: int, len_s: float, seed: int = 0):
+    """(mix, target) numpy arrays: n synthetic items of len_s seconds,
+    through the train loader's bucketing and collation."""
+    from ditsep_tpu_torch.data import BucketedLoader, SyntheticMixDataset
+    ds = SyntheticMixDataset(n_items=n, min_len_s=len_s, max_len_s=len_s,
+                             seed=seed)
+    return next(iter(BucketedLoader(ds, batch_size=n, n_buckets=6,
+                                    multiple=4096, shuffle=False)))
+
+
+def phase_train_parity(ctx):
+    """Two train steps of the trained nf=32 checkpoint on the CPU and on
+    the card (TF32 off), the same batches and draws: loss, grad norm,
+    parameters and EMA at the bars of tests/test_torch_train_step.py."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.configs import build_diffsep_trainer
+    from ditsep_tpu_torch.utils.separate import normalize_batch
+
+    rng = np.random.default_rng(11)
+    b, n_steps = 2, 2
+    batches, draws = [], []
+    for step in range(n_steps):
+        mix, tgt = synthetic_batch(b, 1.0, seed=20 + step)
+        t = mix.shape[-1]
+        batches.append((mix, tgt))
+        f32 = lambda a: np.asarray(a, np.float32)
+        draws.append({"mask_u": f32([0.05, 0.5]),  # one item per branch
+                      "pit_z": f32(rng.standard_normal((b, 2, t))),
+                      "shuffle_u": f32(rng.random((b, 2))),
+                      "time_u": f32(rng.random(b)),
+                      "z": f32(rng.standard_normal((b, 2, t)))})
+    hist = {}
+    with full_f32():
+        for device in ("cpu", "cuda"):
+            trainer = build_diffsep_trainer(parity_config(), device=device,
+                                            params_npz=str(CKPT))
+            state = trainer.init_state()
+            names = [k for k, _ in trainer.model.named_parameters()]
+            params = [p for _, p in trainer.model.named_parameters()]
+            out = []
+            for (mix, tgt), d in zip(batches, draws):
+                batch = (torch.from_numpy(mix).to(device),
+                         torch.from_numpy(tgt).to(device))
+                grads = None
+                if device == "cpu":  # the reference's gradient, for the bars
+                    (m, tg), _, _ = normalize_batch(batch)
+                    loss = trainer.training_loss(trainer.model, m, tg,
+                                                 draws=d)
+                    grads = {k: v.numpy() for k, v in zip(
+                        names, torch.autograd.grad(loss, params))}
+                state, met = trainer.train_step(state, batch, draws=d)
+                out.append({
+                    "loss": met["train/score_loss"].item(),
+                    "grad_norm": met["train/grad_norm"].item(),
+                    "grads": grads,
+                    "params": {k: v.detach().cpu().numpy().copy() for k, v
+                               in state.model.state_dict().items()},
+                    "ema": {k: v.detach().cpu().numpy().copy() for k, v
+                            in state.ema.state_dict().items()}})
+            hist[device] = out
+            lr, decay = trainer.cfg.lr, trainer.cfg.ema_decay
+            del trainer, state, params
+    worst = {"loss_rel": 0.0, "grad_norm_rel": 0.0, "param_over_bar": 0.0,
+             "ema_over_bar": 0.0}
+    for n, (ref, got) in enumerate(zip(hist["cpu"], hist["cuda"]),
+                                    start=1):
+        for key in ("loss", "grad_norm"):
+            rel = abs(got[key] - ref[key]) / abs(ref[key])
+            worst[f"{key}_rel"] = max(worst[f"{key}_rel"], rel)
+            check(rel <= 1e-4, f"train step {n} {key}: card {got[key]} CPU "
+                               f"{ref[key]}")
+        for k, want in ref["params"].items():
+            bar = np.full(want.shape, 1e-9)  # buffers do not move
+            if k in ref["grads"]:
+                sig = np.ones(want.shape, bool)
+                for h in hist["cpu"][:n]:
+                    a = np.abs(h["grads"][k])
+                    top = max(np.abs(v).max() for v in h["grads"].values())
+                    sig &= (a >= 1e-3 * a.max()) & (a.max() >= 1e-6 * top)
+                bar = np.where(sig, n * 1e-3 * lr, n * 2 * lr)
+            ratio = (np.abs(got["params"][k] - want) / bar).max()
+            worst["param_over_bar"] = max(worst["param_over_bar"], ratio)
+            e_want = ref["ema"][k]
+            slack = 2 * np.spacing(np.abs(e_want).astype(np.float32))
+            e_ratio = (np.abs(got["ema"][k] - e_want)
+                       / (bar * (1 - decay) + slack)).max()
+            worst["ema_over_bar"] = max(worst["ema_over_bar"], e_ratio)
+    check(worst["param_over_bar"] <= 1 and worst["ema_over_bar"] <= 1,
+          f"card vs CPU train steps: {worst}")
+    emit({"phase": "train_parity", "checkpoint": str(CKPT.relative_to(REPO)),
+          "config": "nf=32 ch_mult=(1,1,2,2) attn=(32,)", "batch": b,
+          "samples": int(batches[0][0].shape[-1]), "steps": n_steps,
+          "tf32": False, **{k: float(v) for k, v in worst.items()},
+          "losses_card": [h["loss"] for h in hist["cuda"]],
+          "losses_cpu": [h["loss"] for h in hist["cpu"]],
+          "tolerance": "loss and grad norm 1e-4 relative; after step n, "
+                       "parameters n*1e-3*lr where the CPU gradient is "
+                       "significant, n*2*lr elsewhere; EMA the same times "
+                       "(1 - decay) plus 2 ulps (over_bar <= 1 passes)",
+          "card": ctx["card"]})
+
+
+def phase_train_path(ctx):
+    """The flagship training path through its CLI; then the EMA export
+    loaded back and separating a file; then one train step profiled."""
+    import gc
+
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.cli import separate as sep_cli
+    from ditsep_tpu_torch.cli import train_diffsep
+    from ditsep_tpu_torch.configs import build_diffsep_trainer, diffsep_icassp
+    from ditsep_tpu_torch.data import read_wav, write_wav
+    from ditsep_tpu_torch.training.diffsep import DiffSepTrainer
+
+    spans, losses = [], []
+    real_step = DiffSepTrainer.train_step
+
+    def timed_step(self, state, batch, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = real_step(self, state, batch, **kw)
+        losses.append(met["train/score_loss"].item())  # syncs
+        spans.append(time.perf_counter() - t0)
+        return state, met
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp, "run")
+        DiffSepTrainer.train_step = timed_step
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            state = train_diffsep.main([
+                "--config", "diffsep_icassp", "--synthetic",
+                "--synthetic-items", str(TRAIN_ITEMS), "--synthetic-len-s",
+                str(TRAIN_LEN_S), "--max-steps", str(TRAIN_STEPS),
+                "--workdir", str(work)])
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            launches = counts()
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            DiffSepTrainer.train_step = real_step
+        check(state.step == TRAIN_STEPS == len(losses),
+              f"train steps {state.step}, timed {len(losses)}")
+        check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+        # fir_down2d: 2 forwards a train step; a validation runs the score
+        # loss (2 forwards) and a PC-30 separation (60) on its batch
+        per_val = VAL_BATCHES * (2 + 2 * N_STEPS) * LAUNCHES_PER_FORWARD
+        want = {"fir_down2d": TRAIN_STEPS * 2 * LAUNCHES_PER_FORWARD
+                + TRAIN_EPOCHS * per_val,
+                "fir_up2d": TRAIN_STEPS * 2 * UP_LAUNCHES_PER_BACKWARD}
+        want.update({k: 0 for k in launches if k not in want})
+        check(launches == want, f"train path launches {launches}, want "
+                                f"{want}")
+        ctx["train_launches"] = launches
+        vals = [json.loads(ln) for ln in open(work / "metrics.jsonl")
+                if "val/si_sdr" in ln]
+        check(len(vals) == TRAIN_EPOCHS and all(
+            math.isfinite(v["val/si_sdr"]) and math.isfinite(
+                v["val/score_loss"]) for v in vals), f"validations {vals}")
+        ckdir = work / "checkpoints"
+        index = json.loads((ckdir / "index.json").read_text())
+        check((ckdir / "latest" / "state.pt").exists()
+              and (ckdir / "best-model").exists()
+              and len(index) == TRAIN_EPOCHS, f"checkpoints {index}")
+        ema_npz = work / "ema.npz"
+        check(ema_npz.exists(), "no EMA export")
+        ema_sd = {k: v.detach().clone() for k, v
+                  in state.ema.state_dict().items()}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the export loads back and separates a file
+        back = build_diffsep_trainer(diffsep_icassp(), device="cuda",
+                                     params_npz=str(ema_npz))
+        check(all(torch.equal(v, ema_sd[k])
+                  for k, v in back.model.state_dict().items()),
+              "the EMA export does not load back to the EMA weights")
+        del back, ema_sd
+        inp, outp = Path(tmp, "in"), Path(tmp, "out")
+        inp.mkdir()
+        mix, _ = synthetic_batch(1, TRAIN_LEN_S, seed=3)
+        write_wav(str(inp / "item.wav"), mix[0, 0], FS)
+        nfe = sep_cli.main(["--config", "diffsep_icassp", "--input",
+                            str(inp), "--output", str(outp), "--params",
+                            str(ema_npz), "--sampler-N", "5"])
+        for src in ("s0", "s1"):
+            data, fs = read_wav(str(outp / src / "item.wav"))
+            check(fs == FS and np.isfinite(data).all(),
+                  f"separation with the EMA export: {src}")
+    timed = spans[1:]  # steps 2-4: the first one warms cuDNN
+    steps_per_s = len(timed) / sum(timed)
+    emit({"phase": "train", "config": "diffsep_icassp (nf=128, random "
+          "weights seed 0), train batch 6, 12 synthetic items of 5.0 s "
+          "(40,960 samples a batch after bucketing, U-Net input 6 x 6 x "
+          "256 x 384)", "steps": TRAIN_STEPS, "epochs": TRAIN_EPOCHS,
+          "losses": losses, "step_s": spans,
+          "steps_per_s_2_4": steps_per_s,
+          "items_per_s_2_4": TRAIN_BATCH * steps_per_s,
+          "total_s": total_s, "peak_gib": peak_gib,
+          "timing": "host clock around each train_step, synchronized "
+                    "before and after; TF32 convs",
+          "validations": vals, "launches": launches,
+          "ema_export_nfe": nfe, "card": ctx["card"]})
+    # one train step under the profiler, after a warm one
+    trainer = build_diffsep_trainer(diffsep_icassp(), device="cuda")
+    state = trainer.init_state()
+    mix, tgt = synthetic_batch(TRAIN_BATCH, TRAIN_LEN_S)
+    batch = (torch.from_numpy(mix).cuda(), torch.from_numpy(tgt).cuda())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    trainer.train_step(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "train_profile", "what": "one train step, diffsep_icassp,"
+          f" batch {TRAIN_BATCH} x {mix.shape[-1]} samples (TF32 convs)",
+          **profile_summary(prof, wall_ms), "card": ctx["card"]})
+    del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -655,6 +1023,9 @@ def main() -> int:
     phase_conv3x3(ctx)
     phase_parity(ctx)
     phase_flagship(ctx)
+    phase_train_kernel(ctx)
+    phase_train_parity(ctx)
+    phase_train_path(ctx)
 
     t = ctx["kernel_times"]["float32"]
     fba = ctx["fba"]["times"]["float32"]
@@ -669,6 +1040,17 @@ def main() -> int:
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": "bytes",
         "library_ms": t["library_ms"]}]
+    up = ctx["up"]["level0"]["float32"]
+    kernels.append({
+        "name": "fir_up2d", "route": "cuda",
+        "source": "ditsep_tpu_torch/csrc/fir_up2d.cu",
+        # no TPU kernel: the JAX package differentiates this with XLA
+        "replaces": "ditsep_tpu/ops/fir.py:45",
+        "launches": ctx["train_launches"]["fir_up2d"],
+        "max_abs_err": ctx["up"]["err"][torch.float32],
+        "ms": up["kernel_ms"], "plain_ms": up["plain_ms"],
+        "bound_ms": up["bound_ms"], "bound_by": "bytes",
+        "library_ms": up["library_ms"]})
     for name, line, key in (("fba_fwd", 82, "fwd"), ("fba_bwd", 109, "bwd")):
         kernels.append({
             "name": name, "route": "cuda",

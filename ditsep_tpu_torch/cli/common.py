@@ -1,8 +1,11 @@
-"""Shared CLI plumbing: config resolution with hydra-style overrides."""
+"""Shared CLI plumbing: config resolution with hydra-style overrides, the
+common and training flags, and dataset construction (the port's
+ditsep_tpu/cli/common.py:11-103)."""
 from __future__ import annotations
 
+import argparse
 import ast
-from typing import Dict
+from typing import Dict, Optional
 
 from ditsep_tpu_torch.configs import CONFIG_FAMILIES, override
 
@@ -24,3 +27,63 @@ def load_config(name: str, overrides=None):
         raise SystemExit(f"unknown config {name!r}; choose from "
                          f"{sorted(CONFIG_FAMILIES)}")
     return override(CONFIG_FAMILIES[name](), parse_overrides(overrides))
+
+
+def make_dataset(cfg, split: str, data_path: Optional[str],
+                 synthetic: bool = False, synthetic_items: int = 16,
+                 synthetic_len_s: Optional[float] = None):
+    """The synthetic mixtures (``synthetic`` or no ``data_path``; fixed
+    length ``synthetic_len_s`` when given) or the config's WSJ0-mix /
+    LibriMix split under ``data_path`` (training items cropped to
+    ``max_len_s``)."""
+    dm = cfg["datamodule"]
+    if synthetic or data_path is None:
+        from ditsep_tpu_torch.data import SyntheticMixDataset
+        kw = {}
+        if synthetic_len_s is not None:
+            kw = {"min_len_s": synthetic_len_s, "max_len_s": synthetic_len_s}
+        return SyntheticMixDataset(n_items=synthetic_items,
+                                   n_spkr=dm.get("n_spkr", 2),
+                                   fs=dm.get("fs", 8000), **kw)
+    if dm.get("dataset") == "vctk_demand":
+        raise NotImplementedError("the enhancement dataset (vctk_demand) is "
+                                  "not ported yet")
+    from ditsep_tpu_torch.data import WSJ0Mix
+    return WSJ0Mix(path=data_path, n_spkr=dm.get("n_spkr", 2),
+                   cut=dm.get("cut", "max"), split=dm[split]["split"],
+                   fs=dm.get("fs", 8000),
+                   max_len_s=dm.get("max_len_s") if split == "train" else None)
+
+
+def add_common_args(p: argparse.ArgumentParser):
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (the default is the CUDA card)")
+    p.add_argument("--config", default="diffsep")
+    p.add_argument("--data-path", default=None,
+                   help="dataset root (wsj0-mix / LibriMix layout)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="use the synthetic dataset (smoke runs)")
+    p.add_argument("--synthetic-items", type=int, default=16,
+                   help="synthetic dataset size")
+    p.add_argument("--synthetic-len-s", type=float, default=None,
+                   help="fixed synthetic utterance length in seconds")
+    p.add_argument("--workdir", default="./runs/exp")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--max-epochs", type=int, default=None)
+    p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--mesh", action="store_true",
+                   help="shard the batch over all devices (not ported yet)")
+    p.add_argument("--override", nargs="*", default=[],
+                   help="config overrides a.b.c=value")
+    return p
+
+
+def add_train_args(p: argparse.ArgumentParser):
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the workdir's rolling latest "
+                        "checkpoint (fresh start if none exists)")
+    p.add_argument("--demo-every", type=int, default=0,
+                   help="demo separations every N steps (0 = off; others "
+                        "are not ported yet)")
+    return p

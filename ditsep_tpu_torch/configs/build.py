@@ -71,7 +71,8 @@ def build_diffsep_trainer(cfg: Dict[str, Any], *,
                           params_npz: Optional[str] = None) -> DiffSepTrainer:
     """Waveform-domain trainer from a diffsep-family config, on ``device``,
     with seeded random weights or, given ``params_npz``, the JAX package's
-    exported parameters."""
+    exported parameters. The config is read as the JAX package reads it:
+    ``trainer.accumulate_grad_batches`` is not read (1)."""
     m = cfg["model"]
     model = build_score_model(m["score_model"], device=device, seed=seed)
     if params_npz:

@@ -1,2 +1,6 @@
-"""Data IO of the PyTorch port."""
+"""Data IO and datasets of the PyTorch port."""
 from ditsep_tpu_torch.data.audio import read_wav, write_wav  # noqa: F401
+from ditsep_tpu_torch.data.wsj0_mix import (  # noqa: F401
+    BucketedLoader, SyntheticMixDataset, WSJ0Mix, length_buckets,
+    max_collator,
+)

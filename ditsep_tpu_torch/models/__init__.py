@@ -2,5 +2,5 @@
 from ditsep_tpu_torch.models.ncsnpp import NCSNpp  # noqa: F401
 from ditsep_tpu_torch.models.score_models import ScoreModelNCSNpp  # noqa: F401
 from ditsep_tpu_torch.models.weights import (  # noqa: F401
-    load_params_npz, params_from_jax,
+    load_params_npz, params_from_jax, params_to_jax, save_params_npz,
 )

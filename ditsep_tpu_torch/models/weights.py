@@ -1,14 +1,21 @@
-"""Weight bridge: the JAX package's parameters -> the port's state_dict.
+"""Weight bridge between the JAX package's parameters and the port's
+state_dict, both ways.
 
-Reads the flat ``.npz`` layout of ditsep_tpu/utils/checkpoint.py
-(``{"a/b/c": array}``, with or without the ``params/`` collection wrapper
-and the ``backbone/`` prefix). Names follow the reference torch names
-(``flax_path_to_torch_key``, a copy of ditsep_tpu/models/torch_import.py's);
-leaves convert as the inverse of its ``_convert_leaf``: conv HWIO -> OIHW,
-Dense (in, out) -> (out, in), GroupNorm ``scale`` -> ``weight``, NIN ``W``
-and Fourier ``W`` copied as they are.
+Reads and writes the flat ``.npz`` layout of ditsep_tpu/utils/checkpoint.py
+(``{"a/b/c": array}``; read with or without the ``params/`` collection
+wrapper and the ``backbone/`` prefix). Names follow the reference torch
+names (``flax_path_to_torch_key``, a copy of ditsep_tpu/models/
+torch_import.py's); leaves convert as the inverse of its ``_convert_leaf``:
+conv HWIO -> OIHW, Dense (in, out) -> (out, in), GroupNorm ``scale`` ->
+``weight``, NIN ``W`` and Fourier ``W`` copied as they are.
+``params_to_jax`` is the inverse, by each module's type (a ``weight`` is a
+GroupNorm's ``scale`` or a conv's or Dense's ``kernel``), and
+``save_params_npz`` writes it, so weights trained by the port load into
+both packages.
 """
 from __future__ import annotations
+
+import os
 
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -57,6 +64,50 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         a = _to_torch_layout(np.asarray(arr), path[-1])
         out[tkey] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
+    """``model``'s parameters and buffers as the JAX package's flat
+    ``{"a/b/c": array}`` parameters (``all_modules.12`` ->
+    ``all_modules_12``; float32 numpy arrays in the JAX layouts)."""
+    out = {}
+    for key, t in model.state_dict().items():
+        parts = key.split(".")
+        owner = model.get_submodule(".".join(parts[:-1]))
+        leaf = parts[-1]
+        a = t.detach().float().cpu().numpy()
+        if leaf == "weight":
+            if isinstance(owner, nn.GroupNorm):
+                leaf = "scale"
+            elif isinstance(owner, nn.Conv2d):
+                leaf, a = "kernel", a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+            elif isinstance(owner, nn.Linear):
+                leaf, a = "kernel", a.T
+            else:
+                raise KeyError(f"{key}: a weight of {type(owner).__name__} "
+                               "has no JAX counterpart")
+        elif leaf not in ("bias", "W", "b"):
+            raise KeyError(f"{key} has no JAX counterpart")
+        path = []
+        i = 0
+        while i < len(parts) - 1:
+            if parts[i] == "all_modules":
+                path.append(f"all_modules_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        out["/".join(path + [leaf])] = np.ascontiguousarray(a)
+    return out
+
+
+def save_params_npz(path: str, model: nn.Module) -> None:
+    """Write ``params_to_jax(model)`` as a flat ``.npz`` (the layout of
+    ditsep_tpu/utils/checkpoint.py:save_params_npz), atomically: a
+    sibling temp file renamed over the target."""
+    tmp = f"{path}.tmp-{os.getpid()}.npz"
+    np.savez(tmp, **params_to_jax(model))
+    os.replace(tmp, path if path.endswith(".npz") else f"{path}.npz")
 
 
 def load_params_npz(path: str, model: nn.Module) -> nn.Module:

@@ -251,7 +251,76 @@ def fir_down2d_plan(shape: Sequence[int], strides: Sequence[int],
             "rows": r, "block": (bx, by), "grid": (gx, gy), "tile": tile}
 
 
-class FirDown2d:
+class _FirKernel:
+    """What the two FIR kernels' wrappers share: the library ``csrc/
+    <entry>.cu``, whose C entry takes (in, out, dtype, channels_last,
+    vector, N, C, H, W of the full-size side, block, grid, 8 taps,
+    stream); the plan cache; the taps' host array; the launch and its
+    count. ``_DTYPES``: the C entry's dtype codes."""
+
+    entry = ""
+    _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+    def __init__(self):
+        self.library = CudaLibrary(f"{self.entry}.cu")
+        self.launches = 0
+        self._fn = None
+        self._plans = {}
+        self._taps = {}
+
+    def _function(self):
+        if self._fn is None:
+            fn = getattr(self.library.load(), self.entry)
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
+                           + [ctypes.c_int] * 3 + [ctypes.c_int64] * 4
+                           + [ctypes.c_int] * 2
+                           + [ctypes.c_int64, ctypes.c_int]
+                           + [ctypes.c_void_p, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def _cached_plan(self, make, *key) -> dict:
+        plan = self._plans.get(key)
+        if plan is None:
+            if len(self._plans) >= 256:  # bound it for callers of many shapes
+                self._plans.clear()
+            plan = self._plans[key] = make(*key)
+        return plan
+
+    def _launch(self, src: Tensor, out_hw: Sequence[int],
+                full_hw: Sequence[int], plan: dict,
+                taps_h: Sequence[float], taps_w: Sequence[float]) -> Tensor:
+        """Allocate the (N, C, *out_hw) output in the plan's layout and
+        launch the plan on it; ``full_hw``: the full-size side's (H, W)."""
+        if len(taps_h) != 4 or len(taps_w) != 4:
+            raise ValueError(f"{self.entry} takes 4 taps per axis")
+        n, c = src.shape[:2]
+        fmt = (torch.channels_last if plan["layout"] == "channels_last"
+               else torch.contiguous_format)
+        out = torch.empty((n, c, *out_hw), dtype=src.dtype,
+                          device=src.device, memory_format=fmt)
+        if out.numel() == 0:
+            return out
+        fn = self._function()
+        key = (*taps_h, *taps_w)
+        taps = self._taps.get(key)
+        if taps is None:
+            taps = self._taps[key] = (ctypes.c_float * 8)(*key)
+        (bx, by), (gx, gy) = plan["block"], plan["grid"]
+        with torch.cuda.device(src.device):
+            err = fn(src.data_ptr(), out.data_ptr(), self._DTYPES[src.dtype],
+                     int(fmt is torch.channels_last),
+                     int(plan["path"] == "vector"), n, c, *full_hw,
+                     bx, by, gx, gy, taps, _stream(src))
+        if err != 0:  # 1 (invalid value): a plan that does not fit
+            raise RuntimeError(f"{self.entry} launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1
+        return out
+
+
+class FirDown2d(_FirKernel):
     """Wrapper of ``csrc/fir_down2d.cu``: 4-tap separable FIR + 2x
     decimation on both spatial axes of a logical NCHW tensor, one pass.
 
@@ -263,37 +332,12 @@ class FirDown2d:
     ``force_path`` ("vector" or "scalar") is for the checks that hold the
     two paths to the same bits."""
 
-    _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-    def __init__(self):
-        self.library = CudaLibrary("fir_down2d.cu")
-        self.launches = 0
-        self._fn = None
-        self._plans = {}
-        self._taps = {}
-
-    def _function(self):
-        if self._fn is None:
-            fn = self.library.load().fir_down2d
-            fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
-                           + [ctypes.c_int] * 3 + [ctypes.c_int64] * 4
-                           + [ctypes.c_int] * 2
-                           + [ctypes.c_int64, ctypes.c_int]
-                           + [ctypes.c_void_p, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+    entry = "fir_down2d"
 
     def plan(self, x: Tensor, force_path: Optional[str] = None) -> dict:
         """``fir_down2d_plan`` for ``x``, cached."""
-        key = (tuple(x.shape), x.stride(), x.dtype, x.data_ptr() % 16,
-               force_path)
-        plan = self._plans.get(key)
-        if plan is None:
-            if len(self._plans) >= 256:  # bound it for callers of many shapes
-                self._plans.clear()
-            plan = self._plans[key] = fir_down2d_plan(*key)
-        return plan
+        return self._cached_plan(fir_down2d_plan, tuple(x.shape), x.stride(),
+                                 x.dtype, x.data_ptr() % 16, force_path)
 
     def __call__(self, x: Tensor, taps_h: Sequence[float],
                  taps_w: Sequence[float],
@@ -301,47 +345,207 @@ class FirDown2d:
         """``taps_h`` / ``taps_w``: the 4 flipped taps of each axis."""
         if x.device.type != "cuda":
             raise ValueError(f"fir_down2d needs a CUDA tensor, got {x.device}")
-        if len(taps_h) != 4 or len(taps_w) != 4:
-            raise ValueError("fir_down2d takes 4 taps per axis")
-        plan = self.plan(x, force_path)
-        n, c, h, w = x.shape
-        fmt = (torch.channels_last if plan["layout"] == "channels_last"
-               else torch.contiguous_format)
-        y = torch.empty((n, c, h // 2, w // 2), dtype=x.dtype,
-                        device=x.device, memory_format=fmt)
-        if y.numel() == 0:
-            return y
-        fn = self._function()
-        key = (*taps_h, *taps_w)
-        taps = self._taps.get(key)
-        if taps is None:
-            taps = self._taps[key] = (ctypes.c_float * 8)(*key)
-        (bx, by), (gx, gy) = plan["block"], plan["grid"]
-        with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), y.data_ptr(), self._DTYPES[x.dtype],
-                     int(fmt is torch.channels_last),
-                     int(plan["path"] == "vector"), n, c, h, w,
-                     bx, by, gx, gy, taps, _stream(x))
-        if err != 0:  # 1 (invalid value): a plan that does not fit x
-            raise RuntimeError(f"fir_down2d launch failed: CUDA error {err}")
-        self.launches += 1
-        return y
+        h, w = x.shape[2:]
+        return self._launch(x, (h // 2, w // 2), (h, w),
+                            self.plan(x, force_path), taps_h, taps_w)
 
 
 fir_down2d = FirDown2d()
+
+
+# ------------------------ FIR 2x downsample's adjoint (its backward) -------
+def _fir_up_axis(g: Tensor, taps: Sequence[float], n_out: int,
+                 dim: int) -> Tensor:
+    """Adjoint of ``_fir_down_axis`` (4 taps, factor 2) along ``dim``:
+    ``n_out`` samples, out[2r] = t1*g[r] + t3*g[r-1] and out[2r+1] =
+    t0*g[r+1] + t2*g[r], g zero outside its range."""
+    gp = pad_or_crop(g, dim, 1, 1)  # gp[j] = g[j - 1]
+    n_even, n_odd = (n_out + 1) // 2, n_out // 2
+
+    def at(start: int, count: int) -> Tensor:
+        return gp.narrow(dim, start, count)
+
+    even = taps[1] * at(1, n_even) + taps[3] * at(0, n_even)
+    odd = taps[0] * at(2, n_odd) + taps[2] * at(1, n_odd)
+    shape = list(g.shape)
+    shape[dim] = n_out
+    out = g.new_empty(shape)
+    idx = [slice(None)] * g.ndim
+    idx[dim] = slice(0, None, 2)
+    out[tuple(idx)] = even
+    idx[dim] = slice(1, None, 2)
+    out[tuple(idx)] = odd
+    return out
+
+
+def downsample_2d_bwd_plain(g: Tensor, k: Sequence[float],
+                            in_hw: Tuple[int, int], gain: float = 1.0
+                            ) -> Tensor:
+    """Plain PyTorch version of ``fir_up2d``: the gradient of
+    ``downsample_2d(x, k, 2, gain)`` with respect to its (N, C, H, W) input
+    x, ``in_hw`` = (H, W), from the output's gradient ``g`` (N, C, H//2,
+    W//2), for a separable 4-tap ``k``.
+
+    The W pass over g, then the H pass, each a*b + c*d over strided views,
+    in float32 for bf16 inputs, cast back once: the kernel's order."""
+    k_arr = np.asarray(k, np.float64)
+    if k_arr.ndim != 1 or k_arr.shape[0] != 4:
+        raise ValueError(f"downsample_2d_bwd_plain takes a 4-tap kernel, "
+                         f"got shape {k_arr.shape}")
+    h, w = in_hw
+    if g.shape[2:] != (h // 2, w // 2):
+        raise ValueError(f"gradient {tuple(g.shape)} does not fit an input "
+                         f"of {h} x {w}")
+    taps_h, taps_w = separable_taps(k_arr, gain)
+    work = g.float() if g.dtype in (torch.bfloat16, torch.float16) else g
+    u = _fir_up_axis(work, taps_w, w, dim=3)
+    return _fir_up_axis(u, taps_h, h, dim=2).to(g.dtype)
+
+
+def fir_up2d_plan(shape: Sequence[int], strides: Sequence[int],
+                  dtype: torch.dtype, misalign: int, out_hw: Sequence[int],
+                  force_path: Optional[str] = None) -> dict:
+    """The launch plan of ``csrc/fir_up2d.cu`` for a gradient g of shape
+    (N, C, Ho, Wo) and these strides and dtype, whose data pointer is
+    ``misalign`` bytes past a 16-byte boundary, into dx of (N, C, H, W),
+    ``out_hw`` = (H, W) with H // 2 = Ho and W // 2 = Wo.
+
+    ``layout`` as ``fir_down2d_plan`` (dx takes g's); ``path``: "vector"
+    (NCHW: W a multiple of 2V, V = 2 f32 / 4 bf16 g columns, one 16-byte
+    store an output row; channels_last: C a multiple of V, V = 4 f32 / 8
+    bf16 channels; ``misalign`` 0) or "scalar" (V = 1, any shape), unless
+    ``force_path`` names one; ``v``; ``groups``: column groups of a row
+    (NCHW, ceil(W / 2V)) or channel groups (channels_last); ``pairs``:
+    output row pairs, ceil(H / 2); ``block`` (bx, by) and ``grid`` (gx,
+    gy) as the kernel takes them: NCHW bx groups x by row pairs, gx =
+    column tiles x row tiles; channels_last bx channel groups x by quad
+    columns, gx = channel tiles x column tiles x row pairs; gy planes or
+    images, at most 65,535 (the kernel loops past it). Raises ValueError
+    for what the kernel does not take."""
+    if len(shape) != 4:
+        raise ValueError(f"fir_up2d takes g (N, C, Ho, Wo), got {shape}")
+    if dtype not in _FIR_ESIZE:
+        raise ValueError(f"fir_up2d takes float32 or bfloat16, got {dtype}")
+    n, c, ho, wo = shape
+    h, w = out_hw
+    if h < 2 or w < 2 or (h // 2, w // 2) != (ho, wo):
+        raise ValueError(f"fir_up2d: g {tuple(shape)} does not fit an input "
+                         f"of {h} x {w} (H, W >= 2)")
+    if max(n * c, h, w) >= 2 ** 31:
+        raise ValueError(f"fir_up2d indexes with 32 bits: {tuple(shape)}")
+    if force_path not in (None, "vector", "scalar"):
+        raise ValueError(f"fir_up2d force_path is 'vector' or 'scalar', "
+                         f"got {force_path!r}")
+    if _dense(shape, strides, (3, 2, 1, 0)):
+        layout = "nchw"
+    elif _dense(shape, strides, (1, 3, 2, 0)):
+        layout = "channels_last"
+    else:
+        raise ValueError(f"fir_up2d takes contiguous NCHW or channels_last "
+                         f"strides, got strides {tuple(strides)}")
+    esize = _FIR_ESIZE[dtype]
+    vec = (8 if layout == "nchw" else 16) // esize
+    fits = misalign == 0 and (w % (2 * vec) == 0 if layout == "nchw"
+                              else c % vec == 0)
+    if force_path == "vector" and not fits:
+        raise ValueError(f"fir_up2d: the vector path does not apply to "
+                         f"{h} x {w} {layout} {dtype} at pointer offset "
+                         f"{misalign} mod 16")
+    path = force_path or ("vector" if fits else "scalar")
+    v = vec if path == "vector" else 1
+    pairs = -(-h // 2)
+    cdiv = lambda a, b: -(-a // b)
+    if layout == "nchw":
+        groups = cdiv(w, 2 * v)
+        tiles = cdiv(groups, FIR_THREADS)
+        bx = groups if tiles == 1 else _round_up(cdiv(groups, tiles), 32)
+        by = max(1, min(FIR_THREADS // bx, pairs))
+        gx = cdiv(groups, bx) * cdiv(pairs, by)
+        gy = min(n * c, FIR_MAX_GRID_Y)
+    else:
+        groups = c // v
+        bx = max(1, min(groups, FIR_THREADS))
+        by = max(1, min(FIR_THREADS // bx, cdiv(w, 2)))
+        gx = cdiv(groups, bx) * cdiv(cdiv(w, 2), by) * pairs
+        gy = min(n, FIR_MAX_GRID_Y)
+    if gx >= 2 ** 31:
+        raise ValueError(f"fir_up2d: {tuple(shape)} needs {gx} blocks")
+    return {"layout": layout, "path": path, "v": v, "groups": groups,
+            "pairs": pairs, "block": (bx, by), "grid": (gx, gy)}
+
+
+class FirUp2d(_FirKernel):
+    """Wrapper of ``csrc/fir_up2d.cu``: the adjoint of ``fir_down2d``, dx
+    (N, C, H, W) from g (N, C, H//2, W//2), one pass.
+
+    The backward of ``fir_down2d`` (no TPU kernel: the JAX package
+    differentiates ditsep_tpu/ops/fir.py:downsample_2d with XLA). Takes f32
+    or bf16, contiguous NCHW or channels_last strides, any H, W >= 2;
+    returns dx in g's dtype and memory format. Each call launches the plan
+    of ``fir_up2d_plan`` (cached by shape, strides, dtype, alignment and
+    output size)."""
+
+    entry = "fir_up2d"
+
+    def plan(self, g: Tensor, out_hw: Sequence[int],
+             force_path: Optional[str] = None) -> dict:
+        """``fir_up2d_plan`` for ``g`` into an ``out_hw`` output, cached."""
+        return self._cached_plan(fir_up2d_plan, tuple(g.shape), g.stride(),
+                                 g.dtype, g.data_ptr() % 16, tuple(out_hw),
+                                 force_path)
+
+    def __call__(self, g: Tensor, taps_h: Sequence[float],
+                 taps_w: Sequence[float], out_hw: Sequence[int],
+                 force_path: Optional[str] = None) -> Tensor:
+        """``taps_h`` / ``taps_w``: the forward's 4 flipped taps of each
+        axis; ``out_hw``: the forward input's (H, W)."""
+        if g.device.type != "cuda":
+            raise ValueError(f"fir_up2d needs a CUDA tensor, got {g.device}")
+        plan = self.plan(g, out_hw, force_path)
+        return self._launch(g, tuple(out_hw), tuple(out_hw), plan, taps_h,
+                            taps_w)
+
+
+fir_up2d = FirUp2d()
+
+
+class FirDown2dFunction(torch.autograd.Function):
+    """``fir_down2d`` with its backward as the kernel ``fir_up2d``. Saves
+    nothing but the taps and the input size; not twice differentiable. A
+    gradient in neither layout the kernel takes is made contiguous first
+    (a copy)."""
+
+    @staticmethod
+    def forward(ctx, x, taps_h, taps_w):
+        ctx.args = (tuple(taps_h), tuple(taps_w), tuple(x.shape[2:]))
+        return fir_down2d(x, taps_h, taps_w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        taps_h, taps_w, hw = ctx.args
+        if not (g.is_contiguous()
+                or g.is_contiguous(memory_format=torch.channels_last)):
+            g = g.contiguous()
+        return fir_up2d(g, taps_h, taps_w, hw), None, None
 
 
 def downsample_2d_cuda(x: Tensor, k: Optional[Sequence[float]] = None,
                        factor: int = 2, gain: float = 1.0) -> Tensor:
     """``downsample_2d`` on a CUDA tensor through ``fir_down2d``; raises on
     every configuration the kernel does not take (factor != 2, a kernel
-    that is not 1-D with 4 taps, another dtype or stride pattern)."""
+    that is not 1-D with 4 taps, another dtype or stride pattern). Where a
+    gradient is wanted (grad mode on and ``x.requires_grad``) it goes
+    through ``FirDown2dFunction``, whose backward is ``fir_up2d``; else it
+    calls the kernel directly."""
     k_arr = np.asarray([1.0] * factor if k is None else k, np.float64)
     if factor != 2 or k_arr.ndim != 1 or k_arr.shape[0] != 4:
         raise ValueError(
             f"fir_down2d takes factor 2 and a separable 4-tap kernel, got "
             f"factor={factor}, k shape {k_arr.shape}")
     taps_h, taps_w = separable_taps(k_arr, gain)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return FirDown2dFunction.apply(x, taps_h, taps_w)
     return fir_down2d(x, taps_h, taps_w)
 
 

@@ -1,8 +1,11 @@
 """FIR-based up/down resampling on NCHW tensors (port of ditsep_tpu/ops/fir.py).
 
 ``downsample_2d`` dispatches on the tensor: a CPU tensor goes to the plain
-PyTorch version, a CUDA tensor to the hand-written ``fir_down2d`` kernel,
-which raises on anything it does not take. ``upsample_2d`` is a stock
+PyTorch version (differentiated by autograd), a CUDA tensor to the
+hand-written ``fir_down2d`` kernel, which raises on anything it does not
+take; where a gradient is wanted the CUDA call goes through
+``FirDown2dFunction``, whose backward is the kernel ``fir_up2d``.
+``upsample_2d`` is a stock
 PyTorch depthwise convolution on every device, as the JAX package computes
 it outside any Pallas kernel too.
 """
@@ -46,7 +49,8 @@ def upsample_2d(x: Tensor, k: Optional[Sequence[float]] = None,
 def downsample_2d(x: Tensor, k: Optional[Sequence[float]] = None,
                   factor: int = 2, gain: float = 1.0) -> Tensor:
     """FIR downsampling by ``factor``: upfirdn2d(down=factor) with pad
-    ((p+1)//2, p//2), p = len(k) - factor (ditsep_tpu/ops/fir.py:45-52)."""
+    ((p+1)//2, p//2), p = len(k) - factor (ditsep_tpu/ops/fir.py:45-52).
+    On CUDA with a gradient wanted, its backward is ``fir_up2d``."""
     if x.device.type == "cpu":
         return downsample_2d_plain(x, k, factor=factor, gain=gain)
     return downsample_2d_cuda(x, k, factor=factor, gain=gain)

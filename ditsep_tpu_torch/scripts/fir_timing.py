@@ -28,8 +28,16 @@ rows too small to span it that way. Then, per batch and dtype, one line of
 sums over the 18 launches of a forward (2 x down block + pyramid at each
 level).
 
-``--force`` also times the scalar path where the vector one applies. To
-time two checkouts on one card, copy this file and ``utils/timing.py``
+``--force`` also times the scalar path where the vector one applies.
+
+``--backward`` times ``fir_up2d``, the downsample's backward, instead: at
+the 12 down-block shapes of the flagship train step, (6, C, 256 x 384 >>
+i) as the forward's input (g a quarter of it), in f32 and bf16, NCHW,
+with the plain version, the library call (one ``F.conv_transpose2d``
+depthwise 4x4 stride-2 conv, cuDNN in full float32) and the byte bound (g read once, dx written
+once); then the sum over a train step's 24 launches (two forwards).
+
+To time two checkouts on one card, copy this file and ``utils/timing.py``
 into the other one and run it from each. Prints JSON lines, writes no
 file.
 """
@@ -44,6 +52,8 @@ LEVEL0_HW = (256, 576)
 FIR_K = (1.0, 3.0, 3.0, 1.0)
 L2_SPAN = 2       # the bytes a timing graph cycles through, in L2 sizes
 MAX_CALLS = 256   # calls of one timing graph, at most
+TRAIN_BATCH = 6   # the flagship's train batch
+TRAIN_HW = (256, 384)  # 40,960 samples: 323 frames padded to 384
 
 
 def main_path_shapes(batch: int) -> list:
@@ -88,6 +98,15 @@ def graph_ms(fns, iters: int = 30, warmup: int = 3, reps: int = 3) -> float:
     return ms
 
 
+def _copies(nbytes: int, iters: int):
+    """(input copies, calls, span) of a timing graph whose calls, of
+    ``nbytes`` each, cycle through ``span`` = twice the L2."""
+    import torch
+    span = L2_SPAN * torch.cuda.get_device_properties(0).L2_cache_size
+    copies = min(MAX_CALLS, -(-span // nbytes))
+    return copies, max(iters, copies), span
+
+
 def time_shape(shape, dtype, channels_last: bool, bandwidth: float,
                iters: int = 30, force: bool = False, seed: int = 0) -> dict:
     """One timed row: kernel, plain version, library call, byte bound."""
@@ -116,9 +135,7 @@ def time_shape(shape, dtype, channels_last: bool, bandwidth: float,
                            f"{shape} {dtype}: {lerr} > {ltol}")
     esize = x.element_size()
     nbytes = (x.numel() + y.numel()) * esize
-    span = L2_SPAN * torch.cuda.get_device_properties(x.device).L2_cache_size
-    copies = min(MAX_CALLS, -(-span // nbytes))
-    calls = max(iters, copies)
+    copies, calls, span = _copies(nbytes, iters)
     xs = [x] + [x.clone() for _ in range(copies - 1)]
     cycled = copies * x.numel() * esize + calls * y.numel() * esize
     kern = [lambda xi=xi: ck.fir_down2d(xi, taps_h, taps_w) for xi in xs]
@@ -144,6 +161,97 @@ def time_shape(shape, dtype, channels_last: bool, bandwidth: float,
                                              force_path="scalar")
                  for xi in xs], calls)
     return row
+
+
+def train_path_shapes(batch: int = TRAIN_BATCH) -> list:
+    """(level, NCHW shape) of the forward inputs whose gradients fir_up2d
+    computes in a train step: the down blocks' (h and the skip x; the
+    input pyramid acts on data and needs none)."""
+    return [(i, (batch, c, TRAIN_HW[0] >> i, TRAIN_HW[1] >> i))
+            for i, c in enumerate(DOWN_CHANNELS)]
+
+
+def time_up_shape(shape, dtype, channels_last: bool, bandwidth: float,
+                  iters: int = 30, seed: int = 0) -> dict:
+    """One timed row of fir_up2d for a forward input of ``shape``: kernel,
+    plain version, library call (checked against the kernel), byte
+    bound. cuDNN runs in full float32 meanwhile (TF32 off), so that the
+    library call computes the same function as the kernel."""
+    import torch
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _time_up_shape(shape, dtype, channels_last, bandwidth, iters,
+                              seed)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _time_up_shape(shape, dtype, channels_last, bandwidth, iters, seed):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+    from ditsep_tpu_torch.utils.timing import call_ms
+
+    n, c, h, w = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    gy = torch.randn((n, c, h // 2, w // 2), generator=g, device="cuda")
+    gy = gy.to(dtype).contiguous(memory_format=fmt)
+    taps_h, taps_w = ck.separable_taps(np.asarray(FIR_K), 1.0)
+    wk = torch.outer(torch.tensor(taps_h), torch.tensor(taps_w))
+    wk = wk.to(device="cuda", dtype=dtype).expand(c, 1, 4, 4)
+    pad = (h % 2, w % 2)
+    dx = ck.fir_up2d(gy, taps_h, taps_w, (h, w))
+    lib = lambda gi: F.conv_transpose2d(gi, wk, stride=2, padding=1,
+                                        output_padding=pad, groups=c)
+    lerr = (lib(gy).float() - dx.float()).abs().max().item()
+    peak = dx.float().abs().max().item()
+    ltol = 1e-5 * peak if dtype == torch.float32 else 2 * ck.bf16_ulp(peak)
+    if lerr > ltol:
+        raise RuntimeError(f"library call disagrees with fir_up2d at "
+                           f"{shape} {dtype}: {lerr} > {ltol}")
+    esize = gy.element_size()
+    nbytes = (gy.numel() + dx.numel()) * esize
+    copies, calls, span = _copies(nbytes, iters)
+    gs = [gy] + [gy.clone() for _ in range(copies - 1)]
+    cycled = copies * gy.numel() * esize + calls * dx.numel() * esize
+    kern = [lambda gi=gi: ck.fir_up2d(gi, taps_h, taps_w, (h, w))
+            for gi in gs]
+    return {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+            "layout": "channels_last" if channels_last else "nchw",
+            "kernel_ms": graph_ms(kern, calls),
+            "plain_ms": graph_ms([lambda gi=gi: ck.downsample_2d_bwd_plain(
+                gi, FIR_K, (h, w)) for gi in gs], calls),
+            "library_ms": graph_ms([lambda gi=gi: lib(gi) for gi in gs],
+                                   calls),
+            "call_ms": call_ms(kern[0], iters),
+            "bound_ms": nbytes / bandwidth * 1e3,
+            "graph_calls": calls, "input_copies": copies,
+            "in_l2": cycled < span}
+
+
+def time_train_path(bandwidth: float, iters: int = 30) -> list:
+    """fir_up2d rows at the train path's 6 shapes, f32 and bf16, NCHW,
+    then per dtype the sums over a train step's 24 launches."""
+    import torch
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for _, shape in train_path_shapes():
+            rows.append(time_up_shape(shape, dtype, False, bandwidth, iters))
+        torch.cuda.empty_cache()
+    sums = []
+    for dtype in ("float32", "bfloat16"):
+        mine = [r for r in rows if r["dtype"] == dtype]
+        # 2 launches a down block (h and x) in each of the step's 2
+        # forwards
+        tot = {k: 4 * sum(r[k] for r in mine)
+               for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+        sums.append({"per_train_step": True, "dtype": dtype,
+                     "launches": 4 * len(mine), **tot,
+                     "kernel_over_bound": tot["kernel_ms"] / tot["bound_ms"]})
+    return rows + sums
 
 
 def forward_sums(rows: list) -> list:
@@ -195,14 +303,19 @@ def main(argv=None) -> list:
     ap.add_argument("--force", action="store_true",
                     help="also time the scalar path where the vector one "
                          "applies")
+    ap.add_argument("--backward", action="store_true",
+                    help="time fir_up2d at the train step's shapes")
     args = ap.parse_args(argv)
     import torch
     from ditsep_tpu_torch.utils.device import card_line, card_peaks
     if not torch.cuda.is_available():
         raise RuntimeError("fir_timing needs a CUDA card")
     card = card_line()
-    rows = time_main_path(card_peaks(card)[1], tuple(args.batches),
-                          args.iters, args.force)
+    if args.backward:
+        rows = time_train_path(card_peaks(card)[1], args.iters)
+    else:
+        rows = time_main_path(card_peaks(card)[1], tuple(args.batches),
+                              args.iters, args.force)
     for r in rows:
         print(json.dumps({**r, "card": card}), flush=True)
     return rows

@@ -21,6 +21,8 @@ SDERegistry = Registry("SDE")
 
 Tensor = torch.Tensor
 
+VARPROP_OVERSAMPLE = 8  # proposals per sample of MixSDE.sample_time_varprop
+
 
 def bcast_right(a: Tensor, ndim: int) -> Tensor:
     """Append trailing singleton dims to ``a`` until it has ``ndim`` dims."""
@@ -179,3 +181,25 @@ class MixSDE(BaseSDE):
                        device=mix.device)
         mean = (mix / self.ndim).expand(shape)
         return mean + self.mult_std(self.std(t, len(shape)), z)
+
+    def sample_time_varprop(self, generator: Optional[torch.Generator],
+                            n: int, t_eps: float = 0.0, *, device=None,
+                            u: Optional[Tensor] = None,
+                            accept_u: Optional[Tensor] = None) -> Tensor:
+        """t in [t_eps, T] with density proportional to the noise std, by
+        vectorized rejection (ditsep_tpu/sdes/core.py:252-270): m =
+        VARPROP_OVERSAMPLE * n uniform proposals ``u``, accepted where
+        ``accept_u`` * std(T) < std(t), accepted first in their order, then
+        the rejected ones. ``u`` and ``accept_u`` are (m,) standard
+        uniforms, drawn from ``generator`` when not given."""
+        m = VARPROP_OVERSAMPLE * n
+        if u is None:
+            u = torch.rand(m, generator=generator, device=device)
+        if accept_u is None:
+            accept_u = torch.rand(m, generator=generator, device=u.device)
+        t = torch.clamp(u * (self.T - t_eps) + t_eps, min=t_eps)
+        l_max = torch.sqrt(self.var(torch.full((1,), self.T,
+                                               device=u.device)))[0]
+        acc = accept_u.to(u.device) * l_max < torch.sqrt(self.var(t))
+        order = torch.argsort((~acc).to(torch.uint8), stable=True)
+        return t[order[:n]]

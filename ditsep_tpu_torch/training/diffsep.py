@@ -1,19 +1,49 @@
-"""DiffSep separation around a score model (port of
-ditsep_tpu/training/diffsep.py: DiffSepConfig and, of DiffSepTrainer, the
-non-EDM ``model_fwd`` and the PC branch of ``separate``). Training is not
-ported yet."""
+"""DiffSep training and separation around a score model (port of
+ditsep_tpu/training/diffsep.py for the MixSDE family): the score-matching
+losses with their PIT variants and init hacks 4-7, the optimizer (Adam
+after global-norm clipping, optional linear warmup and gradient
+accumulation, as the JAX package's optax chain), the train step with its
+EMA, validation, and PC separation. The EDM branch and the other SDE
+families are not ported yet.
+
+Randomness is explicit. Every loss and ``train_step`` draws from a
+``torch.Generator`` on the batch's device, or takes ``draws``: the raw
+standard-uniform / standard-normal (and integer) arrays the JAX code draws,
+by role, to which the port applies the JAX code's transforms (threshold,
+argsort, scaling to [t_eps, T]):
+
+* ``time_u`` (B,) uniforms of the sampled time (``varprop``: (8B,)
+  proposals, with ``time_accept_u``);
+* ``z`` (B, n, T) normals of the perturbation;
+* ``select_u`` (B,) uniforms of init hack 4's t=T clamp;
+* ``pit_z`` (B, n, T) normals of the t=T PIT loss (init hacks 5-7);
+* ``mask_u`` (B,) uniforms choosing that loss per item (init hacks 5-7);
+* ``shuffle_u`` (B, n) uniforms whose argsort shuffles the sources;
+* ``sel`` (B,) integers choosing the permutation of the mmnr-gated PIT.
+
+As in the JAX package, each PIT variant runs the network once: its input
+does not depend on the permutation, which enters only the loss target.
+"""
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import itertools
+import math
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ditsep_tpu_torch.sdes import BaseSDE, MixSDE, pc_sample
+from ditsep_tpu_torch.sdes.core import VARPROP_OVERSAMPLE
+from ditsep_tpu_torch.training import losses as loss_lib
 from ditsep_tpu_torch.utils import separate as sep_utils
 
 Tensor = torch.Tensor
+Draws = Optional[Mapping[str, object]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,11 +71,158 @@ class DiffSepConfig:
     sigma_data: float = 0.1
 
 
+def _batch_mean(x: Tensor) -> Tensor:
+    """Mean over all non-batch axes -> (B,)."""
+    return x.mean(dim=tuple(range(1, x.ndim)))
+
+
+def _perms(n: int) -> List[Tuple[int, ...]]:
+    return list(itertools.permutations(range(n)))
+
+
+def _draw(draws: Draws, name: str, shape: Sequence[int], kind: str,
+          generator: Optional[torch.Generator], device) -> Tensor:
+    """The raw draw ``name``: from ``draws`` when given (every name a loss
+    needs must be there), else a ``kind`` ("uniform" or "normal") draw
+    from ``generator`` on ``device``."""
+    if draws is not None:
+        if name not in draws:
+            raise KeyError(f"draws has no {name!r} (has {sorted(draws)})")
+        a = torch.as_tensor(np.asarray(draws[name])).to(device)
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"draws[{name!r}] has shape {tuple(a.shape)}, "
+                             f"want {tuple(shape)}")
+        return a
+    if kind == "uniform":
+        return torch.rand(shape, generator=generator, device=device)
+    if kind == "normal":
+        return torch.randn(shape, generator=generator, device=device)
+    raise ValueError(f"no generator draw of kind {kind!r} for {name!r}")
+
+
+@contextlib.contextmanager
+def _mode(model: nn.Module, train: bool):
+    """``model`` in train or eval mode inside the block, then as before."""
+    was = model.training
+    model.train(train)
+    try:
+        yield
+    finally:
+        model.train(was)
+
+
+class ClipAdam:
+    """What the JAX package's ``make_optimizer`` builds with optax:
+    ``chain(clip_by_global_norm(clip), adam(lr or linear_schedule(0, lr,
+    warmup)))``, inside ``MultiSteps(k)`` when k > 1, on a list of float32
+    parameters, updated in place.
+
+    The update is ``torch.optim.Adam`` (b1 0.9, b2 0.999, eps 1e-8 outside
+    the square root, bias correction by the count of applied updates, as
+    optax's) under a ``LambdaLR`` warmup of lr * min(n, warmup) / warmup
+    at the n-th update counted from 0, so the first update moves nothing.
+    What optax does otherwise is done here: the global norm scales by
+    clip/norm only when norm >= clip (no epsilon), and with k > 1 the
+    gradients of k micro-steps are averaged (Welford: acc + (g - acc) /
+    (n + 1)), clipped and applied on the k-th, the micro-steps between
+    applying nothing."""
+
+    def __init__(self, params: Sequence[Tensor], lr: float, grad_clip: float,
+                 warmup: Optional[int] = None, accumulate: int = 1):
+        self.params = list(params)
+        self.grad_clip, self.accumulate = grad_clip, accumulate
+        self.mini_step = 0   # micro-steps accumulated since the last update
+        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
+                                     eps=1e-8, foreach=True)
+        self.schedule = torch.optim.lr_scheduler.LambdaLR(
+            self.adam, (lambda n: min(n, warmup) / warmup) if warmup
+            else (lambda n: 1.0))
+        with torch.no_grad():
+            self.acc = ([torch.zeros_like(p) for p in self.params]
+                        if accumulate > 1 else None)
+
+    @property
+    def count(self) -> int:
+        """Updates applied (optax's adam / schedule count)."""
+        return self.schedule.last_epoch
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[Tensor]) -> bool:
+        """Take one micro-step's gradients; returns whether the parameters
+        were updated."""
+        grads = list(grads)
+        if self.acc is not None:
+            diff = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(diff, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, diff)
+            if self.mini_step < self.accumulate - 1:
+                self.mini_step += 1
+                return False
+            grads = [a.clone() for a in self.acc]
+            for a in self.acc:
+                a.zero_()
+            self.mini_step = 0
+        norm = global_norm(grads)
+        scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
+                            self.grad_clip / norm)
+        torch._foreach_mul_(grads, scale)
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.adam.step()
+        self.adam.zero_grad(set_to_none=True)
+        self.schedule.step()
+        return True
+
+    def state_dict(self) -> dict:
+        return {"adam": self.adam.state_dict(),
+                "schedule": self.schedule.state_dict(),
+                "mini_step": self.mini_step, "acc": self.acc}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.schedule.load_state_dict(state["schedule"])
+        self.mini_step = state["mini_step"]
+        for a, b in zip(self.acc or (), state["acc"] or ()):
+            a.copy_(b)
+
+
+def global_norm(tensors: Sequence[Tensor]) -> Tensor:
+    """sqrt(sum of squares) over every element of every tensor."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+        list(tensors))))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The counterpart of the JAX TrainState: ``step`` (micro-steps taken),
+    ``model`` (the trained module, its parameters updated in place),
+    ``optimizer`` and ``ema`` (a copy of the model holding the EMA of its
+    parameters and buffers)."""
+
+    step: int
+    model: nn.Module
+    optimizer: ClipAdam
+    ema: nn.Module
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "ema": self.ema.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.step = int(state["step"])
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.ema.load_state_dict(state["ema"])
+
+
 @dataclasses.dataclass(frozen=True)
 class DiffSepTrainer:
     """``model`` is an nn.Module (xt, time, mix) -> score holding its own
     parameters; ``sde`` is a MixSDE (the other SDE families are not
-    ported yet)."""
+    ported yet). The methods take the module to run (``model``; None: the
+    trainer's), as the JAX ones take ``params``."""
 
     model: nn.Module
     sde: BaseSDE
@@ -56,9 +233,241 @@ class DiffSepTrainer:
             raise NotImplementedError(
                 f"{type(self.sde).__name__} is not ported yet (MixSDE only)")
 
-    def model_fwd(self, xt: Tensor, time: Tensor, mix: Tensor) -> Tensor:
+    def model_fwd(self, xt: Tensor, time: Tensor, mix: Tensor,
+                  model: Optional[nn.Module] = None) -> Tensor:
         """The score network (the non-EDM branch)."""
-        return self.model(xt, time, mix)
+        return (self.model if model is None else model)(xt, time, mix)
+
+    def _anchor(self, mix: Tensor, shape: Sequence[int]) -> Tensor:
+        """The t=T attractor of the init hacks: mix / n for Mix SDEs."""
+        return (mix / shape[1]).expand(shape)
+
+    # -- time sampling ----------------------------------------------------
+    def sample_time(self, n: int, *, generator=None, draws: Draws = None,
+                    device=None) -> Tensor:
+        cfg = self.cfg
+        if cfg.time_sampling_strategy == "uniform":
+            u = _draw(draws, "time_u", (n,), "uniform", generator, device)
+            return torch.clamp(u * (self.sde.T - cfg.t_eps) + cfg.t_eps,
+                               min=cfg.t_eps)
+        if cfg.time_sampling_strategy == "varprop":
+            m = VARPROP_OVERSAMPLE * n
+            u = _draw(draws, "time_u", (m,), "uniform", generator, device)
+            acc = _draw(draws, "time_accept_u", (m,), "uniform", generator,
+                        device)
+            return self.sde.sample_time_varprop(generator, n, cfg.t_eps,
+                                                u=u, accept_u=acc)
+        raise NotImplementedError(cfg.time_sampling_strategy)
+
+    # -- losses (per-item (B,) values) --------------------------------------
+    def compute_score_loss(self, model, mix, target, *, generator=None,
+                           draws: Draws = None) -> Tensor:
+        """Denoising score matching ||L s_theta + z||^2; with init hack 4
+        each item is clamped to t=T with probability 1/N and its noise
+        target moved to the true-mixture anchor
+        (ditsep_tpu/training/diffsep.py:181-214)."""
+        cfg, sde, dev = self.cfg, self.sde, target.device
+        hack4 = cfg.init_hack == 4
+        b = target.shape[0]
+        time = self.sample_time(b, generator=generator, draws=draws,
+                                device=dev)
+        if hack4:
+            select = _draw(draws, "select_u", (b,), "uniform", generator,
+                           dev) < 1.0 / sde.N
+            time = torch.where(select, torch.full_like(time, sde.T), time)
+        mean, L = sde.marginal_prob(target, time)
+        z = _draw(draws, "z", target.shape, "normal", generator, dev)
+        if hack4:
+            z_mod = z + sde.mult_std_inv(L, self._anchor(mix, target.shape)
+                                         - mean)
+            z = torch.where(select[:, None, None], z_mod, z)
+        x_t = mean + sde.mult_std(L, z)
+        pred = self.model_fwd(x_t, time, mix, model)
+        return _batch_mean((sde.mult_std(L, pred) + z) ** 2)
+
+    def compute_score_loss_init_hack_pit(self, model, mix, target, *,
+                                         generator=None,
+                                         draws: Draws = None) -> Tensor:
+        """PIT at t=T: x_t = anchor + L z0, the loss the min over the
+        permutations of the target (:216-239)."""
+        sde, dev = self.sde, target.device
+        time = torch.full((target.shape[0],), sde.T, dtype=target.dtype,
+                          device=dev)
+        z0 = _draw(draws, "pit_z", target.shape, "normal", generator, dev)
+        anchor = self._anchor(mix, target.shape)
+        _, L = sde.marginal_prob(target, time)
+        pred = self.model_fwd(anchor + sde.mult_std(L, z0), time, mix, model)
+        l_pred = sde.mult_std(L, pred)
+        losses = []
+        for p in _perms(target.shape[1]):
+            mean_p, L_p = sde.marginal_prob(target[:, list(p)], time)
+            z_p = z0 + sde.mult_std_inv(L_p, anchor - mean_p)
+            losses.append(_batch_mean((l_pred + z_p) ** 2))
+        return torch.stack(losses).min(dim=0).values
+
+    def compute_score_loss_with_pit(self, model, mix, target, *,
+                                    generator=None,
+                                    draws: Draws = None) -> Tensor:
+        """mmnr-gated PIT (:241-289), with the reference's sign quirk: the
+        noise target adds +L^-1 (mean_p - mean_sel)."""
+        cfg, sde, dev = self.cfg, self.sde, target.device
+        b, n_src = target.shape[:2]
+        time = self.sample_time(b, generator=generator, draws=draws,
+                                device=dev)
+        perms = _perms(n_src)
+        means = torch.stack([sde.marginal_prob(target[:, list(p)], time)[0]
+                             for p in perms], dim=1)  # (B, n_perm, n, T)
+        _, L = sde.marginal_prob(target, time)
+        z = _draw(draws, "z", target.shape, "normal", generator, dev)
+        lz = sde.mult_std(L, z)
+        if draws is not None:
+            sel = _draw(draws, "sel", (b,), "int", generator, dev).long()
+        else:
+            sel = torch.randint(0, len(perms), (b,), generator=generator,
+                                device=dev)
+        mean_sel = means[torch.arange(b, device=dev), sel]
+        x_t = mean_sel + lz
+        err = means - mean_sel[:, None]
+        n_elems = (len(perms) - 1) * math.prod(target.shape[1:])
+        err_pow = (err ** 2).sum(dim=tuple(range(1, err.ndim))) / n_elems
+        noise_pow = _batch_mean(lz ** 2)
+        mmnr = 10.0 * torch.log10(err_pow / torch.clamp(noise_pow, min=1e-5))
+        use_pit = mmnr < cfg.mmnr_thresh_pit
+        l_pred = sde.mult_std(L, self.model_fwd(x_t, time, mix, model))
+        losses = [_batch_mean((l_pred + z + sde.mult_std_inv(L, err[:, i]))
+                              ** 2) for i in range(len(perms))]
+        loss_pit = torch.stack(losses).min(dim=0).values
+        loss_reg = _batch_mean((l_pred + z) ** 2)
+        return torch.where(use_pit, loss_pit, loss_reg)
+
+    def compute_score_loss_with_pit_allthetime(self, model, mix, target, *,
+                                               generator=None,
+                                               draws: Draws = None
+                                               ) -> Tensor:
+        """All-time PIT (:291-308): shuffled sources, one forward, the min
+        over the permutations of the noise target."""
+        sde, dev = self.sde, target.device
+        time = self.sample_time(target.shape[0], generator=generator,
+                                draws=draws, device=dev)
+        target = sep_utils.shuffle_sources(target, u=_draw(
+            draws, "shuffle_u", target.shape[:2], "uniform", generator, dev))
+        mean_0, L = sde.marginal_prob(target, time)
+        z0 = _draw(draws, "z", target.shape, "normal", generator, dev)
+        pred = self.model_fwd(mean_0 + sde.mult_std(L, z0), time, mix, model)
+        l_pred = sde.mult_std(L, pred)
+        losses = []
+        for p in _perms(target.shape[1]):
+            mean_p, _ = sde.marginal_prob(target[:, list(p)], time)
+            z_p = z0 + sde.mult_std_inv(L, mean_0 - mean_p)
+            losses.append(_batch_mean((l_pred + z_p) ** 2))
+        return torch.stack(losses).min(dim=0).values
+
+    def _shuffled(self, loss_fn):
+        """``loss_fn`` on the target with its sources shuffled first."""
+        def loss(model, mix, target, *, generator=None, draws=None):
+            u = _draw(draws, "shuffle_u", target.shape[:2], "uniform",
+                      generator, target.device)
+            return loss_fn(model, mix, sep_utils.shuffle_sources(target, u=u),
+                           generator=generator, draws=draws)
+        return loss
+
+    def _mixture_loss(self, model, mix, target, other_loss, *,
+                      generator=None, draws: Draws = None) -> Tensor:
+        """Per item, with probability init_hack_p the t=T PIT loss, else
+        ``other_loss``; both run on the whole batch (:311-324)."""
+        b = mix.shape[0]
+        pit_mask = _draw(draws, "mask_u", (b,), "uniform", generator,
+                         mix.device) < self.cfg.init_hack_p
+        loss_pit = self.compute_score_loss_init_hack_pit(
+            model, mix, target, generator=generator, draws=draws)
+        loss_other = other_loss(model, mix, target, generator=generator,
+                                draws=draws)
+        return torch.where(pit_mask, loss_pit, loss_other)
+
+    def training_loss(self, model, mix, target, *, generator=None,
+                      draws: Draws = None) -> Tensor:
+        """Scalar training loss (:326-364)."""
+        cfg = self.cfg
+        kw = dict(generator=generator, draws=draws)
+        if cfg.init_hack in (5, 6, 7):
+            other = {5: self._shuffled(self.compute_score_loss),
+                     6: self._shuffled(self.compute_score_loss_with_pit),
+                     7: self.compute_score_loss_with_pit_allthetime
+                     }[cfg.init_hack]
+            loss = self._mixture_loss(model, mix, target, other, **kw)
+        elif cfg.train_source_order == "pit":
+            loss = self.compute_score_loss_with_pit(model, mix, target, **kw)
+        else:
+            if cfg.train_source_order == "power":
+                target = sep_utils.power_order_sources(target)
+            elif cfg.train_source_order == "random":
+                target = sep_utils.shuffle_sources(target, u=_draw(
+                    draws, "shuffle_u", target.shape[:2], "uniform",
+                    generator, target.device))
+            loss = self.compute_score_loss(model, mix, target, **kw)
+        return loss.mean()
+
+    # -- optimizer / train step ---------------------------------------------
+    def make_optimizer(self, model: Optional[nn.Module] = None) -> ClipAdam:
+        cfg = self.cfg
+        model = self.model if model is None else model
+        return ClipAdam(model.parameters(), cfg.lr, cfg.grad_clip,
+                        cfg.lr_warmup, cfg.accumulate_grad_batches)
+
+    def init_state(self, model: Optional[nn.Module] = None) -> TrainState:
+        """A fresh TrainState around ``model`` (the trainer's by default),
+        the EMA a copy of it."""
+        model = self.model if model is None else model
+        ema = copy.deepcopy(model).eval().requires_grad_(False)
+        return TrainState(step=0, model=model,
+                          optimizer=self.make_optimizer(model), ema=ema)
+
+    def _check_trainable(self, model: nn.Module) -> None:
+        for m in model.modules():
+            if isinstance(m, nn.Dropout) and m.p > 0:
+                raise NotImplementedError(
+                    "training with dropout > 0 is not ported yet (it would "
+                    "draw from the global generator)")
+
+    def train_step(self, state: TrainState, batch: Tuple[Tensor, Tensor], *,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Draws = None) -> Tuple[TrainState, Dict]:
+        """One step: normalize -> loss -> grad -> clip -> Adam -> EMA. The
+        parameters and the EMA are updated in place; the metrics are
+        tensors on the device (reading them syncs)."""
+        model = state.model
+        self._check_trainable(model)
+        (mix, target), _, _ = sep_utils.normalize_batch(batch)
+        params = list(model.parameters())
+        with _mode(model, True), torch.enable_grad():
+            loss = self.training_loss(model, mix, target, generator=generator,
+                                      draws=draws)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        with torch.no_grad():
+            grad_norm = global_norm(grads)
+            state.optimizer.step(grads)
+            d = self.cfg.ema_decay
+            ema = [t for t in state.ema.state_dict().values()
+                   if t.is_floating_point()]
+            cur = [t for t in model.state_dict().values()
+                   if t.is_floating_point()]
+            torch._foreach_mul_(ema, d)
+            torch._foreach_add_(ema, torch._foreach_mul(cur, 1.0 - d))
+        state.step += 1
+        return state, {"train/score_loss": loss.detach(),
+                       "train/grad_norm": grad_norm}
+
+    # -- validation / inference ---------------------------------------------
+    @torch.no_grad()
+    def val_score_loss(self, model, batch, *, generator=None,
+                       draws: Draws = None) -> Tensor:
+        (mix, target), _, _ = sep_utils.normalize_batch(batch)
+        model = self.model if model is None else model
+        with _mode(model, False):
+            return self.training_loss(model, mix, target, generator=generator,
+                                      draws=draws)
 
     @torch.no_grad()
     def separate(self, mix: Tensor, *, N: Optional[int] = None,
@@ -66,7 +475,8 @@ class DiffSepTrainer:
                  corrector_steps: Optional[int] = None,
                  sampler: str = "pc", lengths: Optional[Tensor] = None,
                  generator: Optional[torch.Generator] = None,
-                 noise: Optional[Sequence] = None) -> Tuple[Tensor, int]:
+                 noise: Optional[Sequence] = None,
+                 model: Optional[nn.Module] = None) -> Tuple[Tensor, int]:
         """Normalize -> PC sampling (reverse_diffusion + ald2) ->
         denormalize. ``mix`` is (B, 1, T) on the model's device. Returns
         (estimates (B, n_speakers, T), nfe)."""
@@ -77,7 +487,7 @@ class DiffSepTrainer:
         cfg = self.cfg
         (mix, _), mean, std = sep_utils.normalize_batch((mix, None))
         est, nfe = pc_sample(
-            self.sde, self.model_fwd, mix,
+            self.sde, lambda x, t, y: self.model_fwd(x, t, y, model), mix,
             predictor="reverse_diffusion", corrector="ald2",
             N=cfg.sampler_N if N is None else N,
             snr=cfg.sampler_snr if snr is None else snr,
@@ -86,3 +496,12 @@ class DiffSepTrainer:
             denoise=True, eps=cfg.t_eps, n_spkrs=cfg.n_speakers,
             generator=generator, noise=noise)
         return sep_utils.denormalize_batch(est, mean, std), nfe
+
+    def val_separation_metrics(self, model, batch, *,
+                               generator=None) -> Dict[str, Tensor]:
+        """Separation + SI-SDR for validation monitoring (:496-508)."""
+        mix, target = batch
+        est, _ = self.separate(mix, generator=generator, model=model)
+        return {"val/si_sdr": loss_lib.si_sdr_loss(est, target,
+                                                   zero_mean=True,
+                                                   clamp_db=30.0)}

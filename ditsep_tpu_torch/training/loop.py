@@ -1,0 +1,141 @@
+"""The training loop: ``fit`` drives train steps over bucketed data (the
+port's ditsep_tpu/training/loop.py:23-172, 254-353, on one device, with no
+mesh and no media logging).
+
+Epochs over a ``BucketedLoader``; scalars every ``log_every`` steps to
+``metrics.jsonl``; at each epoch's end a validation (the score loss over
+every validation batch, weighted by its real item count, and up to
+``valid_max_sep_batches`` separations on the EMA weights scored by
+SI-SDR), a top-k checkpoint on val/si_sdr and the rolling latest one; an
+emergency latest checkpoint when training raises; at the end the EMA
+weights as ``ema.npz`` in the JAX package's flat layout.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ditsep_tpu_torch.data.wsj0_mix import BucketedLoader
+from ditsep_tpu_torch.models.weights import save_params_npz
+from ditsep_tpu_torch.utils.checkpoint import CheckpointManager
+from ditsep_tpu_torch.utils.logging import MetricsLogger
+
+EMA_EXPORT = "ema.npz"
+N_BUCKETS, BUCKET_MULTIPLE = 6, 4096  # the train loader's length buckets
+
+
+def _save_run_config(workdir: str, trainer) -> None:
+    """``hparams.json``: the trainer config, the SDE and the score model's
+    scalar settings."""
+    model = trainer.model
+    rec = {"trainer_cfg": dataclasses.asdict(trainer.cfg),
+           "sde": {"kind": type(trainer.sde).__name__,
+                   **dataclasses.asdict(trainer.sde)},
+           "model": {k: v for k, v in vars(model).items()
+                     if not k.startswith("_")
+                     and isinstance(v, (int, float, str, bool, tuple, list))}}
+    Path(workdir).mkdir(parents=True, exist_ok=True)
+    with open(Path(workdir) / "hparams.json", "w") as f:
+        json.dump(rec, f, indent=1, default=str)
+
+
+def fit(trainer, train_dataset, val_dataset=None, *, workdir: str,
+        max_epochs: int = 1000, batch_size: int = 16, seed: int = 0,
+        valid_max_sep_batches: int = 2, log_every: int = 10,
+        resume: bool = False, max_steps: Optional[int] = None):
+    """Train ``trainer`` (a DiffSepTrainer) on its model's device; returns
+    the final TrainState. Random draws come from one generator on that
+    device, seeded with ``seed``."""
+    logger = MetricsLogger(workdir)
+    ckpt = CheckpointManager(f"{workdir}/checkpoints")
+    _save_run_config(workdir, trainer)
+    device = next(trainer.model.parameters()).device
+    generator = torch.Generator(device=device).manual_seed(seed)
+    state = trainer.init_state()
+    if resume:
+        try:
+            state = ckpt.restore(state, prefer="latest")
+        except FileNotFoundError:
+            pass
+    loader = BucketedLoader(train_dataset, batch_size=batch_size,
+                            n_buckets=N_BUCKETS, multiple=BUCKET_MULTIPLE,
+                            shuffle=True, seed=seed)
+    val_loader = None
+    if val_dataset is not None:
+        # validation pads within each item's own 64-frame STFT block, all
+        # padding trailing, as the model sees items at native length
+        m = trainer.model
+        val_loader = BucketedLoader(
+            val_dataset, batch_size=batch_size, n_buckets=2,
+            multiple=BUCKET_MULTIPLE, shuffle=False,
+            frame_spec=(m.n_fft, m.hop_length, 64), align="left",
+            yield_counts=True)
+    try:
+        _train_epochs(trainer, state, loader, val_loader, generator, device,
+                      logger, ckpt, max_epochs, max_steps, log_every,
+                      valid_max_sep_batches, seed)
+    except Exception:
+        # a crash loses nothing past the last step (the state is updated
+        # in place); a failing save must not hide the crash
+        try:
+            ckpt.save_latest(state, state.step)
+        except Exception:
+            pass
+        raise
+    logger.close()
+    save_params_npz(str(Path(workdir) / EMA_EXPORT), state.ema)
+    return state
+
+
+def _to_device(batch, device):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in batch)
+
+
+def _train_epochs(trainer, state, loader, val_loader, generator, device,
+                  logger, ckpt, max_epochs, max_steps, log_every,
+                  valid_max_sep_batches, seed) -> None:
+    stop = False
+    for epoch in range(max_epochs):
+        loader.seed = seed + epoch
+        for batch in loader:
+            state, metrics = trainer.train_step(
+                state, _to_device(batch, device), generator=generator)
+            if state.step % log_every == 0:
+                logger.log({k: float(v) for k, v in metrics.items()},
+                           state.step)
+            if max_steps is not None and state.step >= max_steps:
+                stop = True
+                break
+
+        val_metrics: Dict[str, float] = {}
+        if val_loader is not None:
+            losses, weights, si_sdrs, sep_weights = [], [], [], []
+            for mix_b, tgt_b, n_real in val_loader:
+                batch = _to_device((mix_b, tgt_b), device)
+                losses.append(float(trainer.val_score_loss(
+                    state.model, batch, generator=generator)))
+                weights.append(n_real)
+                if len(si_sdrs) < valid_max_sep_batches:
+                    m = trainer.val_separation_metrics(
+                        state.ema, batch, generator=generator)
+                    si_sdrs.append(float(m["val/si_sdr"]))
+                    sep_weights.append(n_real)
+            # weighted by real item counts: remainder batches are filled
+            # by cycling their real items
+            if losses:
+                val_metrics["val/score_loss"] = float(
+                    np.average(losses, weights=weights))
+            if si_sdrs:
+                val_metrics["val/si_sdr"] = float(
+                    np.average(si_sdrs, weights=sep_weights))
+            logger.log(val_metrics, state.step)
+            ckpt.save(state, state.step, val_metrics)
+        ckpt.save_latest(state, state.step)
+        if stop:
+            break

@@ -1,11 +1,60 @@
-"""Batch normalization around separation (port of ditsep_tpu.utils.separate)."""
+"""Source ordering and batch normalization around separation and training
+(port of ditsep_tpu.utils.separate).
+
+The random helpers draw from an explicit ``torch.Generator`` on the
+tensor's device, or take the raw draw the JAX function makes (``u``:
+standard uniforms, ``sel``: integers) and apply the same transform to it,
+so a test can hand both packages the same numbers."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 Tensor = torch.Tensor
+
+
+def _gather_sources(x: Tensor, idx: Tensor) -> Tensor:
+    """Reorder axis 1 of x per batch entry by idx (B, n_src)."""
+    idx = idx.reshape(idx.shape + (1,) * (x.ndim - 2)).expand(x.shape)
+    return torch.gather(x, 1, idx)
+
+
+def shuffle_sources(x: Tensor, generator: Optional[torch.Generator] = None,
+                    u: Optional[Tensor] = None) -> Tensor:
+    """Random per-batch-entry permutation along axis 1: the argsort of
+    (B, n_src) standard uniforms ``u`` (drawn from ``generator`` when not
+    given), as ditsep_tpu/utils/separate.py:23-30."""
+    if x.ndim <= 1:
+        return x
+    if u is None:
+        u = torch.rand(x.shape[:2], generator=generator, device=x.device)
+    return _gather_sources(x, torch.argsort(u.to(x.device), dim=1,
+                                            stable=True))
+
+
+def power_order_sources(x: Tensor) -> Tensor:
+    """Order sources by increasing variance (population variance over all
+    but the first two axes)."""
+    if x.ndim <= 1:
+        return x
+    c = x.var(dim=tuple(range(2, x.ndim)), correction=0)
+    return _gather_sources(x, torch.argsort(c, dim=1, stable=True))
+
+
+def select_elem_at_random(x: Tensor, axis: int = -1,
+                          generator: Optional[torch.Generator] = None,
+                          sel: Optional[Tensor] = None) -> Tensor:
+    """Pick one slice along ``axis`` per batch entry, keepdims: index
+    ``sel`` (B,) integers in [0, x.shape[axis]), drawn when not given."""
+    x = torch.movedim(x, axis, -1)
+    if sel is None:
+        sel = torch.randint(0, x.shape[-1], (x.shape[0],),
+                            generator=generator, device=x.device)
+    sel = sel.to(device=x.device, dtype=torch.int64)
+    idx = sel.reshape((-1,) + (1,) * (x.ndim - 1)).expand(x.shape[:-1] + (1,))
+    return torch.movedim(torch.gather(x, -1, idx), -1, axis)
 
 
 def normalize_batch(
@@ -31,3 +80,13 @@ def normalize_batch(
 
 def denormalize_batch(x: Tensor, mean: Tensor, std: Tensor) -> Tensor:
     return x * std + mean
+
+
+def pad_to_hop(x: Tensor, hop_length: int) -> Tensor:
+    """Zero-pad the last axis up to a multiple of ``hop_length``; a length
+    that is already a multiple is kept (the JAX package's deviation from
+    the reference, which pads a full extra hop there)."""
+    rem = x.shape[-1] % hop_length
+    if rem == 0:
+        return x
+    return F.pad(x, (0, hop_length - rem))

@@ -380,3 +380,236 @@ def test_conv3x3_raises_not_falls_back(cuda_device):
             fn(xd, wd)
     assert (cuda_kernels.conv3x3_9tap.launches,
             cuda_kernels.conv3x3_async_halo.launches) == before
+
+
+# ------------------------------------ fir_up2d: fir_down2d's backward ------
+def _fir_up_case(device, shape, dtype, channels_last, seed=0):
+    """g (N, C, H//2, W//2) on the card for an input of ``shape``."""
+    n, c, h, w = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn((n, c, h // 2, w // 2), generator=gen,
+                    device=device).to(dtype)
+    if channels_last:
+        g = g.contiguous(memory_format=torch.channels_last)
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("shape,k,gain", [
+    ((2, 8, 64, 144), (1, 3, 3, 1), 1.0),
+    ((1, 6, 17, 9), (1, 2, 3, 4), 2.5),   # odd sizes, asymmetric kernel
+    ((3, 5, 2, 2), (1, 3, 3, 1), 1.0),    # the smallest input
+    ((2, 16, 8, 24), (1, 3, 3, 1), 1.0),  # the train path's deepest level
+    ((2, 4, 12, 40), (1, 2, 3, 4), 2.5),  # W % 16 != 0: bf16 scalar
+    ((1, 24, 33, 47), (1, 3, 3, 1), 1.0),  # odd H and W, C % 8 == 0
+    ((1, 3, 10, 1200), (1, 3, 3, 1), 1.0),  # several column tiles a row
+    ((6, 128, 256, 384), (1, 3, 3, 1), 1.0),  # level 0 of the train path
+])
+def test_fir_up2d_matches_plain(cuda_device, dtype, channels_last, shape, k,
+                                gain):
+    """The same bits as the plain version (its order, no FMA), so within
+    f32 1e-6 and bf16 1 ulp; dx in g's layout and dtype."""
+    g = _fir_up_case(cuda_device, shape, dtype, channels_last)
+    taps = cuda_kernels.separable_taps(np.asarray(k, np.float64), gain)
+    before = cuda_kernels.fir_up2d.launches
+    dx = cuda_kernels.fir_up2d(g, *taps, shape[2:])
+    torch.cuda.synchronize()
+    assert cuda_kernels.fir_up2d.launches == before + 1
+    ref = cuda_kernels.downsample_2d_bwd_plain(g, k, shape[2:], gain)
+    assert dx.shape == shape and dx.dtype == dtype
+    layout_cl = cuda_kernels.fir_up2d.plan(g, shape[2:])["layout"] \
+        == "channels_last"
+    assert dx.is_contiguous(memory_format=torch.channels_last
+                            if layout_cl else torch.contiguous_format)
+    assert (dx.float() - ref.float()).abs().max() <= _tolerance(ref, dtype)
+    assert torch.equal(dx, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last,shape", [
+    (False, (2, 8, 64, 144)), (False, (6, 128, 256, 384)),
+    (True, (2, 32, 20, 36)), (True, (1, 16, 17, 9)),
+])
+def test_fir_up2d_paths_give_same_bits(cuda_device, dtype, channels_last,
+                                       shape):
+    g = _fir_up_case(cuda_device, shape, dtype, channels_last, seed=1)
+    kern = cuda_kernels.fir_up2d
+    assert kern.plan(g, shape[2:])["path"] == "vector"
+    vec = kern(g, *_fir_taps(), shape[2:], force_path="vector")
+    sca = kern(g, *_fir_taps(), shape[2:], force_path="scalar")
+    torch.cuda.synchronize()
+    assert torch.equal(vec, sca)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_fir_up2d_misaligned_and_many_planes(cuda_device, channels_last):
+    """A base 4 bytes past a 16-byte boundary takes the scalar path (the
+    vector one raises); 70,000 planes or images loop gridDim.y."""
+    shape = (2, 16, 12, 32)
+    g = _fir_up_case(cuda_device, shape, torch.float32, channels_last)
+    buf = torch.empty(g.numel() + 1, device=cuda_device)
+    if channels_last:
+        n, c, h, w = g.shape
+        odd = buf[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+    else:
+        odd = buf[1:].view(g.shape)
+    odd.copy_(g)
+    assert odd.data_ptr() % 16 != 0
+    assert cuda_kernels.fir_up2d.plan(odd, shape[2:])["path"] == "scalar"
+    with pytest.raises(ValueError, match="vector path"):
+        cuda_kernels.fir_up2d(odd, *_fir_taps(), shape[2:],
+                              force_path="vector")
+    assert torch.equal(cuda_kernels.fir_up2d(odd, *_fir_taps(), shape[2:]),
+                       cuda_kernels.fir_up2d(g, *_fir_taps(), shape[2:]))
+    big = (70000, 8, 4, 6) if channels_last else (2, 35000, 4, 16)
+    gb = _fir_up_case(cuda_device, big, torch.float32, channels_last)
+    assert cuda_kernels.fir_up2d.plan(gb, big[2:])["grid"][1] == 65535
+    dx = cuda_kernels.fir_up2d(gb, *_fir_taps(), big[2:])
+    torch.cuda.synchronize()
+    assert torch.equal(dx, cuda_kernels.downsample_2d_bwd_plain(
+        gb, [1, 3, 3, 1], big[2:]))
+
+
+@pytest.mark.cuda
+def test_fir_up2d_raises_not_falls_back(cuda_device, monkeypatch):
+    g = torch.randn(1, 4, 4, 4, device=cuda_device)
+    kern = cuda_kernels.fir_up2d
+    before = kern.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kern(g.cpu(), *_fir_taps(), (8, 8))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kern(g.half(), *_fir_taps(), (8, 8))
+    with pytest.raises(ValueError, match="does not fit"):
+        kern(g, *_fir_taps(), (10, 8))
+    with pytest.raises(ValueError, match="strides"):
+        kern(g.transpose(2, 3), *_fir_taps(), (8, 8))
+    with pytest.raises(ValueError, match="4 taps"):
+        kern(g, [0.25] * 3, [0.25] * 4, (8, 8))
+    plan = kern.plan(g, (8, 8))
+    gx, gy = plan["grid"]
+    for bad in (dict(plan, grid=(gx + 1, gy)), dict(plan, block=(257, 1))):
+        with monkeypatch.context() as m:
+            m.setattr(kern, "plan", lambda *_, bad=bad: bad)
+            with pytest.raises(RuntimeError, match="CUDA error 1"):
+                kern(g, *_fir_taps(), (8, 8))
+    assert kern.launches == before
+
+
+@pytest.mark.cuda
+def test_failed_build_raises(cuda_device, tmp_path, monkeypatch):
+    """A source nvcc refuses raises with its log; nothing is loaded."""
+    monkeypatch.setattr(cuda_kernels, "BUILD_DIR", tmp_path)
+    lib = cuda_kernels.CudaLibrary(
+        "fir_up2d.cu", edits=[('extern "C" int fir_up2d(',
+                               'extern "C" int fir_up2d(not_a_type ')])
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        lib.load()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_downsample_2d_gradient_on_card(cuda_device, dtype, channels_last):
+    """On the card, x.grad through ops.fir.downsample_2d equals the plain
+    version's, by fir_up2d; without a wanted gradient the kernel is called
+    directly and the output has no grad_fn."""
+    x0 = torch.randn(2, 8, 17, 40, generator=torch.Generator().manual_seed(4))
+    x0 = x0.to(dtype)
+    gy = torch.randn(2, 8, 8, 20, generator=torch.Generator().manual_seed(5))
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = x0.to(cuda_device).contiguous(memory_format=fmt).requires_grad_()
+    counts = (cuda_kernels.fir_down2d.launches, cuda_kernels.fir_up2d.launches)
+    y = fir.downsample_2d(x, [1, 3, 3, 1])
+    assert y.grad_fn is not None
+    y.backward(gy.to(cuda_device, dtype))
+    torch.cuda.synchronize()
+    assert (cuda_kernels.fir_down2d.launches - counts[0],
+            cuda_kernels.fir_up2d.launches - counts[1]) == (1, 1)
+    want = cuda_kernels.downsample_2d_bwd_plain(gy.to(cuda_device, dtype),
+                                                [1, 3, 3, 1], (17, 40))
+    assert torch.equal(x.grad, want)
+    # the CPU's autograd of the plain version agrees (f32)
+    if dtype == torch.float32:
+        xc = x0.clone().requires_grad_()
+        fir.downsample_2d(xc, [1, 3, 3, 1]).backward(gy)
+        assert (x.grad.cpu() - xc.grad).abs().max() <= 1e-6
+    # a gradient in neither layout (expanded ones) is made contiguous
+    x.grad = None
+    fir.downsample_2d(x, [1, 3, 3, 1]).sum().backward()
+    assert torch.equal(x.grad, cuda_kernels.downsample_2d_bwd_plain(
+        torch.ones(2, 8, 8, 20, device=cuda_device, dtype=dtype),
+        [1, 3, 3, 1], (17, 40)))
+    with torch.no_grad():
+        assert fir.downsample_2d(x, [1, 3, 3, 1]).grad_fn is None
+    assert fir.downsample_2d(x.detach(), [1, 3, 3, 1]).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_ncsnpp_backward_on_card_goes_through_kernels(cuda_device):
+    """Backward through NCSN++ launches fir_up2d for both downsamples of
+    every down block (h and the skip x), none for the input pyramid (it
+    acts on data), and the card's gradients match the CPU's (TF32 off)."""
+    cfg = dict(nf=16, ch_mult=(1, 1, 1), num_res_blocks=1,
+               attn_resolutions=(8,), image_size=32, num_channels_in=6,
+               num_channels_out=4)
+    model = NCSNpp(**cfg).train()
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    for m in model.modules():  # give the zero-init layers real weights
+        if getattr(m, "init_scale", None) == 0.0:
+            m.init_scale = 1.0
+            m.reset_parameters(torch.Generator().manual_seed(1))
+    x = torch.randn(2, 6, 32, 64, generator=torch.Generator().manual_seed(2))
+    t = torch.tensor([0.3, 0.8])
+    grads = []
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", cuda_device):
+            model.to(dev)
+            model.zero_grad()
+            before = (cuda_kernels.fir_down2d.launches,
+                      cuda_kernels.fir_up2d.launches)
+            (model(x.to(dev), t.to(dev)) ** 2).mean().backward()
+            torch.cuda.synchronize()
+            after = (cuda_kernels.fir_down2d.launches,
+                     cuda_kernels.fir_up2d.launches)
+            want = (0, 0) if dev == "cpu" else (3 * 2, 2 * 2)
+            assert (after[0] - before[0], after[1] - before[1]) == want
+            grads.append({k: p.grad.detach().cpu().clone()
+                          for k, p in model.named_parameters()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    top = max(g.abs().max() for g in grads[0].values())
+    for k, g in grads[0].items():
+        if k.endswith("NIN_1.b"):
+            # the attention's key bias: softmax is invariant to it, its
+            # exact gradient is 0 and both devices give round-off
+            assert max(g.abs().max(), grads[1][k].abs().max()) <= 1e-6 * top
+        else:
+            assert ((grads[1][k] - g).abs().max()
+                    <= 1e-4 * g.abs().max() + 1e-9), k
+
+
+@pytest.mark.cuda
+def test_flagship_width_train_step_is_finite(cuda_device):
+    """One train step of the nf=128 diffsep_icassp score model on the card
+    (batch 2 x 2.048 s), through the kernels of both passes."""
+    from ditsep_tpu_torch.configs import build_diffsep_trainer, diffsep_icassp
+    trainer = build_diffsep_trainer(diffsep_icassp(), device=cuda_device)
+    state = trainer.init_state()
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    tgt = 0.1 * torch.randn(2, 2, 16384, generator=gen, device=cuda_device)
+    counts = (cuda_kernels.fir_down2d.launches, cuda_kernels.fir_up2d.launches)
+    state, m = trainer.train_step(state, (tgt.sum(1, keepdim=True), tgt),
+                                  generator=gen)
+    torch.cuda.synchronize()
+    assert (cuda_kernels.fir_down2d.launches - counts[0],
+            cuda_kernels.fir_up2d.launches - counts[1]) == (36, 24)
+    assert math.isfinite(m["train/score_loss"].item())
+    assert math.isfinite(m["train/grad_norm"].item())
+    assert all(bool(torch.isfinite(p).all())
+               for p in state.model.parameters())
