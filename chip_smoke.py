@@ -59,14 +59,34 @@ lines; any failure raises and the exit code is non-zero:
                (two epochs, each ending in a validation with a PC-30
                separation), its steps/s, peak memory, launches, checkpoints
                and EMA export (loaded back and separating a file); and a
-               profile of one train step.
+               profile of one train step;
+8. masked_parity -- the trained nf=32 checkpoint as it was trained
+               (mask_padding on): two items of different lengths padded to
+               one, with ``lengths``, on the card (TF32 off) against the CPU
+               with the same noise, within 1e-3;
+9. evaluate_trained -- ``ditsep_tpu_torch.cli.evaluate`` on that checkpoint
+               over 8 synthetic items of 2-6 s: masked with the default
+               buckets and with one bucket (every item padded past its own
+               frame block), then unmasked with the default buckets and
+               with one; mean SI-SDR / SI-SIR / SI-SAR / PESQ / STOI, the
+               buckets, runtime and launches of each, the masked ones held
+               to the SI-SDR bars of PERF.md;
+10. evaluate -- the same CLI at the flagship width (diffsep_icassp, seeded
+               random weights) over 12 items, batch 4, N=30, unmasked and
+               masked: the reference schema, finite metrics, runtime of
+               each mode and the host seconds of the metrics;
+11. longform -- ``cli.separate --chunk-seconds 4 --overlap-seconds 1`` at the
+               flagship width on one 14 s file: its length and its windows'
+               launches;
+12. upsample_2d -- ``ops.fir.upsample_2d`` on the card against the CPU at the
+               flagship's 6 up-path shapes, within 1e-5 (TF32 off).
 
 Every launch count is set to 0 just before each path (the fused bias-act
-op, the conv probe, the separation CLI, the training CLI) and read just
-after it. The script then prints the ``kernels`` JSON line (all six
-kernels), and as its last line ``{"ok": true, "device": {...}}``. Without
-CUDA, or without the rest of the repository beside it, it exits non-zero
-and prints no result.
+op, the conv probe, the separation CLI, the training CLI, each evaluate
+run, the long-form CLI) and read just after it. The script then prints
+the ``kernels`` JSON line (all six kernels), and as its last line
+``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
+the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -93,6 +113,14 @@ CONV_STACK, CONV_REPS = 10, 5     # the conv probe's timed stacks
 TRAIN_ITEMS, TRAIN_LEN_S, TRAIN_BATCH, TRAIN_STEPS = 12, 5.0, 6, 4
 TRAIN_EPOCHS = -(-TRAIN_STEPS // (TRAIN_ITEMS // TRAIN_BATCH))  # 2
 VAL_BATCHES = 1                   # 4 validation items fill one batch of 6
+# the trained nf=32 checkpoint: 3 down blocks + 3 input-pyramid levels
+CKPT_LAUNCHES_PER_FORWARD = 9
+CKPT_OVERRIDES = ["model.score_model.nf=32",
+                  "model.score_model.ch_mult=(1,1,2,2)",
+                  "model.score_model.attn_resolutions=(32,)"]
+EVAL_TRAINED_ITEMS, EVAL_ITEMS, EVAL_BATCH = 8, 12, 4
+SI_SDR_BAR_DB, MASKED_RUNS_APART_DB = 8.5, 1.0  # the bars of PERF.md §2
+LONGFORM_S, CHUNK_S, OVERLAP_S = 14.0, 4.0, 1.0
 # a train step runs two forwards (init hack 5: the t=T PIT loss and the
 # shuffled score loss); its backward takes fir_up2d for the 12 down-block
 # downsamples of each (h and the skip x; the input pyramid acts on data)
@@ -436,14 +464,17 @@ def phase_conv3x3(ctx):
           "path_launches": path, "card": ctx["card"]})
 
 
-def parity_config() -> dict:
-    """The config of the trained nf=32 checkpoint (CKPT)."""
+def parity_config(mask_padding: bool = False) -> dict:
+    """The config of the trained nf=32 checkpoint (CKPT). The checkpoint
+    was trained with mask_padding on (docs/pad_dilution_r03.md:132-136):
+    the parity phase runs it unmasked, the reference semantics, and the
+    masked_parity phase as it was trained."""
     from ditsep_tpu_torch.configs import diffsep, override
     return override(diffsep(), {
         "model.score_model.nf": 32,
         "model.score_model.ch_mult": (1, 1, 2, 2),
         "model.score_model.attn_resolutions": (32,),
-        "model.score_model.mask_padding": False})
+        "model.score_model.mask_padding": mask_padding})
 
 
 class full_f32:
@@ -463,48 +494,69 @@ class full_f32:
          torch.backends.cuda.matmul.allow_tf32) = self.prev
 
 
-def phase_parity(ctx):
-    """Trained nf=32 checkpoint: card (TF32 off) against CPU, same noise."""
+def checkpoint_parity(mix, noise, n: int, lengths=None, bf16=False):
+    """The trained nf=32 checkpoint separating ``mix`` at N=n on the card
+    (TF32 off) and on the CPU with the same ``noise``: masked with
+    ``lengths`` (as it was trained), unmasked without (the reference
+    semantics). Checks the card's shape and finiteness, the NFE, 1e-3
+    relative and fir_down2d's launches (9 a forward on the card, none on
+    the CPU). Returns (relative error, card launches, card output, the
+    card's bf16 output when ``bf16``)."""
     import numpy as np
     import torch
     from ditsep_tpu_torch.configs import build_diffsep_trainer
     from ditsep_tpu_torch.ops import cuda_kernels as ck
 
-    cfg = parity_config()
+    what = "unmasked" if lengths is None else "masked"
+    cfg = parity_config(mask_padding=lengths is not None)
+    out = {}
+    with full_f32():
+        for device, dtype in (("cuda", "f32"), ("cpu", "f32"),
+                              *((("cuda", "bf16"),) if bf16 else ())):
+            cfg["model"]["score_model"]["dtype"] = dtype
+            trainer = build_diffsep_trainer(cfg, device=device,
+                                            params_npz=str(CKPT))
+            lens = (None if lengths is None
+                    else torch.from_numpy(lengths).to(device))
+            torch.cuda.synchronize()
+            ck.fir_down2d.launches = 0
+            est, nfe = trainer.separate(torch.from_numpy(mix).to(device),
+                                        N=n, noise=noise, lengths=lens)
+            torch.cuda.synchronize()
+            out[device, dtype] = (est.cpu().numpy(), nfe,
+                                  ck.fir_down2d.launches)
+    (gpu, nfe_gpu, launches), (cpu, nfe_cpu, launches_cpu) = (
+        out["cuda", "f32"], out["cpu", "f32"])
+    rel = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
+    want = CKPT_LAUNCHES_PER_FORWARD * 2 * n
+    check(gpu.shape == mix.shape[:1] + (2,) + mix.shape[2:]
+          and np.isfinite(gpu).all(),
+          f"{what} card output shape / finiteness")
+    check(nfe_gpu == nfe_cpu == 2 * n, f"{what} NFE")
+    check(rel <= 1e-3, f"{what} card vs CPU relative error {rel} > 1e-3")
+    check(launches == want and launches_cpu == 0,
+          f"{what} launches card {launches} (want {want}), CPU "
+          f"{launches_cpu}")
+    return rel, launches, gpu, out["cuda", "bf16"][0] if bf16 else None
+
+
+def phase_parity(ctx):
+    """Trained nf=32 checkpoint, unmasked: card (TF32 off) against CPU,
+    same noise; and the card's bf16 run against its f32 one."""
+    import numpy as np
+
     rng = np.random.default_rng(1)
     mix = (0.1 * rng.standard_normal((1, 1, FS))).astype(np.float32)
     n = 5
     noise = (rng.standard_normal((1, 2, FS)).astype(np.float32),
              rng.standard_normal((n, 1, 1, 2, FS)).astype(np.float32),
              rng.standard_normal((n, 1, 2, FS)).astype(np.float32))
-    out = {}
-    # full f32 on the card for this comparison: cuDNN convs default to TF32
-    with full_f32():
-        for device, dtype in (("cuda", "f32"), ("cpu", "f32"),
-                              ("cuda", "bf16")):
-            cfg["model"]["score_model"]["dtype"] = dtype
-            trainer = build_diffsep_trainer(cfg, device=device,
-                                            params_npz=str(CKPT))
-            ck.fir_down2d.launches = 0
-            est, nfe = trainer.separate(torch.from_numpy(mix).to(device),
-                                        N=n, noise=noise)
-            out[device, dtype] = (est.cpu().numpy(), nfe,
-                                  ck.fir_down2d.launches)
-    (gpu, nfe_gpu, launches_gpu), (cpu, nfe_cpu, launches_cpu) = (
-        out["cuda", "f32"], out["cpu", "f32"])
-    bf16 = out["cuda", "bf16"][0]
+    rel, launches, gpu, bf16 = checkpoint_parity(mix, noise, n, bf16=True)
     check(np.isfinite(bf16).all(), "card bf16 output finiteness")
-    rel = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
-    check(gpu.shape == (1, 2, FS) and np.isfinite(gpu).all(),
-          "card output shape / finiteness")
-    check(nfe_gpu == nfe_cpu == 2 * n, "NFE")
-    check(rel <= 1e-3, f"card vs CPU relative error {rel} > 1e-3")
-    check(launches_gpu == 9 * 2 * n and launches_cpu == 0,
-          f"kernel launches card {launches_gpu}, CPU {launches_cpu}")
     emit({"phase": "parity", "checkpoint": str(CKPT.relative_to(REPO)),
           "config": "nf=32 ch_mult=(1,1,2,2) attn=(32,) mask_padding=off",
           "samples": FS, "N": n, "tf32": False, "max_rel_err": rel,
-          "tolerance": 1e-3, "launches_card": launches_gpu,
+          "tolerance": 1e-3, "launches_card": launches,
           "bf16_vs_f32_si_sdr_db": float(si_sdr_db(bf16, gpu).min()),
           "card": ctx["card"]})
 
@@ -991,6 +1043,210 @@ def phase_train_path(ctx):
     torch.cuda.empty_cache()
 
 
+def phase_masked_parity(ctx):
+    """The trained nf=32 checkpoint as it was trained (mask_padding on): a
+    batch of 2 items of 1 s and 0.75 s padded to 1 s, with ``lengths``;
+    the card (TF32 off) against the CPU with the same noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(4)
+    lens = np.array([FS, 6000], np.int64)  # 66 and 50 STFT frames
+    mix = np.zeros((2, 1, FS), np.float32)
+    for i, n_valid in enumerate(lens):
+        mix[i, 0, :n_valid] = 0.1 * rng.standard_normal(n_valid)
+    n = 5
+    noise = (rng.standard_normal((2, 2, FS)).astype(np.float32),
+             rng.standard_normal((n, 1, 2, 2, FS)).astype(np.float32),
+             rng.standard_normal((n, 2, 2, FS)).astype(np.float32))
+    rel, launches, _, _ = checkpoint_parity(mix, noise, n, lengths=lens)
+    emit({"phase": "masked_parity", "checkpoint": str(CKPT.relative_to(REPO)),
+          "config": "nf=32 ch_mult=(1,1,2,2) attn=(32,) mask_padding=on",
+          "lengths": lens.tolist(), "padded_to": FS, "N": n, "tf32": False,
+          "max_rel_err": rel, "tolerance": 1e-3, "launches_card": launches,
+          "launches_want": CKPT_LAUNCHES_PER_FORWARD * 2 * n,
+          "card": ctx["card"]})
+
+
+def run_evaluate(args, launches_per_call: int) -> dict:
+    """One ``cli.evaluate`` run in a fresh output folder: its summary, the
+    reference schema's key order checked in both files, finite metrics, the
+    PESQ backend, and fir_down2d's launches against the plan (calls x NFE
+    x launches a forward)."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.cli import evaluate as cli
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+
+    summary_keys = ["batch_idx", "si_sdr", "si_sir", "si_sar", "pesq",
+                    "stoi", "nfe", "runtime", "len_s", "number",
+                    "pesq_impl", "merged_utterances"]
+    item_keys = ["batch_idx", "si_sdr", "si_sir", "si_sar", "pesq", "stoi",
+                 "pesq_impl", "nfe", "runtime", "len_s"]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = cli.main([*args, "--out-dir", tmp])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = counts()
+        split = "librimix_test"
+        per = json.loads(Path(tmp, f"{split}.json").read_text())
+        summary = json.loads(Path(tmp, f"{split}_summary.json").read_text())
+    check(list(summary)[:len(summary_keys)] == summary_keys,
+          f"summary keys {list(summary)}")
+    for entry in per.values():
+        check(list(entry)[:len(item_keys)] == item_keys,
+              f"result keys {list(entry)}")
+        check(all(np.isfinite(entry[k]).all() for k in
+                  ("si_sdr", "si_sir", "si_sar", "pesq", "stoi")),
+              f"non-finite metrics {entry}")
+    check(summary["pesq_impl"] == "p862_numpy",
+          f"PESQ backend {summary['pesq_impl']}")
+    nfe = summary["nfe"]
+    want = res["calls"] * nfe * launches_per_call
+    check(launches["fir_down2d"] == want,
+          f"evaluate launches {launches}, want fir_down2d {want} "
+          f"({res['calls']} calls x {nfe} NFE x {launches_per_call})")
+    check(all(v == 0 for k, v in launches.items() if k != "fir_down2d"),
+          f"other kernels launched on the evaluate path: {launches}")
+    return {**{k: summary[k] for k in ("si_sdr", "si_sir", "si_sar", "pesq",
+                                       "stoi", "runtime", "number",
+                                       "merged_utterances")},
+            "buckets": res["buckets"], "calls": res["calls"],
+            "launches": launches["fir_down2d"], "wall_s": wall_s,
+            "metrics_s": res["metrics_s"]}
+
+
+def phase_evaluate_trained(ctx):
+    """cli.evaluate on the trained checkpoint: masked at the default
+    buckets and at one (every item padded past its own frame block), then
+    unmasked at both; the masked runs held to PERF.md's SI-SDR bars."""
+    base = ["--config", "diffsep", "--synthetic", "--synthetic-items",
+            str(EVAL_TRAINED_ITEMS), "--eval-batch-size", str(EVAL_BATCH),
+            "--params", str(CKPT), "--seed", "0", "--override",
+            *CKPT_OVERRIDES]
+    runs = {}
+    for name, extra in (("masked", ["--mask-padding"]),
+                        ("masked_max_buckets_1", ["--mask-padding",
+                                                  "--max-buckets", "1"]),
+                        ("unmasked", []),
+                        ("unmasked_max_buckets_1", ["--max-buckets", "1"])):
+        runs[name] = run_evaluate([*extra, *base], CKPT_LAUNCHES_PER_FORWARD)
+    a, b = runs["masked"]["si_sdr"], runs["masked_max_buckets_1"]["si_sdr"]
+    check(runs["masked_max_buckets_1"]["merged_utterances"] > 0,
+          "one bucket merged no item past its frame block")
+    check(min(a, b) >= SI_SDR_BAR_DB,
+          f"masked mean SI-SDR {a:.3f} / {b:.3f} dB under the "
+          f"{SI_SDR_BAR_DB} dB bar")
+    check(abs(a - b) <= MASKED_RUNS_APART_DB,
+          f"masked runs {a:.3f} and {b:.3f} dB more than "
+          f"{MASKED_RUNS_APART_DB} dB apart")
+    emit({"phase": "evaluate_trained",
+          "checkpoint": str(CKPT.relative_to(REPO)),
+          "config": "nf=32 ch_mult=(1,1,2,2) attn=(32,)",
+          "items": EVAL_TRAINED_ITEMS, "batch": EVAL_BATCH, "N": N_STEPS,
+          "bars": {"masked_si_sdr_db_min": SI_SDR_BAR_DB,
+                   "masked_runs_apart_db_max": MASKED_RUNS_APART_DB},
+          "runtime_unit": "s/utt", "runs": runs, "card": ctx["card"]})
+
+
+def phase_evaluate(ctx):
+    """cli.evaluate at the flagship width, seeded random weights, unmasked
+    and masked."""
+    base = ["--config", "diffsep_icassp", "--synthetic",
+            "--synthetic-items", str(EVAL_ITEMS), "--eval-batch-size",
+            str(EVAL_BATCH), "--sampler-N", str(N_STEPS), "--seed", "0"]
+    runs = {name: run_evaluate([*extra, *base], LAUNCHES_PER_FORWARD)
+            for name, extra in (("unmasked", []),
+                                ("masked", ["--mask-padding"]))}
+    ctx["eval_launches"] = {k: v["launches"] for k, v in runs.items()}
+    emit({"phase": "evaluate", "config": "diffsep_icassp (nf=128, random "
+          "weights seed 0)", "items": EVAL_ITEMS, "batch": EVAL_BATCH,
+          "N": N_STEPS, "tf32_conv": True, "runtime_unit": "s/utt",
+          "runs": runs,
+          "masked_over_unmasked_runtime": (runs["masked"]["runtime"]
+                                           / runs["unmasked"]["runtime"]),
+          "card": ctx["card"]})
+
+
+def phase_longform(ctx):
+    """cli.separate --chunk-seconds at the flagship width on one 14 s
+    synthetic file written to build/."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.cli import separate as cli
+    from ditsep_tpu_torch.data import SyntheticMixDataset, read_wav, write_wav
+    from ditsep_tpu_torch.inference.longform import window_starts
+
+    mix, _ = SyntheticMixDataset(n_items=1, min_len_s=LONGFORM_S,
+                                 max_len_s=LONGFORM_S, seed=5)[0]
+    n_samples = mix.shape[-1]
+    root = REPO / "build" / "chip_smoke_longform"
+    shutil.rmtree(root, ignore_errors=True)
+    inp, outp = root / "in", root / "out"
+    inp.mkdir(parents=True)
+    write_wav(str(inp / "long.wav"), mix[0], FS)
+    windows = len(window_starts(n_samples, int(CHUNK_S * FS),
+                                int(OVERLAP_S * FS)))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    nfe = cli.main(["--config", "diffsep_icassp", "--input", str(inp),
+                    "--output", str(outp), "--sampler-N", str(N_STEPS),
+                    "--chunk-seconds", str(CHUNK_S), "--overlap-seconds",
+                    str(OVERLAP_S), "--seed", "0"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = counts()
+    want = LAUNCHES_PER_FORWARD * nfe * windows
+    check(nfe == 2 * N_STEPS, f"long-form NFE {nfe}")
+    check(launches["fir_down2d"] == want
+          and all(v == 0 for k, v in launches.items() if k != "fir_down2d"),
+          f"long-form launches {launches}, want fir_down2d {want}")
+    for src in ("s0", "s1"):
+        data, fs = read_wav(str(outp / src / "long.wav"))
+        check(fs == FS and data.shape == (n_samples,)
+              and np.isfinite(data).all(), f"long-form output {src}")
+    shutil.rmtree(root, ignore_errors=True)
+    ctx["longform_launches"] = launches["fir_down2d"]
+    emit({"phase": "longform", "config": "diffsep_icassp (nf=128, random "
+          "weights seed 0)", "samples": n_samples, "chunk_s": CHUNK_S,
+          "overlap_s": OVERLAP_S, "windows": windows, "N": N_STEPS,
+          "seconds": wall_s, "launches": launches["fir_down2d"],
+          "launches_want": want, "card": ctx["card"]})
+
+
+def phase_upsample(ctx):
+    """ops.fir.upsample_2d on the card against its CPU run at the
+    flagship's 6 up-path shapes (TF32 off), and with TF32 on as the main
+    path runs it (reported, not barred)."""
+    import torch
+    from ditsep_tpu_torch.ops import fir
+
+    g = torch.Generator().manual_seed(8)
+    rows = []
+    worst = 0.0
+    for i in range(6, 0, -1):  # the up blocks of levels 6..1
+        c = 256 if i > 1 else 128
+        shape = (1, c, 256 >> i, 576 >> i)
+        x = torch.randn(shape, generator=g)
+        ref = fir.upsample_2d(x, [1, 3, 3, 1])
+        with full_f32():
+            err = (fir.upsample_2d(x.cuda(), [1, 3, 3, 1]).cpu()
+                   - ref).abs().max().item()
+        err_tf32 = (fir.upsample_2d(x.cuda(), [1, 3, 3, 1]).cpu()
+                    - ref).abs().max().item()
+        check(err <= 1e-5, f"upsample_2d {shape}: card vs CPU {err}")
+        worst = max(worst, err)
+        rows.append({"shape": list(shape), "max_abs_err": err,
+                     "max_abs_err_tf32_default": err_tf32})
+    emit({"phase": "upsample_2d", "tolerance": 1e-5, "max_abs_err": worst,
+          "rows": rows, "card": ctx["card"]})
+
+
 def main() -> int:
     try:
         import torch
@@ -1026,6 +1282,11 @@ def main() -> int:
     phase_train_kernel(ctx)
     phase_train_parity(ctx)
     phase_train_path(ctx)
+    phase_masked_parity(ctx)
+    phase_evaluate_trained(ctx)
+    phase_evaluate(ctx)
+    phase_longform(ctx)
+    phase_upsample(ctx)
 
     t = ctx["kernel_times"]["float32"]
     fba = ctx["fba"]["times"]["float32"]
@@ -1036,6 +1297,10 @@ def main() -> int:
         "source": "ditsep_tpu_torch/csrc/fir_down2d.cu",
         "replaces": "ditsep_tpu/ops/pallas_kernels.py:148",
         "launches": ctx["main_path_launches"],
+        "launches_by_path": {
+            "separate_cli": ctx["main_path_launches"],
+            **{f"evaluate_{k}": v for k, v in ctx["eval_launches"].items()},
+            "longform_cli": ctx["longform_launches"]},
         "max_abs_err": ctx["kernel_err"][torch.float32],
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": "bytes",

@@ -1,0 +1,127 @@
+"""Test-set evaluation: bucketed batched PC sampling, SI-SDR / SI-SIR /
+SI-SAR, PESQ and STOI per utterance, the reference schema's results and
+summary JSON (port of ditsep_tpu/cli/evaluate.py). Runs on the CUDA card
+unless --cpu is given.
+
+    python -m ditsep_tpu_torch.cli.evaluate --config diffsep \\
+        [--params X.npz] [--data-path DIR | --synthetic] \\
+        [--mask-padding] [--out-dir DIR] [--cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+from ditsep_tpu_torch.cli.common import (add_common_args, load_config,
+                                         make_dataset)
+from ditsep_tpu_torch.configs import build_diffsep_trainer
+from ditsep_tpu_torch.eval import evaluate_dataset
+from ditsep_tpu_torch.utils.device import resolve_device
+
+
+def main(argv=None) -> dict:
+    """Returns evaluate_dataset's result: the per-utterance results, the
+    summary, the buckets, the separate calls and the metrics' seconds."""
+    p = add_common_args(argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0]))
+    p.add_argument("--params", default=None,
+                   help="npz score-model params exported by ditsep_tpu")
+    p.add_argument("--out-dir", default=None)
+    p.add_argument("--sampler-N", type=int, default=30)
+    p.add_argument("--sampler", choices=("pc", "ab2"), default="pc",
+                   help="'ab2' is not ported yet (ROADMAP A9)")
+    p.add_argument("--snr", type=float, default=0.5)
+    p.add_argument("--corrector-steps", type=int, default=1)
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--eval-batch-size", type=int, default=4)
+    p.add_argument("--bucket-multiple", type=int, default=4096,
+                   help="sample-domain bucket granularity, used only by "
+                        "--no-proc; the model path buckets by the score "
+                        "model's 64-frame STFT blocks")
+    p.add_argument("--max-buckets", type=int, default=24,
+                   help="cap on distinct padded lengths; past it the "
+                        "sparsest frame blocks merge upward, padding their "
+                        "utterances past their native block (a measured "
+                        "quality cost without --mask-padding, "
+                        "docs/pad_dilution_r03.md)")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the untimed warmup call per bucket")
+    p.add_argument("--save-samples", type=int, default=0,
+                   help="write enh{i}.wav for the first N utterances")
+    p.add_argument("--save-figures", type=int, default=0,
+                   help="spectrogram figures (not ported yet, ROADMAP A16)")
+    p.add_argument("--bf16", action="store_true",
+                   help="compute the score network in bfloat16")
+    p.add_argument("--mask-padding", action="store_true",
+                   help="masked scoring: each utterance's padded tail is "
+                        "masked out of the normalization and of every "
+                        "GroupNorm and attention statistic (an extension "
+                        "beyond the reference, docs/pad_dilution_r03.md)")
+    p.add_argument("--no-proc", action="store_true",
+                   help="mixture baseline: score the raw mix, no model "
+                        "(nfe 0)")
+    p.add_argument("--latent", action="store_true",
+                   help="the latent pipeline (not ported yet, ROADMAP A11)")
+    args = p.parse_args(argv)
+    if args.latent:
+        raise NotImplementedError("--latent is not ported yet (ROADMAP A11)")
+    if args.mesh:
+        raise NotImplementedError("--mesh is not ported yet (ROADMAP A14)")
+    if args.sampler != "pc":
+        raise NotImplementedError(
+            f"--sampler {args.sampler} is not ported yet (ROADMAP A9)")
+    if args.save_figures:
+        raise NotImplementedError(
+            "--save-figures is not ported yet (ROADMAP A16, viz.py)")
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    cfg = load_config(args.config, args.override)
+    sm = cfg["model"]["score_model"]
+    if args.bf16:
+        sm["dtype"] = "bf16"
+    if args.mask_padding:
+        sm["mask_padding"] = True
+    ds = make_dataset(cfg, "test", args.data_path, args.synthetic,
+                      synthetic_items=args.synthetic_items,
+                      synthetic_len_s=args.synthetic_len_s)
+    common = dict(fs=cfg["datamodule"].get("fs", 8000),
+                  batch_size=args.eval_batch_size,
+                  bucket_multiple=args.bucket_multiple,
+                  max_buckets=args.max_buckets, out_dir=args.out_dir,
+                  split_name=cfg["datamodule"]["test"]["split"],
+                  limit=args.limit, seed=args.seed, device=device)
+
+    if args.no_proc:
+        # the mixture baseline: the unprocessed mix for every source, nfe 0
+        # (reference: evaluate_mp.py:223,303-308, ckpt "__no_proc__")
+        n_spkr = ds[0][1].shape[0]
+
+        def sep(mix, lengths=None, generator=None):
+            return mix.expand(mix.shape[0], n_spkr, mix.shape[-1])
+
+        res = evaluate_dataset(sep, ds, nfe=0, frame_spec=None,
+                               warmup=False, **common)
+        print(json.dumps(res["summary"], indent=2))
+        return res
+
+    trainer = build_diffsep_trainer(cfg, device=device, seed=args.seed,
+                                    params_npz=args.params)
+
+    def sep(mix, lengths=None, generator=None):
+        return trainer.separate(mix, N=args.sampler_N, snr=args.snr,
+                                corrector_steps=args.corrector_steps,
+                                lengths=lengths, generator=generator)[0]
+
+    nfe = args.sampler_N * (args.corrector_steps + 1)
+    # bucket by the score model's own STFT frame blocks: each utterance
+    # keeps the quiet fraction of its native-length evaluation
+    frame_spec = (sm.get("n_fft", 510), sm.get("hop_length", 128), 64)
+    res = evaluate_dataset(sep, ds, nfe=nfe, frame_spec=frame_spec,
+                           save_samples=args.save_samples,
+                           warmup=not args.no_warmup,
+                           pass_lengths=args.mask_padding, **common)
+    print(json.dumps(res["summary"], indent=2))
+    return res
+
+
+if __name__ == "__main__":
+    main()

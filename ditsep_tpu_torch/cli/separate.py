@@ -1,10 +1,13 @@
 """Folder-to-folder separation: read every wav in --input, run PC sampling,
 write s0/ s1/ ... subfolders with the separated sources, scaled by mix
-projection. Runs on the CUDA card unless --cpu is given.
+projection. Runs on the CUDA card unless --cpu is given. With
+--chunk-seconds a file is separated in windows of that length, aligned and
+crossfaded (``inference.separate_longform``).
 
     python -m ditsep_tpu_torch.cli.separate --config diffsep_icassp \\
         --input DIR --output DIR [--params X.npz] [--sampler-N 30] \\
-        [--seed 0] [--cpu] [--bf16] [--override a.b=v ...]
+        [--seed 0] [--cpu] [--bf16] [--mask-padding] \\
+        [--chunk-seconds S [--overlap-seconds 1.0]] [--override a.b=v ...]
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from ditsep_tpu_torch.cli.common import load_config
 from ditsep_tpu_torch.configs import build_diffsep_trainer
 from ditsep_tpu_torch.data import read_wav, write_wav
+from ditsep_tpu_torch.inference import separate_longform
 from ditsep_tpu_torch.utils.device import resolve_device
 
 
@@ -29,7 +33,8 @@ def scale_output(mix: np.ndarray, est: np.ndarray) -> np.ndarray:
 
 
 def main(argv=None) -> int:
-    """Returns the score-network evaluations (NFE) spent per file."""
+    """Returns the score-network evaluations (NFE) spent per file, or per
+    window with --chunk-seconds."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--config", default="diffsep")
     p.add_argument("--input", required=True, help="folder of wav files")
@@ -42,13 +47,33 @@ def main(argv=None) -> int:
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     p.add_argument("--bf16", action="store_true",
                    help="compute the score network in bfloat16")
+    p.add_argument("--mask-padding", action="store_true",
+                   help="masked scoring: the %%64 frame pad (and a short "
+                        "file's padded window) is masked out of the "
+                        "normalization and the GroupNorm and attention "
+                        "statistics (docs/pad_dilution_r03.md)")
+    p.add_argument("--chunk-seconds", type=float, default=None,
+                   help="long-form mode: separate in windows of this many "
+                        "seconds, permutation-align adjacent windows and "
+                        "crossfade them (inference/longform.py)")
+    p.add_argument("--overlap-seconds", type=float, default=1.0,
+                   help="window overlap for --chunk-seconds (alignment "
+                        "and crossfade region)")
+    p.add_argument("--streaming-block-seconds", type=float, default=None,
+                   help="streaming separation (not ported yet, ROADMAP "
+                        "A12)")
     p.add_argument("--override", nargs="*", default=[],
                    help="config overrides a.b.c=value")
     args = p.parse_args(argv)
+    if args.streaming_block_seconds is not None:
+        raise NotImplementedError("--streaming-block-seconds is not ported "
+                                  "yet (ROADMAP A12)")
     device = resolve_device("cpu" if args.cpu else "cuda")
     cfg = load_config(args.config, args.override)
     if args.bf16:
         cfg["model"]["score_model"]["dtype"] = "bf16"
+    if args.mask_padding:
+        cfg["model"]["score_model"]["mask_padding"] = True
 
     trainer = build_diffsep_trainer(cfg, device=device, seed=args.seed,
                                     params_npz=args.params)
@@ -62,16 +87,31 @@ def main(argv=None) -> int:
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     nfe = 0
+
+    def sep(mix, lengths=None, generator=None):
+        nonlocal nfe
+        est, nfe = trainer.separate(mix, N=args.sampler_N, lengths=lengths,
+                                    generator=generator)
+        return est
+
     for f in files:
         mix, _ = read_wav(os.path.join(args.input, f))
         mix = np.atleast_2d(mix).reshape(1, 1, -1).astype(np.float32)
-        est, nfe = trainer.separate(torch.from_numpy(mix).to(device),
-                                    N=args.sampler_N, generator=generator)
-        est = scale_output(mix[0], est[0].float().cpu().numpy())
+        if args.chunk_seconds:
+            est = separate_longform(
+                sep, mix.reshape(-1),
+                chunk_samples=int(args.chunk_seconds * fs),
+                overlap_samples=int(args.overlap_seconds * fs),
+                n_src=n_src, generator=generator,
+                pass_lengths=args.mask_padding, device=device)
+        else:
+            est = sep(torch.from_numpy(mix).to(device),
+                      generator=generator)[0].float().cpu().numpy()
+        est = scale_output(mix[0], est)
         for i in range(n_src):
             write_wav(str(Path(args.output, f"s{i}", f)), est[i], fs)
     print(f"separated {len(files)} files into {args.output}/s0..s{n_src-1} "
-          f"(nfe {nfe} per file)")
+          f"(nfe {nfe} per {'window' if args.chunk_seconds else 'file'})")
     return nfe
 
 

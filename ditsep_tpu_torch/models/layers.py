@@ -10,6 +10,11 @@ field: parameters stay float32 and are cast, with the input, to ``dtype``
 (None keeps the input's dtype). GroupNorm statistics are float32 inside
 PyTorch's kernels for bf16 inputs, as in flax.
 
+Masked scoring (``mask_padding``): a (B, W) boolean frame mask ``tmask``
+marks the valid time columns. GroupNorm then takes its statistics over the
+valid columns only and attention gives no weight to keys in invalid ones;
+``tmask=None`` is the reference semantics, the exact unmasked call.
+
 Parameters are initialised by ``reset_parameters(generator)`` with the JAX
 package's initialisers (``default_init``: variance scaling, fan_avg,
 uniform; Fourier W ~ N(0, scale^2); zero biases).
@@ -126,10 +131,48 @@ class GroupNorm(nn.GroupNorm):
         nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
+        """``mask`` (B, 1, 1, W) bool: statistics over the valid columns
+        only, as flax's ``GroupNorm(mask=...)``: in float32, per (item,
+        group) over the group's channels x H x the valid columns, mean =
+        E[x] and var = max(E[x^2] - E[x]^2, 0); every element, masked ones
+        too, is then normalized and given the affine transform."""
         dt = _compute_dtype(self.compute_dtype, x)
-        return F.group_norm(x.to(dt), self.num_groups, self.weight.to(dt),
-                            self.bias.to(dt), self.eps)
+        if mask is None:
+            return F.group_norm(x.to(dt), self.num_groups,
+                                self.weight.to(dt), self.bias.to(dt),
+                                self.eps)
+        b, c = x.shape[:2]
+        g = self.num_groups
+        xg = x.to(dt).float().reshape(b, g, c // g, *x.shape[2:])
+        m = mask.to(torch.float32)[:, None]          # (B, 1, 1, 1, W)
+        dims = tuple(range(2, xg.ndim))
+        count = m.sum(dim=dims, keepdim=True) * (
+            c // g * math.prod(x.shape[2:-1]))
+        xm = xg * m
+        mean = xm.sum(dim=dims, keepdim=True) / count
+        mean2 = (xm * xg).sum(dim=dims, keepdim=True) / count
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        shape = (1, g, c // g) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float().reshape(shape)
+        y = (xg - mean) * mul + self.bias.float().reshape(shape)
+        return y.reshape(x.shape).to(dt)
+
+
+def time_mask_to_gn(tmask: Optional[Tensor]) -> Optional[Tensor]:
+    """(B, W) frame mask -> the (B, 1, 1, W) GroupNorm mask of an NCHW
+    activation whose last axis is time; None stays None."""
+    return None if tmask is None else tmask[:, None, None, :]
+
+
+def pool_time_mask(tmask: Tensor) -> Tensor:
+    """Downsample a (B, W) frame mask by 2, following the U-Net's
+    resolution ladder: a pooled column is valid if either of its two
+    source columns was. An odd width is padded with one invalid column
+    first (ditsep_tpu/models/layers.py:86-94)."""
+    if tmask.shape[-1] % 2:
+        tmask = F.pad(tmask, (0, 1), value=False)
+    return tmask[:, ::2] | tmask[:, 1::2]
 
 
 def group_norm(ch: int, *, dtype=None) -> GroupNorm:
@@ -213,13 +256,20 @@ class AttnBlockpp(nn.Module):
         self.NIN_3 = NIN(channels, channels, init_scale=init_scale,
                          dtype=dtype)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, tmask: Optional[Tensor] = None) -> Tensor:
+        """``tmask`` (B, W): the GroupNorm's statistics over valid frames,
+        and the logits of keys in invalid frames set to -1e9 (not -inf,
+        as the JAX package) before the softmax."""
         b, c, hh, ww = x.shape
-        h = self.GroupNorm_0(x)
+        h = self.GroupNorm_0(x, time_mask_to_gn(tmask))
         q = self.NIN_0(h).reshape(b, c, hh * ww)
         k = self.NIN_1(h).reshape(b, c, hh * ww)
         v = self.NIN_2(h).reshape(b, c, hh * ww)
         w = torch.matmul(q.transpose(1, 2), k) * (c ** -0.5)  # (b, q, k)
+        if tmask is not None:  # key (f, t) is valid iff frame t is
+            kmask = tmask[:, None, :].expand(b, hh, ww).reshape(
+                b, 1, hh * ww)
+            w = torch.where(kmask, w, torch.full_like(w, -1e9))
         w = torch.softmax(w, dim=-1)
         h = torch.matmul(v, w.transpose(1, 2)).reshape(b, c, hh, ww)
         h = self.NIN_3(h)
@@ -299,14 +349,20 @@ class ResnetBlockBigGANpp(nn.Module):
             return fir.naive_downsample_2d(x, factor=2)
         return x
 
-    def forward(self, x: Tensor, temb: Optional[Tensor] = None) -> Tensor:
-        h = self.act(self.GroupNorm_0(x))
+    def forward(self, x: Tensor, temb: Optional[Tensor] = None, *,
+                tmask: Optional[Tensor] = None,
+                tmask_out: Optional[Tensor] = None) -> Tensor:
+        """``tmask`` masks GroupNorm_0's statistics at the input
+        resolution, ``tmask_out`` GroupNorm_1's at the resolution after
+        the up or down step (``tmask`` when the block keeps it)."""
+        h = self.act(self.GroupNorm_0(x, time_mask_to_gn(tmask)))
         h = self._resample(h)
         x = self._resample(x)
         h = self.Conv_0(h)
         if temb is not None:
             h = h + self.Dense_0(self.act(temb))[:, :, None, None]
-        h = self.act(self.GroupNorm_1(h))
+        mask_out = tmask_out if (self.up or self.down) else tmask
+        h = self.act(self.GroupNorm_1(h, time_mask_to_gn(mask_out)))
         h = self.Dropout_0(h)
         h = self.Conv_1(h)
         if hasattr(self, "Conv_2"):

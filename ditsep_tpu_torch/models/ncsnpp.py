@@ -171,10 +171,23 @@ class NCSNpp(nn.Module):
                                   generator=generator)
             nn.init.zeros_(self.output_layer.bias)
 
-    def forward(self, x: Tensor, time_cond: Tensor) -> Tensor:
-        """x (B, C_in, H, W); time_cond (B,) -> (B, C_out, H, W)."""
+    def forward(self, x: Tensor, time_cond: Tensor, *,
+                time_mask: Optional[Tensor] = None) -> Tensor:
+        """x (B, C_in, H, W); time_cond (B,) -> (B, C_out, H, W).
+
+        ``time_mask`` (B, W) bool marks the valid time columns: every
+        GroupNorm then takes its statistics over valid columns only and
+        attention gives no weight to keys in invalid ones, with one mask
+        per level pooled from the one above (masked scoring; None is the
+        reference semantics)."""
         modules = self.all_modules
         m_idx = 0
+        if time_mask is None:
+            masks = [None] * self.num_resolutions
+        else:
+            masks = [time_mask.bool()]
+            for _ in range(self.num_resolutions - 1):
+                masks.append(L.pool_time_mask(masks[-1]))
 
         used_sigmas = time_cond
         temb = modules[m_idx](torch.log(used_sigmas))
@@ -198,14 +211,15 @@ class NCSNpp(nn.Module):
         # -- down path ------------------------------------------------------
         for i_level in range(self.num_resolutions):
             for _ in range(self.num_res_blocks):
-                h = modules[m_idx](hs[-1], temb)
+                h = modules[m_idx](hs[-1], temb, tmask=masks[i_level])
                 m_idx += 1
                 if self.all_resolutions[i_level] in self.attn_resolutions:
-                    h = modules[m_idx](h)
+                    h = modules[m_idx](h, tmask=masks[i_level])
                     m_idx += 1
                 hs.append(h)
             if i_level != self.num_resolutions - 1:
-                h = modules[m_idx](hs[-1], temb)
+                h = modules[m_idx](hs[-1], temb, tmask=masks[i_level],
+                                   tmask_out=masks[i_level + 1])
                 m_idx += 1
                 if self.progressive_input == "input_skip":
                     input_pyramid = self.pyramid_downsample(input_pyramid)
@@ -215,24 +229,26 @@ class NCSNpp(nn.Module):
 
         # -- middle ---------------------------------------------------------
         h = hs[-1]
-        h = modules[m_idx](h, temb)
+        h = modules[m_idx](h, temb, tmask=masks[-1])
         m_idx += 1
-        h = modules[m_idx](h)
+        h = modules[m_idx](h, tmask=masks[-1])
         m_idx += 1
-        h = modules[m_idx](h, temb)
+        h = modules[m_idx](h, temb, tmask=masks[-1])
         m_idx += 1
 
         pyramid = None
         # -- up path --------------------------------------------------------
         for i_level in reversed(range(self.num_resolutions)):
             for _ in range(self.num_res_blocks + 1):
-                h = modules[m_idx](torch.cat([h, hs.pop()], dim=1), temb)
+                h = modules[m_idx](torch.cat([h, hs.pop()], dim=1), temb,
+                                   tmask=masks[i_level])
                 m_idx += 1
             if self.all_resolutions[i_level] in self.attn_resolutions:
-                h = modules[m_idx](h)
+                h = modules[m_idx](h, tmask=masks[i_level])
                 m_idx += 1
             if self.progressive == "output_skip":
-                pyramid_h = self.act(modules[m_idx](h))
+                pyramid_h = self.act(modules[m_idx](
+                    h, L.time_mask_to_gn(masks[i_level])))
                 m_idx += 1
                 pyramid_h = modules[m_idx](pyramid_h)
                 m_idx += 1
@@ -241,14 +257,15 @@ class NCSNpp(nn.Module):
                 else:
                     pyramid = self.pyramid_upsample(pyramid) + pyramid_h
             if i_level != 0:
-                h = modules[m_idx](h, temb)
+                h = modules[m_idx](h, temb, tmask=masks[i_level],
+                                   tmask_out=masks[i_level - 1])
                 m_idx += 1
         assert not hs
 
         if self.progressive == "output_skip":
             h = pyramid
         else:
-            h = self.act(modules[m_idx](h))
+            h = self.act(modules[m_idx](h, L.time_mask_to_gn(masks[0])))
             m_idx += 1
             h = modules[m_idx](h)
             m_idx += 1

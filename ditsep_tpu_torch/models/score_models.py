@@ -14,7 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ditsep_tpu_torch.models.ncsnpp import NCSNpp
-from ditsep_tpu_torch.ops.stft import istft, stft
+from ditsep_tpu_torch.ops.stft import istft, n_frames_prepadded, stft
 
 Tensor = torch.Tensor
 
@@ -65,7 +65,14 @@ def _spec_transform_backward(spec: Tensor, transform: str, exponent: float,
 class ScoreModelNCSNpp(nn.Module):
     """forward(xt, time_cond, mix): concat channels -> pad n_fft-hop ->
     STFT -> magnitude compression -> re/im channels -> pad frames %64 ->
-    NCSN++ -> inverse of each step -> iSTFT."""
+    NCSN++ -> inverse of each step -> iSTFT.
+
+    ``mask_padding`` (masked scoring, an extension beyond the reference):
+    the frames past each item's own STFT coverage -- the %64 frame pad,
+    and with ``lengths`` each item's padded tail -- are masked out of
+    every GroupNorm statistic and attention row, so that padding does not
+    change the scores on the valid region. Off, the reference
+    semantics."""
 
     def __init__(
         self,
@@ -88,8 +95,7 @@ class ScoreModelNCSNpp(nn.Module):
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        if mask_padding:
-            raise NotImplementedError("mask_padding is not ported yet")
+        self.mask_padding = mask_padding
         self.n_fft = n_fft
         self.hop_length = hop_length
         self.transform = transform
@@ -129,11 +135,27 @@ class ScoreModelNCSNpp(nn.Module):
             spec, self.transform, self.spec_abs_exponent, self.spec_factor)
         return istft(spec, self.n_fft, self.hop_length, length=n_samples)
 
+    def time_mask(self, h: Tensor, n_pad: int,
+                  lengths: Optional[Tensor] = None) -> Tensor:
+        """(B, frames) validity of the spectrogram ``h``'s frames: all but
+        the %64 frame pad, or with ``lengths`` (B,) the frames that each
+        item's valid samples cover."""
+        n_frames = h.shape[-1]
+        t_idx = torch.arange(n_frames, device=h.device)
+        if lengths is None:
+            return (t_idx < n_frames - n_pad).expand(h.shape[0], n_frames)
+        valid = n_frames_prepadded(lengths.to(h.device), self.n_fft,
+                                   self.hop_length)
+        return t_idx[None, :] < valid[:, None]
+
     def forward(self, xt: Tensor, time_cond: Tensor, mix: Tensor, *,
                 lengths: Optional[Tensor] = None) -> Tensor:
-        """xt (B, n_src, T), time_cond (B,), mix (B, 1, T) -> (B, n_src, T)."""
-        if lengths is not None:
-            raise NotImplementedError("per-item lengths are not ported yet")
+        """xt (B, n_src, T), time_cond (B,), mix (B, 1, T) -> (B, n_src, T).
+
+        ``lengths`` (B,) integer: each item's valid sample count, read
+        only with ``mask_padding``."""
         h, n_samples, n_pad = self.pre_process(torch.cat([xt, mix], dim=1))
-        h = self.backbone(h, time_cond)
+        time_mask = (self.time_mask(h, n_pad, lengths) if self.mask_padding
+                     else None)
+        h = self.backbone(h, time_cond, time_mask=time_mask)
         return self.post_process(h, n_samples, n_pad)

@@ -234,9 +234,15 @@ class DiffSepTrainer:
                 f"{type(self.sde).__name__} is not ported yet (MixSDE only)")
 
     def model_fwd(self, xt: Tensor, time: Tensor, mix: Tensor,
-                  model: Optional[nn.Module] = None) -> Tensor:
-        """The score network (the non-EDM branch)."""
-        return (self.model if model is None else model)(xt, time, mix)
+                  model: Optional[nn.Module] = None, *,
+                  lengths: Optional[Tensor] = None) -> Tensor:
+        """The score network (the non-EDM branch). ``lengths`` (B,), each
+        item's valid sample count, goes to a masked score model; None
+        keeps the exact reference call."""
+        model = self.model if model is None else model
+        if lengths is None:
+            return model(xt, time, mix)
+        return model(xt, time, mix, lengths=lengths)
 
     def _anchor(self, mix: Tensor, shape: Sequence[int]) -> Tensor:
         """The t=T attractor of the init hacks: mix / n for Mix SDEs."""
@@ -478,16 +484,21 @@ class DiffSepTrainer:
                  noise: Optional[Sequence] = None,
                  model: Optional[nn.Module] = None) -> Tuple[Tensor, int]:
         """Normalize -> PC sampling (reverse_diffusion + ald2) ->
-        denormalize. ``mix`` is (B, 1, T) on the model's device. Returns
-        (estimates (B, n_speakers, T), nfe)."""
+        denormalize. ``mix`` is (B, 1, T) on the model's device. With
+        ``lengths`` (B,), each item's valid sample count, the
+        normalization takes each item's valid samples only and every
+        score call gets the lengths (masked scoring). Returns (estimates
+        (B, n_speakers, T), nfe)."""
         if sampler != "pc":
-            raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
-        if lengths is not None:
-            raise NotImplementedError("per-item lengths are not ported yet")
+            raise NotImplementedError(
+                f"sampler {sampler!r} is not ported yet (ROADMAP A9)")
         cfg = self.cfg
-        (mix, _), mean, std = sep_utils.normalize_batch((mix, None))
+        (mix, _), mean, std = sep_utils.normalize_batch((mix, None),
+                                                        lengths=lengths)
         est, nfe = pc_sample(
-            self.sde, lambda x, t, y: self.model_fwd(x, t, y, model), mix,
+            self.sde,
+            lambda x, t, y: self.model_fwd(x, t, y, model, lengths=lengths),
+            mix,
             predictor="reverse_diffusion", corrector="ald2",
             N=cfg.sampler_N if N is None else N,
             snr=cfg.sampler_snr if snr is None else snr,
@@ -496,6 +507,30 @@ class DiffSepTrainer:
             denoise=True, eps=cfg.t_eps, n_spkrs=cfg.n_speakers,
             generator=generator, noise=noise)
         return sep_utils.denormalize_batch(est, mean, std), nfe
+
+    def separate_minibatched(self, mix: Tensor, *, max_batch: int = 4,
+                             lengths: Optional[Tensor] = None,
+                             **kwargs) -> Tuple[Tensor, int]:
+        """``separate`` in chunks of ``max_batch`` items, bounding memory
+        (ditsep_tpu/training/diffsep.py:474-494): the last chunk is filled
+        up by repeating its last item (and its length) and trimmed, so
+        every call has one shape. ``kwargs`` go to every call, the
+        generator drawn from in turn."""
+        nfe, outs = 0, []
+        for start in range(0, mix.shape[0], max_batch):
+            chunk = mix[start:start + max_batch]
+            lens = None if lengths is None else lengths[start:start
+                                                        + max_batch]
+            n_real = chunk.shape[0]
+            if n_real < max_batch:
+                reps = max_batch - n_real
+                chunk = torch.cat([chunk, chunk[-1:].expand(
+                    (reps,) + tuple(chunk.shape[1:]))])
+                if lens is not None:
+                    lens = torch.cat([lens, lens[-1:].expand(reps)])
+            est, nfe = self.separate(chunk, lengths=lens, **kwargs)
+            outs.append(est[:n_real])
+        return torch.cat(outs), nfe
 
     def val_separation_metrics(self, model, batch, *,
                                generator=None) -> Dict[str, Tensor]:

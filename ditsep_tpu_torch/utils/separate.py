@@ -64,17 +64,32 @@ def normalize_batch(
     """Normalize by the mixture's mean and std over (C, T), per item.
 
     std is the unbiased (ddof=1) estimator, clipped below at 1e-5
-    (ditsep_tpu/utils/separate.py:71-78). Per-item ``lengths`` (masked
-    statistics) are not ported yet and raise."""
-    if lengths is not None:
-        raise NotImplementedError(
-            "normalize_batch(lengths=...) is not ported yet")
+    (ditsep_tpu/utils/separate.py:71-78). Per-item ``lengths`` (B,) take
+    the statistics over each item's valid samples only (denominators
+    max(n, 1) and max(n - 1, 1)) and zero the padded tail of the mixture
+    and the target after normalizing, so that a padded batch equals the
+    native-length one on the valid region (:79-92)."""
     mix, tgt = batch
-    mean = mix.mean(dim=(1, 2), keepdim=True)
-    std = mix.std(dim=(1, 2), keepdim=True, correction=1).clamp(min=1e-5)
-    mix = (mix - mean) / std
+    if lengths is None:
+        mean = mix.mean(dim=(1, 2), keepdim=True)
+        std = mix.std(dim=(1, 2), keepdim=True, correction=1).clamp(
+            min=1e-5)
+        mix = (mix - mean) / std
+        if tgt is not None:
+            tgt = (tgt - mean) / std
+        return (mix, tgt), mean, std
+    lengths = lengths.to(mix.device)[:, None, None]
+    valid = torch.arange(mix.shape[-1], device=mix.device) < lengths
+    n = (lengths * mix.shape[1]).to(mix.dtype)
+    zero = torch.zeros((), dtype=mix.dtype, device=mix.device)
+    mean = torch.where(valid, mix, zero).sum(
+        dim=(1, 2), keepdim=True) / n.clamp(min=1.0)
+    var = torch.where(valid, (mix - mean) ** 2, zero).sum(
+        dim=(1, 2), keepdim=True) / (n - 1.0).clamp(min=1.0)
+    std = var.sqrt().clamp(min=1e-5)
+    mix = torch.where(valid, (mix - mean) / std, zero)
     if tgt is not None:
-        tgt = (tgt - mean) / std
+        tgt = torch.where(valid, (tgt - mean) / std, zero)
     return (mix, tgt), mean, std
 
 

@@ -613,3 +613,85 @@ def test_flagship_width_train_step_is_finite(cuda_device):
     assert math.isfinite(m["train/grad_norm"].item())
     assert all(bool(torch.isfinite(p).all())
                for p in state.model.parameters())
+
+
+class _full_f32:
+    """cuDNN convs and matmuls in full float32 inside the block."""
+
+    def __enter__(self):
+        self.prev = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = self.prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("valid", [(7, 10), (1, 10), (10, 10)])
+def test_masked_group_norm_on_card(cuda_device, valid):
+    """The masked GroupNorm (statistics over the valid frames) on the card
+    against the CPU, 1e-5 abs."""
+    from ditsep_tpu_torch.models import layers
+    g = torch.Generator().manual_seed(sum(valid))
+    x = 3.0 * torch.randn(2, 64, 6, 10, generator=g) + 1.5
+    mask = layers.time_mask_to_gn(
+        torch.arange(10)[None, :] < torch.tensor(valid)[:, None])
+    gn = layers.group_norm(64)
+    with torch.no_grad():
+        gn.weight.copy_(torch.randn(64, generator=g))
+        gn.bias.copy_(torch.randn(64, generator=g))
+        want = gn(x, mask)
+        got = gn.to(cuda_device)(x.to(cuda_device), mask.to(cuda_device))
+    assert (got.cpu() - want).abs().max() <= 1e-5
+
+
+def _masked_ckpt_trainer(device):
+    import os
+    from ditsep_tpu_torch.configs import (build_diffsep_trainer, diffsep,
+                                          override)
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "examples", "checkpoints", "masked_synthetic_ema.npz")
+    cfg = override(diffsep(), {
+        "model.score_model.nf": 32, "model.score_model.ch_mult": (1, 1, 2, 2),
+        "model.score_model.attn_resolutions": (32,),
+        "model.score_model.mask_padding": True})
+    return build_diffsep_trainer(cfg, device=device, params_npz=ckpt)
+
+
+@pytest.mark.cuda
+def test_masked_score_model_on_card(cuda_device):
+    """The mask-trained checkpoint run masked, with per-item lengths, on
+    the card (TF32 off) against the CPU: 1e-4 * max|ref|."""
+    g = torch.Generator().manual_seed(3)
+    xt, mix = torch.randn(2, 2, 6000, generator=g), torch.randn(
+        2, 1, 6000, generator=g)
+    t, lens = torch.tensor([0.4, 0.9]), torch.tensor([6000, 3500])
+    with torch.no_grad():
+        want = _masked_ckpt_trainer("cpu").model(xt, t, mix, lengths=lens)
+        model = _masked_ckpt_trainer(cuda_device).model
+        with _full_f32():
+            got = model(xt.to(cuda_device), t.to(cuda_device),
+                        mix.to(cuda_device),
+                        lengths=lens.to(cuda_device)).cpu()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_masked_separate_launches_follow_the_plan(cuda_device):
+    """A masked separate with lengths launches fir_down2d 9 times a score
+    call (nf=32, 4 levels: 3 down blocks x 2 + 3 pyramid levels), 2N
+    calls."""
+    trainer = _masked_ckpt_trainer(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    mix = 0.1 * torch.randn(3, 1, 7000, generator=gen, device=cuda_device)
+    before = cuda_kernels.fir_down2d.launches
+    est, nfe = trainer.separate(mix, N=3, generator=gen,
+                                lengths=torch.tensor([7000, 5000, 100],
+                                                     device=cuda_device))
+    torch.cuda.synchronize()
+    assert nfe == 6 and est.shape == (3, 2, 7000)
+    assert cuda_kernels.fir_down2d.launches - before == 9 * nfe
+    assert bool(torch.isfinite(est).all())

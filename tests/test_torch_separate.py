@@ -197,21 +197,28 @@ def test_cli_separate_on_cpu(tmp_path):
             assert np.isfinite(data).all()
 
 
-@pytest.mark.parametrize("what", ["mask_padding", "lengths", "ab2", "sde"])
-def test_unported_options_raise(what):
+@pytest.mark.parametrize("what", ["latent", "mesh", "ab2", "sde",
+                                  "save_figures"])
+def test_unported_options_raise(what, tmp_path):
+    """What is not ported yet raises: the latent path (A11), a mesh (A14),
+    the ab2 sampler (A9), other SDEs (A9) and figures (A16)."""
+    from ditsep_tpu_torch.cli import evaluate as eval_cli
+    from ditsep_tpu_torch.cli import train_diffsep
     cfg = override(diffsep(), TINY)
-    if what == "mask_padding":
-        cfg["model"]["score_model"]["mask_padding"] = True
     if what == "sde":
         cfg["model"]["sde"] = {"kind": "ouve", "theta": 1.5,
                                "sigma_min": 0.05, "sigma_max": 0.5, "N": 30}
     with pytest.raises(NotImplementedError):
+        if what == "latent":
+            eval_cli.main(["--latent", "--cpu", "--synthetic"])
+        if what == "mesh":
+            train_diffsep.main(["--mesh", "--cpu", "--synthetic",
+                                "--workdir", str(tmp_path)])
+        if what == "save_figures":
+            eval_cli.main(["--save-figures", "1", "--cpu", "--synthetic"])
         trainer = build_diffsep_trainer(cfg, device="cpu")
-        mix = torch.zeros(1, 1, 800)
-        if what == "lengths":
-            trainer.separate(mix, N=1, lengths=torch.tensor([800]))
         if what == "ab2":
-            trainer.separate(mix, N=1, sampler="ab2")
+            trainer.separate(torch.zeros(1, 1, 800), N=1, sampler="ab2")
 
 
 def test_cuda_requested_without_cuda_raises(monkeypatch):
