@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, all at once) and runs six phases, each printing JSON
+nvcc per source, all at once) and runs fourteen phases, each printing JSON
 lines; any failure raises and the exit code is non-zero:
 
 1. device   -- card name and power limit (nvidia-smi), kernel build time;
@@ -44,7 +44,9 @@ lines; any failure raises and the exit code is non-zero:
                WAVs at N=30 (NFE 60), then ``DiffSepTrainer.separate`` on a
                batch in f32 and in bf16 with the same noise and weights
                (zero-init layers redrawn at unit scale), and a profile of
-               one f32 forward;
+               one f32 forward; the CLI's ``separate`` calls are timed
+               one by one, and one call of the CLI's trainer at N=2 is
+               profiled (the device's idle share of a batch-1 call);
 7. train    -- fir_up2d (fir_down2d's backward) against its plain version
                at the 12 down-block shapes of the train step, f32 and
                bf16, NCHW and channels_last, plus an odd shape and an
@@ -79,17 +81,40 @@ lines; any failure raises and the exit code is non-zero:
                flagship width on one 14 s file: its length and its windows'
                launches;
 12. upsample_2d -- ``ops.fir.upsample_2d`` on the card against the CPU at the
-               flagship's 6 up-path shapes, within 1e-5 (TF32 off).
+               flagship's 6 up-path shapes, within 1e-5 (TF32 off);
+13. families -- the other SDE families and samplers: on the card (TF32
+               off) against the CPU with the same explicit noise, nf=32
+               with 4 levels, seeded weights, 1 s, within 1e-3 relative:
+               diffsep_ouve (PC with ald), diffsep_sb (the bridge's 'ode'
+               and 'sde'), enhancement (PriorMix, PC with ald2, 16 kHz),
+               ab2 on diffsep and ``ode_sample`` rk4 on diffsep_ouve; then
+               each family at its config's full width through
+               ``cli.separate`` on 3 written WAVs: diffsep_ouve and
+               diffsep_sb (nf=64, 8.415 s at 8 kHz, NFE 60 / 30),
+               enhancement (nf=128, 3 s at 16 kHz, NFE 60) and
+               diffsep_icassp ``--sampler ab2`` (NFE 30): NFE, peak
+               memory, 18 x NFE x 3 launches, each ``separate`` call's
+               time (the steady state: the calls after the first) and a
+               profiled call at N=2, as the flagship's;
+14. families_train -- ``cli.train_diffsep`` on the card: diffsep_sb (the EDM
+               loss) at batch 6 x 40,960 samples and enhancement (PriorMix,
+               init hack 4) at batch 4 x 3 s crops of a VCTK-layout
+               directory of synthetic WAVs, 3 steps each: steps/s, peak
+               memory, launches; then two EDM train steps at nf=32 on the
+               card against the CPU with the same batches and draws, each
+               step's gradient leaf by leaf within 1e-3 of its max|ref|.
 
 Every launch count is set to 0 just before each path (the fused bias-act
 op, the conv probe, the separation CLI, the training CLI, each evaluate
-run, the long-form CLI) and read just after it. The script then prints
+run, the long-form CLI, each family's separation and training CLI) and
+read just after it. The script then prints
 the ``kernels`` JSON line (all six kernels), and as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -630,6 +655,75 @@ def profile_summary(prof, wall_ms: float) -> dict:
                     for k, ms, n in rows[:15]]}
 
 
+
+@contextlib.contextmanager
+def separate_calls():
+    """Within it each ``DiffSepTrainer.separate`` call is recorded: its
+    trainer, mix and keywords, its NFE, and its time on the host clock
+    between two synchronizations."""
+    import torch
+    from ditsep_tpu_torch.training.diffsep import DiffSepTrainer
+
+    calls = []
+    real = DiffSepTrainer.separate
+
+    def timed(self, mix, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est, nfe = real(self, mix, **kw)
+        torch.cuda.synchronize()
+        calls.append({"trainer": self, "mix": mix, "kw": kw, "nfe": nfe,
+                      "s": time.perf_counter() - t0})
+        return est, nfe
+
+    DiffSepTrainer.separate = timed
+    try:
+        yield calls
+    finally:
+        DiffSepTrainer.separate = real
+
+
+def separate_call_times(calls) -> dict:
+    """Per call ms of recorded ``separate`` calls; the steady state is the
+    calls after the first (which sets up cuDNN): ms a call, ms a score
+    evaluation (a call / its NFE) and items/s."""
+    ms = [1e3 * c["s"] for c in calls]
+    steady = ms[1:]
+    call_ms = sum(steady) / len(steady)
+    nfe, items = calls[-1]["nfe"], calls[-1]["mix"].shape[0]
+    return {"call_ms": ms, "steady_call_ms": call_ms,
+            "steady_ms_per_score_call": call_ms / nfe,
+            "steady_utt_per_s": items / (call_ms / 1e3)}
+
+
+def profile_separate_call(call, n: int = 2) -> dict:
+    """A recorded ``separate`` call replayed at N = n on its trainer and
+    mix: warmed, timed unprofiled on the host clock, then once under
+    torch.profiler. Device busy time, and the device's idle share of the
+    unprofiled call's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, mix, kw = call["trainer"], call["mix"], {**call["kw"], "N": n}
+    with torch.no_grad():
+        trainer.separate(mix, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, nfe = trainer.separate(mix, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.separate(mix, **kw)
+            torch.cuda.synchronize()
+    summary = profile_summary(prof, wall_ms)
+    check(summary["device_busy_ms"] > 0, "the profiler saw no device time")
+    return {"N": n, "nfe": nfe, "wall_ms": wall_ms,
+            "device_busy_ms": summary["device_busy_ms"],
+            "busy_ms_per_score_call": summary["device_busy_ms"] / nfe,
+            "idle_share": summary["idle_share"],
+            "top": summary["top"][:5]}
+
 def phase_flagship(ctx):
     import numpy as np
     import torch
@@ -657,13 +751,20 @@ def phase_flagship(ctx):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        nfe_cli = cli.main(["--config", "diffsep_icassp", "--input",
-                            str(inp), "--output", str(outp), "--sampler-N",
-                            str(N_STEPS), "--seed", "0"])
+        with separate_calls() as calls:
+            nfe_cli = cli.main(["--config", "diffsep_icassp", "--input",
+                                str(inp), "--output", str(outp),
+                                "--sampler-N", str(N_STEPS), "--seed", "0"])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
+        ctx["flagship_cli_utt_per_s"] = N_FILES / cli_s
         ctx["main_path_launches"] = ck.fir_down2d.launches
         ctx["cli_launches"] = counts()
+        check(len(calls) == N_FILES, f"CLI separate calls {len(calls)}")
+        cli_calls = separate_call_times(calls)
+        cli_calls["profiled_call"] = profile_separate_call(calls[-1])
+        ctx["flagship_cli_calls"] = cli_calls
+        del calls
         check(nfe_cli == 2 * N_STEPS, f"CLI NFE {nfe_cli}")
         check(ctx["main_path_launches"]
               == LAUNCHES_PER_FORWARD * nfe_cli * N_FILES,
@@ -719,7 +820,8 @@ def phase_flagship(ctx):
           "cli": {"files": N_FILES, "seconds": cli_s,
                   "utt_per_s": N_FILES / cli_s, "nfe_per_file": nfe_cli,
                   "launches": ctx["main_path_launches"],
-                  "launches_by_kernel": ctx["cli_launches"]},
+                  "launches_by_kernel": ctx["cli_launches"],
+                  "separate_calls": ctx["flagship_cli_calls"]},
           "batch": BATCH, "tf32_conv": True, **results,
           "bf16_vs_f32_si_sdr_db": {"mean": float(agree.mean()),
                                     "min": float(agree.min())},
@@ -822,77 +924,120 @@ def synthetic_batch(n: int, len_s: float, seed: int = 0):
                                     multiple=4096, shuffle=False)))
 
 
-def phase_train_parity(ctx):
-    """Two train steps of the trained nf=32 checkpoint on the CPU and on
-    the card (TF32 off), the same batches and draws: loss, grad norm,
-    parameters and EMA at the bars of tests/test_torch_train_step.py."""
-    import numpy as np
+def train_steps_card_vs_cpu(cfg, batches, draws) -> dict:
+    """Train steps of ``cfg`` from the trained nf=32 checkpoint's weights on
+    the CPU and on the card (TF32 off), over the same batches and draws.
+    Per device: the initial parameters and, per step, the loss, the grad
+    norm, the step's gradient, and the parameters and EMA after it."""
     import torch
     from ditsep_tpu_torch.configs import build_diffsep_trainer
     from ditsep_tpu_torch.utils.separate import normalize_batch
 
-    rng = np.random.default_rng(11)
-    b, n_steps = 2, 2
-    batches, draws = [], []
-    for step in range(n_steps):
-        mix, tgt = synthetic_batch(b, 1.0, seed=20 + step)
-        t = mix.shape[-1]
-        batches.append((mix, tgt))
-        f32 = lambda a: np.asarray(a, np.float32)
-        draws.append({"mask_u": f32([0.05, 0.5]),  # one item per branch
-                      "pit_z": f32(rng.standard_normal((b, 2, t))),
-                      "shuffle_u": f32(rng.random((b, 2))),
-                      "time_u": f32(rng.random(b)),
-                      "z": f32(rng.standard_normal((b, 2, t)))})
     hist = {}
     with full_f32():
         for device in ("cpu", "cuda"):
-            trainer = build_diffsep_trainer(parity_config(), device=device,
+            trainer = build_diffsep_trainer(cfg, device=device,
                                             params_npz=str(CKPT))
             state = trainer.init_state()
             names = [k for k, _ in trainer.model.named_parameters()]
             params = [p for _, p in trainer.model.named_parameters()]
-            out = []
+            snap = lambda sd: {k: v.detach().cpu().numpy().copy()  # noqa
+                               for k, v in sd.items()}
+            out = {"params0": snap(state.model.state_dict()), "steps": []}
             for (mix, tgt), d in zip(batches, draws):
                 batch = (torch.from_numpy(mix).to(device),
                          torch.from_numpy(tgt).to(device))
-                grads = None
-                if device == "cpu":  # the reference's gradient, for the bars
-                    (m, tg), _, _ = normalize_batch(batch)
-                    loss = trainer.training_loss(trainer.model, m, tg,
-                                                 draws=d)
-                    grads = {k: v.numpy() for k, v in zip(
-                        names, torch.autograd.grad(loss, params))}
+                (m, tg), _, _ = normalize_batch(batch)
+                loss = trainer.training_loss(trainer.model, m, tg, draws=d)
+                grads = {k: v.cpu().numpy() for k, v in zip(
+                    names, torch.autograd.grad(loss, params))}
                 state, met = trainer.train_step(state, batch, draws=d)
-                out.append({
+                out["steps"].append({
                     "loss": met["train/score_loss"].item(),
                     "grad_norm": met["train/grad_norm"].item(),
                     "grads": grads,
-                    "params": {k: v.detach().cpu().numpy().copy() for k, v
-                               in state.model.state_dict().items()},
-                    "ema": {k: v.detach().cpu().numpy().copy() for k, v
-                            in state.ema.state_dict().items()}})
+                    "params": snap(state.model.state_dict()),
+                    "ema": snap(state.ema.state_dict())})
             hist[device] = out
-            lr, decay = trainer.cfg.lr, trainer.cfg.ema_decay
+            hist["cfg"] = trainer.cfg
             del trainer, state, params
-    worst = {"loss_rel": 0.0, "grad_norm_rel": 0.0, "param_over_bar": 0.0,
-             "ema_over_bar": 0.0}
-    for n, (ref, got) in enumerate(zip(hist["cpu"], hist["cuda"]),
-                                    start=1):
+    return hist
+
+
+def adam_f64(p0: dict, grads: list, lr: float, clip: float) -> dict:
+    """optax's clip_by_global_norm + adam in float64 over a gradient
+    history: the parameters after its last step."""
+    import numpy as np
+    p = {k: v.astype(np.float64) for k, v in p0.items() if k in grads[0]}
+    m = {k: 0.0 for k in p}
+    v = {k: 0.0 for k in p}
+    for n, g in enumerate(grads, start=1):
+        norm = np.sqrt(sum((a.astype(np.float64) ** 2).sum()
+                           for a in g.values()))
+        scale = 1.0 if norm < clip else clip / norm
+        for k in p:
+            gk = g[k].astype(np.float64) * scale
+            m[k] = 0.9 * m[k] + 0.1 * gk
+            v[k] = 0.999 * v[k] + 0.001 * gk ** 2
+            p[k] = p[k] - lr * (m[k] / (1 - 0.9 ** n)) / (
+                np.sqrt(v[k] / (1 - 0.999 ** n)) + 1e-8)
+    return p
+
+
+def train_parity_worst(hist, explain: bool) -> dict:
+    """The card's steps against the CPU's at the bars of
+    tests/test_torch_train_step.py: loss and grad norm 1e-4 relative, and
+    each step's gradient leaf by leaf within 1e-3 of the CPU leaf's max
+    (the attention's key bias, whose gradient is 0, within 1e-6 of the
+    largest leaf's max), as tests/test_torch_cuda.py holds one step's
+    (checked here); after step n the parameters within n * 1e-3 * lr where
+    the CPU gradient is significant, n * 2 * lr elsewhere, the EMA the same
+    times (1 - decay) plus 2 ulps. With ``explain`` each parameter bar
+    also takes twice the part of the difference that the two devices'
+    gradients explain (float64 clip + Adam on each device's gradient
+    history), as tests/test_torch_train_step_families.py does: Adam
+    magnifies a gradient's round-off where its first moment nearly
+    cancels. Returns the worst ratios (over_bar <= 1 passes)."""
+    import numpy as np
+    cfg = hist["cfg"]
+    lr, decay = cfg.lr, cfg.ema_decay
+    cpu, card = hist["cpu"]["steps"], hist["cuda"]["steps"]
+    worst = {"loss_rel": 0.0, "grad_norm_rel": 0.0, "grad_over_bar": 0.0,
+             "param_over_bar": 0.0, "ema_over_bar": 0.0}
+    for n, (ref, got) in enumerate(zip(cpu, card), start=1):
         for key in ("loss", "grad_norm"):
             rel = abs(got[key] - ref[key]) / abs(ref[key])
             worst[f"{key}_rel"] = max(worst[f"{key}_rel"], rel)
             check(rel <= 1e-4, f"train step {n} {key}: card {got[key]} CPU "
                                f"{ref[key]}")
+        top = max(np.abs(v).max() for v in ref["grads"].values())
+        for k, want in ref["grads"].items():
+            diff = np.abs(got["grads"][k] - want).max()
+            if k.endswith("NIN_1.b"):  # the attention's key bias: 0
+                ratio = max(np.abs(want).max(), np.abs(got["grads"][k]).max()
+                            ) / (1e-6 * top)
+            else:
+                ratio = diff / (1e-3 * np.abs(want).max())
+            worst["grad_over_bar"] = max(worst["grad_over_bar"], ratio)
+            check(ratio <= 1, f"train step {n} gradient of {k}: {ratio} of "
+                              f"the bar")
+        explained = {}
+        if explain:
+            a = adam_f64(hist["cpu"]["params0"],
+                         [h["grads"] for h in cpu[:n]], lr, cfg.grad_clip)
+            b = adam_f64(hist["cpu"]["params0"],
+                         [h["grads"] for h in card[:n]], lr, cfg.grad_clip)
+            explained = {k: 2 * np.abs(a[k] - b[k]) for k in a}
         for k, want in ref["params"].items():
             bar = np.full(want.shape, 1e-9)  # buffers do not move
             if k in ref["grads"]:
                 sig = np.ones(want.shape, bool)
-                for h in hist["cpu"][:n]:
+                for h in cpu[:n]:
                     a = np.abs(h["grads"][k])
                     top = max(np.abs(v).max() for v in h["grads"].values())
                     sig &= (a >= 1e-3 * a.max()) & (a.max() >= 1e-6 * top)
                 bar = np.where(sig, n * 1e-3 * lr, n * 2 * lr)
+                bar = bar + explained.get(k, 0.0)
             ratio = (np.abs(got["params"][k] - want) / bar).max()
             worst["param_over_bar"] = max(worst["param_over_bar"], ratio)
             e_want = ref["ema"][k]
@@ -900,19 +1045,51 @@ def phase_train_parity(ctx):
             e_ratio = (np.abs(got["ema"][k] - e_want)
                        / (bar * (1 - decay) + slack)).max()
             worst["ema_over_bar"] = max(worst["ema_over_bar"], e_ratio)
+    return worst
+
+
+def train_parity_draws(b: int, n_steps: int, seed: int):
+    """Synthetic 1 s batches and the draws of init hack 5, one item on
+    each branch of its mixture."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    batches, draws = [], []
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    for step in range(n_steps):
+        mix, tgt = synthetic_batch(b, 1.0, seed=20 + step)
+        t = mix.shape[-1]
+        batches.append((mix, tgt))
+        draws.append({"mask_u": f32([0.05, 0.5]),
+                      "pit_z": f32(rng.standard_normal((b, 2, t))),
+                      "shuffle_u": f32(rng.random((b, 2))),
+                      "time_u": f32(rng.random(b)),
+                      "z": f32(rng.standard_normal((b, 2, t)))})
+    return batches, draws
+
+
+TRAIN_PARITY_TOLERANCE = (
+    "loss and grad norm 1e-4 relative; each step's gradient per leaf 1e-3 "
+    "of its max|CPU| (grad_over_bar); after step n, parameters "
+    "n*1e-3*lr where the CPU gradient is significant, n*2*lr elsewhere; "
+    "EMA the same times (1 - decay) plus 2 ulps (over_bar <= 1 passes)")
+
+
+def phase_train_parity(ctx):
+    """Two train steps of the trained nf=32 checkpoint on the CPU and on
+    the card (TF32 off), the same batches and draws: loss, grad norm,
+    parameters and EMA at the bars of tests/test_torch_train_step.py."""
+    batches, draws = train_parity_draws(2, 2, seed=11)
+    hist = train_steps_card_vs_cpu(parity_config(), batches, draws)
+    worst = train_parity_worst(hist, explain=False)
     check(worst["param_over_bar"] <= 1 and worst["ema_over_bar"] <= 1,
           f"card vs CPU train steps: {worst}")
     emit({"phase": "train_parity", "checkpoint": str(CKPT.relative_to(REPO)),
-          "config": "nf=32 ch_mult=(1,1,2,2) attn=(32,)", "batch": b,
-          "samples": int(batches[0][0].shape[-1]), "steps": n_steps,
+          "config": "nf=32 ch_mult=(1,1,2,2) attn=(32,)", "batch": 2,
+          "samples": int(batches[0][0].shape[-1]), "steps": len(batches),
           "tf32": False, **{k: float(v) for k, v in worst.items()},
-          "losses_card": [h["loss"] for h in hist["cuda"]],
-          "losses_cpu": [h["loss"] for h in hist["cpu"]],
-          "tolerance": "loss and grad norm 1e-4 relative; after step n, "
-                       "parameters n*1e-3*lr where the CPU gradient is "
-                       "significant, n*2*lr elsewhere; EMA the same times "
-                       "(1 - decay) plus 2 ulps (over_bar <= 1 passes)",
-          "card": ctx["card"]})
+          "losses_card": [h["loss"] for h in hist["cuda"]["steps"]],
+          "losses_cpu": [h["loss"] for h in hist["cpu"]["steps"]],
+          "tolerance": TRAIN_PARITY_TOLERANCE, "card": ctx["card"]})
 
 
 def phase_train_path(ctx):
@@ -1247,6 +1424,338 @@ def phase_upsample(ctx):
           "rows": rows, "card": ctx["card"]})
 
 
+def family_trainer(family: str, device: str):
+    """``family``'s config at nf=32 with 4 levels and seeded weights, the
+    zero-init layers redrawn at unit scale, on ``device``."""
+    from ditsep_tpu_torch.configs import (
+        CONFIG_FAMILIES, build_diffsep_trainer, override,
+    )
+    cfg = override(CONFIG_FAMILIES[family](), {
+        "model.score_model.nf": 32,
+        "model.score_model.ch_mult": (1, 1, 2, 2),
+        "model.score_model.attn_resolutions": (32,)})
+    trainer = build_diffsep_trainer(cfg, device="cpu", seed=0)
+    unit_scale_zero_init_layers(trainer.model, seed=0)
+    trainer.model.to(device)
+    return trainer
+
+
+def family_case(name: str, fs: int, n: int, rng):
+    """One card-vs-CPU case: (family, samples, a function of the trainer
+    and the mix that samples with explicit noise, made here, and returns
+    (x, nfe))."""
+    import dataclasses
+
+    import numpy as np
+    from ditsep_tpu_torch.sdes import ode_sample
+    shape = (1, 2, fs)
+    z = lambda *lead: rng.standard_normal(lead + shape).astype(  # noqa
+        np.float32)
+    if name in ("diffsep_ouve_pc", "enhancement_pc"):
+        noise = (z(), z(n, 1), z(n))
+        return lambda tr, mix: tr.separate(mix, N=n, noise=noise)
+    if name == "diffsep_ab2":
+        noise = (z(), None)
+        return lambda tr, mix: tr.separate(mix, N=n, sampler="ab2",
+                                           noise=noise)
+    if name.startswith("diffsep_sb_"):
+        kind = name.rsplit("_", 1)[1]
+        noise = z(n) if kind == "sde" else None
+
+        def sb(tr, mix):
+            tr = dataclasses.replace(tr, sde=dataclasses.replace(
+                tr.sde, sampler_type=kind))
+            return tr.separate(mix, N=n, noise=noise)
+        return sb
+    if name == "diffsep_ouve_ode_rk4":
+        prior = z()
+        return lambda tr, mix: ode_sample(tr.sde, tr.model_fwd, mix, N=n,
+                                          method="rk4", noise=prior)
+    raise ValueError(name)
+
+
+# card-vs-CPU cases of the families phase: (case, family, fs, N). The
+# bridge's 'ode' runs N = 1: past its first step it scales the convs'
+# float32 round-off by thousands (tests/test_torch_samplers.py), at the
+# first alone by 63
+FAMILY_CASES = (("diffsep_ouve_pc", "diffsep_ouve", 8000, 3),
+                ("diffsep_sb_ode", "diffsep_sb", 8000, 1),
+                ("diffsep_sb_sde", "diffsep_sb", 8000, 3),
+                ("enhancement_pc", "enhancement", 16000, 3),
+                ("diffsep_ab2", "diffsep", 8000, 3),
+                ("diffsep_ouve_ode_rk4", "diffsep_ouve", 8000, 2))
+# each family at its config's full width through cli.separate: (config,
+# --sampler, samples, fs, NFE); diffsep_sb takes its bridge sampler, and
+# no --sampler applies
+FAMILY_CLI_RUNS = (("diffsep_ouve", "pc", FLAGSHIP_SAMPLES, 8000, 60),
+                   ("diffsep_sb", None, FLAGSHIP_SAMPLES, 8000, 30),
+                   ("enhancement", "pc", 48000, 16000, 60),
+                   ("diffsep_icassp", "ab2", FLAGSHIP_SAMPLES, 8000, 30))
+FAMILY_FILES = 3  # the calls after the first give the steady state
+
+
+def phase_families(ctx):
+    """The other SDE families and samplers: each case on the card (TF32
+    off) against the CPU with the same explicit noise, 1 s of audio at
+    nf=32 with 4 levels, within 1e-3 relative at the output waveform;
+    then each family at its config's full width through cli.separate on
+    written WAVs, with its NFE, peak memory, launches, each separate
+    call's time, and one call profiled at N=2."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(21)
+    parity = {}
+    with full_f32():
+        for name, family, fs, n in FAMILY_CASES:
+            mix = (0.1 * rng.standard_normal((1, 1, fs))).astype(np.float32)
+            run = family_case(name, fs, n, rng)
+            out = {}
+            for device in ("cuda", "cpu"):
+                trainer = family_trainer(family, device)
+                torch.cuda.synchronize()
+                ck.fir_down2d.launches = 0
+                with torch.no_grad():
+                    est, nfe = run(trainer, torch.from_numpy(mix).to(device))
+                torch.cuda.synchronize()
+                out[device] = (est.float().cpu().numpy(), nfe,
+                               ck.fir_down2d.launches)
+            (gpu, nfe, launches), (cpu, nfe_cpu, launches_cpu) = (
+                out["cuda"], out["cpu"])
+            rel = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
+            want = CKPT_LAUNCHES_PER_FORWARD * nfe
+            check(gpu.shape == (1, 2, fs) and np.isfinite(gpu).all(),
+                  f"{name}: card output shape / finiteness")
+            check(nfe == nfe_cpu, f"{name}: NFE card {nfe} CPU {nfe_cpu}")
+            check(rel <= 1e-3, f"{name}: card vs CPU {rel} > 1e-3")
+            check(launches == want and launches_cpu == 0,
+                  f"{name}: launches card {launches} (want {want}), CPU "
+                  f"{launches_cpu}")
+            parity[name] = {"family": family, "fs": fs, "N": n, "nfe": nfe,
+                            "max_rel_err": rel, "launches_card": launches}
+    emit({"phase": "families_parity", "config": "nf=32 ch_mult=(1,1,2,2) "
+          "attn=(32,), seeded weights, zero-init layers at unit scale, 1 s",
+          "tf32": False, "tolerance": 1e-3, "cases": parity,
+          "card": ctx["card"]})
+
+    from ditsep_tpu_torch.cli import separate as cli
+    from ditsep_tpu_torch.data import SyntheticMixDataset, read_wav, write_wav
+    runs = {}
+    ctx["families_launches"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for config, sampler, samples, fs, nfe_want in FAMILY_CLI_RUNS:
+            inp, outp = Path(tmp, config, "in"), Path(tmp, config, "out")
+            inp.mkdir(parents=True)
+            ds = SyntheticMixDataset(n_items=FAMILY_FILES, fs=fs,
+                                     min_len_s=samples / fs,
+                                     max_len_s=samples / fs, seed=7)
+            for i in range(FAMILY_FILES):
+                write_wav(str(inp / f"mix{i}.wav"), ds[i][0][0], fs)
+            args = ["--config", config, "--input", str(inp), "--output",
+                    str(outp), "--sampler-N", str(N_STEPS), "--seed", "0"]
+            if sampler:
+                args += ["--sampler", sampler]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            with separate_calls() as calls:
+                nfe = cli.main(args)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches = counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            trainer = calls[-1]["trainer"]
+            # the sampler that ran: the bridge's for SBVE, else --sampler
+            key = (f"{config}_bridge_{trainer.sde.sampler_type}"
+                   if trainer.is_edm else f"{config}_{sampler}")
+            want = LAUNCHES_PER_FORWARD * nfe * FAMILY_FILES
+            check(nfe == nfe_want, f"{key}: NFE {nfe}")
+            check(len(calls) == FAMILY_FILES and all(
+                c["nfe"] == nfe for c in calls), f"{key}: separate calls")
+            check(launches["fir_down2d"] == want and all(
+                v == 0 for k, v in launches.items() if k != "fir_down2d"),
+                f"{key}: launches {launches}, want fir_down2d {want}")
+            for src in ("s0", "s1"):
+                for i in range(FAMILY_FILES):
+                    data, rate = read_wav(str(outp / src / f"mix{i}.wav"))
+                    check(rate == fs and data.shape == (samples,)
+                          and np.isfinite(data).all(),
+                          f"{config} output {src}/{i}")
+            ctx["families_launches"][f"separate_cli_{key}"] = (
+                launches["fir_down2d"])
+            times = separate_call_times(calls)
+            times["profiled_call"] = profile_separate_call(calls[-1])
+            flagship = ctx["flagship_cli_calls"]
+            runs[key] = {"samples": samples, "fs": fs, "files": FAMILY_FILES,
+                         "nfe_per_file": nfe, "cli_seconds": sec,
+                         "cli_utt_per_s": FAMILY_FILES / sec, **times,
+                         "steady_utt_per_s_vs_flagship": (
+                             times["steady_utt_per_s"]
+                             / flagship["steady_utt_per_s"]),
+                         "peak_gib": peak, "launches": launches["fir_down2d"],
+                         "launches_want": want}
+            del calls, trainer
+            torch.cuda.empty_cache()
+    emit({"phase": "families", "what": "cli.separate at each config's full "
+          "width (diffsep_ouve / diffsep_sb nf=64, enhancement and "
+          "diffsep_icassp nf=128; 7 levels; seeded random weights), one "
+          "file a separate call; each call timed on the host clock between "
+          "two synchronizations (steady: the calls after the first, which "
+          "sets up cuDNN), the whole CLI call too (model build included); "
+          "one call replayed at N=2 under torch.profiler (idle share of "
+          "the unprofiled replay); TF32 convs", "N": N_STEPS, "runs": runs,
+          "flagship_cli_utt_per_s": ctx["flagship_cli_utt_per_s"],
+          "flagship_separate_calls": ctx["flagship_cli_calls"],
+          "card": ctx["card"]})
+
+
+def write_vctk(root: Path, n_train: int, n_test: int, seconds: float):
+    """A VCTK-DEMAND layout of synthetic 16 kHz noisy / clean pairs:
+    clean the first source of a synthetic mixture, noisy the mixture."""
+    from ditsep_tpu_torch.data import SyntheticMixDataset, write_wav
+    for part, n, seed in (("train", n_train, 30), ("test", n_test, 31)):
+        for kind in ("noisy", "clean"):
+            (root / f"{kind}_{part}set_wav").mkdir(parents=True)
+        ds = SyntheticMixDataset(n_items=n, fs=16000, min_len_s=seconds,
+                                 max_len_s=seconds + 0.5, seed=seed)
+        for i in range(n):
+            mix, tgt = ds[i]
+            write_wav(str(root / f"noisy_{part}set_wav" / f"p{i:03d}.wav"),
+                      mix[0], 16000)
+            write_wav(str(root / f"clean_{part}set_wav" / f"p{i:03d}.wav"),
+                      tgt[0], 16000)
+
+
+# the families' training runs: diffsep_sb at the flagship train batch
+# (12 synthetic items of 5 s, batch 6: two epochs), enhancement on a
+# VCTK-layout directory of 13 synthetic pairs (12 train, 1 held out for
+# validation), batch 4 x 3 s crops at 16 kHz: one epoch
+FAMILY_TRAIN_STEPS = 3
+ENH_TRAIN_FILES, ENH_BATCH = 13, 4
+
+
+def phase_families_train(ctx):
+    """Two training runs through cli.train_diffsep on the card: diffsep_sb
+    (the EDM loss, init hack 5 with p = 0) and enhancement (PriorMix,
+    init hack 4, its VCTK-DEMAND loader); steps/s, peak memory and
+    launches. Then two EDM train steps at nf=32 on the card against the
+    CPU with the same batches and draws."""
+    import gc
+
+    import torch
+    from ditsep_tpu_torch.cli import train_diffsep
+    from ditsep_tpu_torch.configs import diffsep_sb, override
+    from ditsep_tpu_torch.data import NoisyDataset
+    from ditsep_tpu_torch.training.diffsep import DiffSepTrainer
+
+    spans = []
+    real_step = DiffSepTrainer.train_step
+
+    def timed_step(self, state, batch, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = real_step(self, state, batch, **kw)
+        met["train/score_loss"].item()  # syncs
+        spans.append(time.perf_counter() - t0)
+        return state, met
+
+    runs = {}
+    ctx["families_train_launches"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        vctk = Path(tmp, "vctk")
+        write_vctk(vctk, ENH_TRAIN_FILES, 1, 3.5)
+        n_val = len(NoisyDataset(str(vctk), "val", len_s=None))
+        # per run: its arguments, the forwards of a train step, and the
+        # forwards of its validations: each validation batch runs the
+        # score loss, the first valid_max_sep_batches (2 and 1) of them a
+        # separation too (SB-30: 30 evaluations, PC-30: 60)
+        val_batches = -(-n_val // ENH_BATCH)
+        for config, args, forwards, val in (
+                ("diffsep_sb", ["--synthetic", "--synthetic-items",
+                                str(TRAIN_ITEMS), "--synthetic-len-s",
+                                str(TRAIN_LEN_S), "--batch-size",
+                                str(TRAIN_BATCH)],
+                 2, -(-FAMILY_TRAIN_STEPS // (TRAIN_ITEMS // TRAIN_BATCH))
+                 * (2 + N_STEPS)),
+                ("enhancement", ["--data-path", str(vctk), "--batch-size",
+                                 str(ENH_BATCH)],
+                 1, val_batches + min(val_batches, 1) * 2 * N_STEPS)):
+            spans.clear()
+            DiffSepTrainer.train_step = timed_step
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t0 = time.perf_counter()
+                state = train_diffsep.main(
+                    ["--config", config, *args, "--max-steps",
+                     str(FAMILY_TRAIN_STEPS), "--workdir",
+                     str(Path(tmp, config))])
+                torch.cuda.synchronize()
+                total_s = time.perf_counter() - t0
+                launches = counts()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            finally:
+                DiffSepTrainer.train_step = real_step
+            check(state.step == FAMILY_TRAIN_STEPS == len(spans),
+                  f"{config}: steps {state.step}, timed {len(spans)}")
+            want = {"fir_down2d": LAUNCHES_PER_FORWARD * (
+                        FAMILY_TRAIN_STEPS * forwards + val),
+                    "fir_up2d": FAMILY_TRAIN_STEPS * forwards
+                    * UP_LAUNCHES_PER_BACKWARD}
+            want.update({k: 0 for k in launches if k not in want})
+            check(launches == want, f"{config} train launches {launches}, "
+                                    f"want {want}")
+            vals = [json.loads(ln) for ln in open(Path(tmp, config,
+                                                       "metrics.jsonl"))
+                    if "val/si_sdr" in ln]
+            check(vals and all(math.isfinite(v["val/si_sdr"])
+                               and math.isfinite(v["val/score_loss"])
+                               for v in vals), f"{config} validations {vals}")
+            timed = spans[1:]  # the first step warms cuDNN
+            runs[config] = {"steps": FAMILY_TRAIN_STEPS,
+                            "step_s": list(spans),
+                            "steps_per_s_2_3": len(timed) / sum(timed),
+                            "total_s": total_s, "peak_gib": peak,
+                            "validations": vals, "launches": launches}
+            ctx["families_train_launches"][config] = launches
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit({"phase": "families_train", "what": "cli.train_diffsep, seeded "
+          "random weights: diffsep_sb nf=64 at batch 6 x 40,960 samples "
+          "(12 synthetic items of 5 s), enhancement nf=128 at batch 4 x "
+          "48,000 samples (3 s crops at 16 kHz of a VCTK-layout directory "
+          "of synthetic pairs); host clock around each train_step, "
+          "synchronized; TF32 convs", "runs": runs, "card": ctx["card"]})
+
+    # two EDM train steps of the checkpoint's weights, card vs CPU
+    cfg = override(diffsep_sb(), {
+        "model.score_model.nf": 32,
+        "model.score_model.ch_mult": (1, 1, 2, 2),
+        "model.score_model.attn_resolutions": (32,)})
+    batches, draws = train_parity_draws(2, 2, seed=12)
+    hist = train_steps_card_vs_cpu(cfg, batches, draws)
+    plain = train_parity_worst(hist, explain=False)
+    worst = train_parity_worst(hist, explain=True)
+    check(worst["param_over_bar"] <= 1 and worst["ema_over_bar"] <= 1,
+          f"card vs CPU EDM train steps: {worst}")
+    emit({"phase": "families_train_parity", "config": "diffsep_sb (EDM, "
+          "init hack 5 with p 0) at nf=32 ch_mult=(1,1,2,2) attn=(32,), "
+          "the checkpoint's weights", "batch": 2,
+          "samples": int(batches[0][0].shape[-1]), "steps": len(batches),
+          "tf32": False, **{k: float(v) for k, v in worst.items()},
+          "plain_bar": {k: float(v) for k, v in plain.items()},
+          "losses_card": [h["loss"] for h in hist["cuda"]["steps"]],
+          "losses_cpu": [h["loss"] for h in hist["cpu"]["steps"]],
+          "tolerance": TRAIN_PARITY_TOLERANCE + "; plus twice the part "
+          "of the difference the devices' gradients explain through "
+          "float64 clip + Adam (plain_bar: without it)",
+          "card": ctx["card"]})
+
+
 def main() -> int:
     try:
         import torch
@@ -1287,6 +1796,8 @@ def main() -> int:
     phase_evaluate(ctx)
     phase_longform(ctx)
     phase_upsample(ctx)
+    phase_families(ctx)
+    phase_families_train(ctx)
 
     t = ctx["kernel_times"]["float32"]
     fba = ctx["fba"]["times"]["float32"]
@@ -1300,7 +1811,10 @@ def main() -> int:
         "launches_by_path": {
             "separate_cli": ctx["main_path_launches"],
             **{f"evaluate_{k}": v for k, v in ctx["eval_launches"].items()},
-            "longform_cli": ctx["longform_launches"]},
+            "longform_cli": ctx["longform_launches"],
+            **ctx["families_launches"],
+            **{f"train_cli_{k}": v["fir_down2d"] for k, v
+               in ctx["families_train_launches"].items()}},
         "max_abs_err": ctx["kernel_err"][torch.float32],
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": "bytes",
@@ -1312,6 +1826,10 @@ def main() -> int:
         # no TPU kernel: the JAX package differentiates this with XLA
         "replaces": "ditsep_tpu/ops/fir.py:45",
         "launches": ctx["train_launches"]["fir_up2d"],
+        "launches_by_path": {
+            "train_cli_diffsep_icassp": ctx["train_launches"]["fir_up2d"],
+            **{f"train_cli_{k}": v["fir_up2d"] for k, v
+               in ctx["families_train_launches"].items()}},
         "max_abs_err": ctx["up"]["err"][torch.float32],
         "ms": up["kernel_ms"], "plain_ms": up["plain_ms"],
         "bound_ms": up["bound_ms"], "bound_by": "bytes",

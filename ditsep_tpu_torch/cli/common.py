@@ -7,7 +7,9 @@ import argparse
 import ast
 from typing import Dict, Optional
 
-from ditsep_tpu_torch.configs import CONFIG_FAMILIES, override
+from ditsep_tpu_torch.configs import (
+    CONFIG_FAMILIES, UNPORTED_FAMILIES, override,
+)
 
 
 def parse_overrides(pairs) -> Dict[str, object]:
@@ -23,6 +25,9 @@ def parse_overrides(pairs) -> Dict[str, object]:
 
 
 def load_config(name: str, overrides=None):
+    if name in UNPORTED_FAMILIES:
+        raise NotImplementedError(f"config {name!r} is not ported yet: "
+                                  f"{UNPORTED_FAMILIES[name]}")
     if name not in CONFIG_FAMILIES:
         raise SystemExit(f"unknown config {name!r}; choose from "
                          f"{sorted(CONFIG_FAMILIES)}")
@@ -33,9 +38,9 @@ def make_dataset(cfg, split: str, data_path: Optional[str],
                  synthetic: bool = False, synthetic_items: int = 16,
                  synthetic_len_s: Optional[float] = None):
     """The synthetic mixtures (``synthetic`` or no ``data_path``; fixed
-    length ``synthetic_len_s`` when given) or the config's WSJ0-mix /
-    LibriMix split under ``data_path`` (training items cropped to
-    ``max_len_s``)."""
+    length ``synthetic_len_s`` when given), the enhancement config's
+    VCTK-DEMAND split, or the config's WSJ0-mix / LibriMix split under
+    ``data_path`` (training items cropped to ``max_len_s``)."""
     dm = cfg["datamodule"]
     if synthetic or data_path is None:
         from ditsep_tpu_torch.data import SyntheticMixDataset
@@ -46,8 +51,12 @@ def make_dataset(cfg, split: str, data_path: Optional[str],
                                    n_spkr=dm.get("n_spkr", 2),
                                    fs=dm.get("fs", 8000), **kw)
     if dm.get("dataset") == "vctk_demand":
-        raise NotImplementedError("the enhancement dataset (vctk_demand) is "
-                                  "not ported yet")
+        # enhancement: (noisy, [clean, noise]) pairs, training items tiled
+        # or cropped to max_len_s
+        from ditsep_tpu_torch.data import NoisyDataset
+        return NoisyDataset(
+            path=data_path, split=split, fs=dm.get("fs", 16000),
+            len_s=dm.get("max_len_s") if split == "train" else None)
     from ditsep_tpu_torch.data import WSJ0Mix
     return WSJ0Mix(path=data_path, n_spkr=dm.get("n_spkr", 2),
                    cut=dm.get("cut", "max"), split=dm[split]["split"],
@@ -60,7 +69,8 @@ def add_common_args(p: argparse.ArgumentParser):
                    help="run on the CPU (the default is the CUDA card)")
     p.add_argument("--config", default="diffsep")
     p.add_argument("--data-path", default=None,
-                   help="dataset root (wsj0-mix / LibriMix layout)")
+                   help="dataset root (wsj0-mix / LibriMix layout, or "
+                        "VCTK-DEMAND for --config enhancement)")
     p.add_argument("--synthetic", action="store_true",
                    help="use the synthetic dataset (smoke runs)")
     p.add_argument("--synthetic-items", type=int, default=16,

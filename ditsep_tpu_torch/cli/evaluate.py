@@ -1,11 +1,11 @@
-"""Test-set evaluation: bucketed batched PC sampling, SI-SDR / SI-SIR /
+"""Test-set evaluation: bucketed batched sampling, SI-SDR / SI-SIR /
 SI-SAR, PESQ and STOI per utterance, the reference schema's results and
 summary JSON (port of ditsep_tpu/cli/evaluate.py). Runs on the CUDA card
 unless --cpu is given.
 
     python -m ditsep_tpu_torch.cli.evaluate --config diffsep \\
         [--params X.npz] [--data-path DIR | --synthetic] \\
-        [--mask-padding] [--out-dir DIR] [--cpu]
+        [--sampler pc|ab2] [--mask-padding] [--out-dir DIR] [--cpu]
 """
 from __future__ import annotations
 
@@ -29,7 +29,9 @@ def main(argv=None) -> dict:
     p.add_argument("--out-dir", default=None)
     p.add_argument("--sampler-N", type=int, default=30)
     p.add_argument("--sampler", choices=("pc", "ab2"), default="pc",
-                   help="'ab2' is not ported yet (ROADMAP A9)")
+                   help="'ab2' = 2nd-order Adams-Bashforth, one score "
+                        "evaluation a step; diffsep_sb always takes its "
+                        "bridge sampler")
     p.add_argument("--snr", type=float, default=0.5)
     p.add_argument("--corrector-steps", type=int, default=1)
     p.add_argument("--limit", type=int, default=None)
@@ -67,9 +69,6 @@ def main(argv=None) -> dict:
         raise NotImplementedError("--latent is not ported yet (ROADMAP A11)")
     if args.mesh:
         raise NotImplementedError("--mesh is not ported yet (ROADMAP A14)")
-    if args.sampler != "pc":
-        raise NotImplementedError(
-            f"--sampler {args.sampler} is not ported yet (ROADMAP A9)")
     if args.save_figures:
         raise NotImplementedError(
             "--save-figures is not ported yet (ROADMAP A16, viz.py)")
@@ -109,9 +108,13 @@ def main(argv=None) -> dict:
     def sep(mix, lengths=None, generator=None):
         return trainer.separate(mix, N=args.sampler_N, snr=args.snr,
                                 corrector_steps=args.corrector_steps,
-                                lengths=lengths, generator=generator)[0]
+                                sampler=args.sampler, lengths=lengths,
+                                generator=generator)[0]
 
-    nfe = args.sampler_N * (args.corrector_steps + 1)
+    # the JAX package's count, for every config: N for ab2, else N x
+    # (corrector steps + 1), the bridge sampler's N evaluations included
+    nfe = (args.sampler_N if args.sampler == "ab2"
+           else args.sampler_N * (args.corrector_steps + 1))
     # bucket by the score model's own STFT frame blocks: each utterance
     # keeps the quiet fraction of its native-length evaluation
     frame_spec = (sm.get("n_fft", 510), sm.get("hop_length", 128), 64)

@@ -1,13 +1,17 @@
-"""Folder-to-folder separation: read every wav in --input, run PC sampling,
-write s0/ s1/ ... subfolders with the separated sources, scaled by mix
-projection. Runs on the CUDA card unless --cpu is given. With
+"""Folder-to-folder separation: read every wav in --input, run the config's
+sampler (PC, the Schroedinger-bridge sampler for diffsep_sb, or --sampler
+ab2), write s0/ s1/ ... subfolders with the separated sources, scaled by
+mix projection. Runs on the CUDA card unless --cpu is given. With
 --chunk-seconds a file is separated in windows of that length, aligned and
 crossfaded (``inference.separate_longform``).
 
     python -m ditsep_tpu_torch.cli.separate --config diffsep_icassp \\
         --input DIR --output DIR [--params X.npz] [--sampler-N 30] \\
-        [--seed 0] [--cpu] [--bf16] [--mask-padding] \\
+        [--sampler pc|ab2] [--seed 0] [--cpu] [--bf16] [--mask-padding] \\
         [--chunk-seconds S [--overlap-seconds 1.0]] [--override a.b=v ...]
+
+``--config`` is any of diffsep, diffsep_icassp, diffsep_ouve, diffsep_sb
+and enhancement (16 kHz).
 """
 from __future__ import annotations
 
@@ -42,6 +46,10 @@ def main(argv=None) -> int:
     p.add_argument("--params", default=None,
                    help="npz score-model params exported by ditsep_tpu")
     p.add_argument("--sampler-N", type=int, default=30)
+    p.add_argument("--sampler", choices=("pc", "ab2"), default="pc",
+                   help="'ab2' = 2nd-order Adams-Bashforth, one score "
+                        "evaluation a step (NFE N); diffsep_sb always "
+                        "takes its bridge sampler")
     p.add_argument("--seed", type=int, default=0,
                    help="seeds the random weights and the sampler noise")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
@@ -90,7 +98,8 @@ def main(argv=None) -> int:
 
     def sep(mix, lengths=None, generator=None):
         nonlocal nfe
-        est, nfe = trainer.separate(mix, N=args.sampler_N, lengths=lengths,
+        est, nfe = trainer.separate(mix, N=args.sampler_N,
+                                    sampler=args.sampler, lengths=lengths,
                                     generator=generator)
         return est
 

@@ -5,6 +5,10 @@ train_diffsep.py). Runs on the CUDA card unless --cpu is given.
         --synthetic --synthetic-items 12 --synthetic-len-s 5.0 \\
         --max-steps 4 --workdir DIR [--cpu] [--resume] [--override a.b=v]
 
+``--config`` is any of diffsep, diffsep_icassp, diffsep_ouve, diffsep_sb
+(the EDM loss) and enhancement (PriorMix, init hack 4; VCTK-DEMAND under
+--data-path, 3 s crops at 16 kHz).
+
 Writes DIR/metrics.jsonl, DIR/hparams.json, DIR/checkpoints/ (top-k on
 val/si_sdr, latest, best-model, index.json) and DIR/ema.npz (the EMA
 weights in the JAX package's flat layout, loadable by both packages'

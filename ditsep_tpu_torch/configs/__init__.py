@@ -1,6 +1,9 @@
-"""Experiment config families of the port: the ``diffsep`` and
-``diffsep_icassp`` dicts, copied from ditsep_tpu/configs/__init__.py, and
-``override`` for dotted-path overrides."""
+"""Experiment config families of the port, copied from
+ditsep_tpu/configs/__init__.py: ``diffsep`` and ``diffsep_icassp``
+(MixSDE), ``diffsep_ouve`` (OUVESDE), ``diffsep_sb`` (SBVESDE with EDM
+preconditioning) and ``enhancement`` (PriorMixSDE at 16 kHz on
+VCTK-DEMAND); and ``override`` for dotted-path overrides. The latent
+families are not ported yet (``UNPORTED_FAMILIES``)."""
 from __future__ import annotations
 
 import copy
@@ -96,7 +99,64 @@ def diffsep_icassp() -> Dict[str, Any]:
     })
 
 
+def diffsep_ouve() -> Dict[str, Any]:
+    """Scalar OUVE SDE family."""
+    cfg = diffsep()
+    cfg["name"] = "diffsep_ouve"
+    cfg["model"]["sde"] = {"kind": "ouve", "theta": 1.5, "sigma_min": 0.05,
+                           "sigma_max": 0.5, "N": 30}
+    return cfg
+
+
+def diffsep_sb() -> Dict[str, Any]:
+    """Schroedinger-bridge SBVE family with EDM preconditioning; the
+    reference sets init_hack_p 0 'to solve the autograd nan problem'."""
+    cfg = diffsep()
+    cfg["name"] = "diffsep_sb"
+    cfg["model"]["sde"] = {"kind": "sbve", "k": 2.6, "c": 0.4, "eps": 1e-8,
+                           "N": 30, "sampler_type": "ode"}
+    cfg["model"]["init_hack_p"] = 0.0
+    cfg["model"]["sampler"] = {"N": 30, "snr": 0.5, "corrector_steps": 1}
+    cfg["model"]["network_scaling"] = "1/sigma"
+    cfg["model"]["c"] = "edm"
+    cfg["model"]["sigma_data"] = 0.1
+    return cfg
+
+
+def enhancement() -> Dict[str, Any]:
+    """Speech enhancement on VCTK-DEMAND as 2-source (clean + noise)
+    separation with the signal-adaptive PriorMixSDE, 16 kHz, init hack 4,
+    3 s training crops."""
+    cfg = override(diffsep(), {
+        "model.fs": 16000,
+        "model.init_hack": 4,
+        "model.train_source_order": None,
+        "model.valid_max_sep_batches": 1,
+        "model.score_model.nf": 128,
+        "model.sde": {"kind": "priormix", "ndim": 2, "d_lambda": 2.0,
+                      "sigma_min": 0.05, "sigma_max": 0.5, "N": 30},
+        "datamodule.dataset": "vctk_demand",
+        "datamodule.fs": 16000,
+        "datamodule.max_len_s": 3.0,
+        "datamodule.train.batch_size": 4,
+        "datamodule.val.batch_size": 8,
+        "datamodule.test.batch_size": 8,
+        "trainer.accumulate_grad_batches": 4,
+    })
+    cfg["name"] = "enhancement"
+    return cfg
+
+
 CONFIG_FAMILIES = {
     "diffsep": diffsep,
     "diffsep_icassp": diffsep_icassp,
+    "diffsep_ouve": diffsep_ouve,
+    "diffsep_sb": diffsep_sb,
+    "enhancement": enhancement,
+}
+
+# the JAX package's other families, and the ROADMAP item that ports each
+UNPORTED_FAMILIES = {
+    "latent_diffsep_ouve": "ROADMAP A11 (the latent path)",
+    "ldm": "ROADMAP A13 (the LDM decoder finetune)",
 }

@@ -17,8 +17,8 @@ _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
 def build_sde(cfg: Dict[str, Any]):
     cfg = dict(cfg)
     kind = cfg.pop("kind")
-    if kind != "mix":
-        raise NotImplementedError(f"SDE {kind!r} is not ported yet")
+    if kind in ("ouve", "sbve"):
+        cfg.pop("ndim", None)
     return SDERegistry.get_by_name(kind)(**cfg)
 
 

@@ -1,5 +1,6 @@
 """Data IO and datasets of the PyTorch port."""
 from ditsep_tpu_torch.data.audio import read_wav, write_wav  # noqa: F401
+from ditsep_tpu_torch.data.vctk_demand import NoisyDataset  # noqa: F401
 from ditsep_tpu_torch.data.wsj0_mix import (  # noqa: F401
     BucketedLoader, SyntheticMixDataset, WSJ0Mix, length_buckets,
     max_collator,

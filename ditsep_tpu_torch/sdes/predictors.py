@@ -4,6 +4,7 @@ replaces the draw from ``generator`` with an explicit standard-normal
 tensor."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -17,6 +18,21 @@ PredictorRegistry = Registry("Predictor")
 def _normal_like(x: torch.Tensor, generator: Optional[torch.Generator]):
     return torch.randn(x.shape, generator=generator, device=x.device,
                        dtype=x.dtype)
+
+
+@PredictorRegistry.register("euler_maruyama")
+def euler_maruyama_predictor(sde: BaseSDE, score_fn, x, t, cond,
+                             generator=None, dt=None,
+                             probability_flow: bool = False, noise=None):
+    """Euler-Maruyama step of the reverse SDE over ``dt`` (1/N when
+    None)."""
+    if dt is None:
+        dt = 1.0 / sde.N
+    z = _normal_like(x, generator) if noise is None else noise
+    f, g = sde.reverse_drift_diffusion(score_fn, x, t, cond,
+                                       probability_flow=probability_flow)
+    x_mean = x + f * -dt
+    return x_mean + bcast_right(g, x.ndim) * math.sqrt(dt) * z, x_mean
 
 
 @PredictorRegistry.register("reverse_diffusion")

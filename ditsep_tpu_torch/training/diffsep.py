@@ -1,10 +1,14 @@
 """DiffSep training and separation around a score model (port of
-ditsep_tpu/training/diffsep.py for the MixSDE family): the score-matching
-losses with their PIT variants and init hacks 4-7, the optimizer (Adam
-after global-norm clipping, optional linear warmup and gradient
-accumulation, as the JAX package's optax chain), the train step with its
-EMA, validation, and PC separation. The EDM branch and the other SDE
-families are not ported yet.
+ditsep_tpu/training/diffsep.py): the score-matching losses with their PIT
+variants and init hacks 4-7, the optimizer (Adam after global-norm
+clipping, optional linear warmup and gradient accumulation, as the JAX
+package's optax chain), the train step with its EMA, validation, and
+separation. Behaviour follows the SDE's type, as in the JAX package: the
+matrix SDEs (MixSDE, PriorMixSDE) anchor the init hacks at mix / n and
+sample with PC + ald2; the scalar ones (OUVESDE, SBVESDE) anchor at the
+full mixture and sample with PC + ald, or, for SBVESDE, with the
+Schroedinger-bridge sampler and the score network under EDM
+preconditioning.
 
 Randomness is explicit. Every loss and ``train_step`` draws from a
 ``torch.Generator`` on the batch's device, or takes ``draws``: the raw
@@ -37,7 +41,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ditsep_tpu_torch.sdes import BaseSDE, MixSDE, pc_sample
+from ditsep_tpu_torch.sdes import (
+    BaseSDE, MixSDE, SBVESDE, ab2_sample, bcast_right, pc_sample, sb_sample,
+)
 from ditsep_tpu_torch.sdes.core import VARPROP_OVERSAMPLE
 from ditsep_tpu_torch.training import losses as loss_lib
 from ditsep_tpu_torch.utils import separate as sep_utils
@@ -220,33 +226,67 @@ class TrainState:
 @dataclasses.dataclass(frozen=True)
 class DiffSepTrainer:
     """``model`` is an nn.Module (xt, time, mix) -> score holding its own
-    parameters; ``sde`` is a MixSDE (the other SDE families are not
-    ported yet). The methods take the module to run (``model``; None: the
-    trainer's), as the JAX ones take ``params``."""
+    parameters; ``sde`` one of the SDE dataclasses. The methods take the
+    module to run (``model``; None: the trainer's), as the JAX ones take
+    ``params``."""
 
     model: nn.Module
     sde: BaseSDE
     cfg: DiffSepConfig = DiffSepConfig()
 
-    def __post_init__(self):
-        if not isinstance(self.sde, MixSDE):
-            raise NotImplementedError(
-                f"{type(self.sde).__name__} is not ported yet (MixSDE only)")
+    # -- type dispatch ------------------------------------------------------
+    @property
+    def is_matrix(self) -> bool:
+        return isinstance(self.sde, MixSDE)  # PriorMixSDE is one too
+
+    @property
+    def is_edm(self) -> bool:
+        return isinstance(self.sde, SBVESDE)
+
+    def _anchor(self, mix: Tensor, shape: Sequence[int]) -> Tensor:
+        """The t=T attractor of the init hacks: mix / n for matrix SDEs,
+        the full mixture per source for scalar ones."""
+        if self.is_matrix:
+            return (mix / shape[1]).expand(shape)
+        return mix.expand(shape)
 
     def model_fwd(self, xt: Tensor, time: Tensor, mix: Tensor,
                   model: Optional[nn.Module] = None, *,
                   lengths: Optional[Tensor] = None) -> Tensor:
-        """The score network (the non-EDM branch). ``lengths`` (B,), each
-        item's valid sample count, goes to a masked score model; None
-        keeps the exact reference call."""
+        """The score network, under EDM preconditioning for SBVESDE (``c``
+        '1' or 'edm', ``network_scaling`` '1/sigma' or '1/t'). ``lengths``
+        (B,), each item's valid sample count, goes to a masked score
+        model; None keeps the exact reference call."""
         model = self.model if model is None else model
-        if lengths is None:
-            return model(xt, time, mix)
-        return model(xt, time, mix, lengths=lengths)
 
-    def _anchor(self, mix: Tensor, shape: Sequence[int]) -> Tensor:
-        """The t=T attractor of the init hacks: mix / n for Mix SDEs."""
-        return (mix / shape[1]).expand(shape)
+        def call(x, m):
+            if lengths is None:
+                return model(x, time, m)
+            return model(x, time, m, lengths=lengths)
+
+        if not self.is_edm:
+            return call(xt, mix)
+        cfg, nd = self.cfg, xt.ndim
+        sigma = self.sde.std(time)
+        sd = cfg.sigma_data
+        if cfg.c == "1":
+            c_in = c_out = 1.0
+            c_skip = 0.0
+        elif cfg.c == "edm":
+            # as the reference's padded branch: c_in and c_skip swap their
+            # roles against Karras et al.
+            c_in = bcast_right(sd ** 2 / (sigma ** 2 + sd ** 2), nd)
+            c_out = bcast_right(sigma * sd / torch.sqrt(sd ** 2 + sigma ** 2),
+                                nd)
+            c_skip = bcast_right(sigma ** 2 / (sigma ** 2 + sd ** 2), nd)
+        else:
+            raise ValueError(f"invalid c: {cfg.c}")
+        f = call(c_in * xt, c_in * mix)
+        if cfg.network_scaling == "1/sigma":
+            f = f / bcast_right(sigma, nd)
+        elif cfg.network_scaling == "1/t":
+            f = f / bcast_right(time, nd)
+        return c_skip * xt + c_out * f
 
     # -- time sampling ----------------------------------------------------
     def sample_time(self, n: int, *, generator=None, draws: Draws = None,
@@ -269,11 +309,12 @@ class DiffSepTrainer:
     def compute_score_loss(self, model, mix, target, *, generator=None,
                            draws: Draws = None) -> Tensor:
         """Denoising score matching ||L s_theta + z||^2; with init hack 4
-        each item is clamped to t=T with probability 1/N and its noise
-        target moved to the true-mixture anchor
+        on a matrix SDE each item is clamped to t=T with probability 1/N
+        and its noise target moved to the true-mixture anchor (scalar SDEs
+        ignore hack 4, as the reference does)
         (ditsep_tpu/training/diffsep.py:181-214)."""
         cfg, sde, dev = self.cfg, self.sde, target.device
-        hack4 = cfg.init_hack == 4
+        hack4 = cfg.init_hack == 4 and self.is_matrix
         b = target.shape[0]
         time = self.sample_time(b, generator=generator, draws=draws,
                                 device=dev)
@@ -281,12 +322,12 @@ class DiffSepTrainer:
             select = _draw(draws, "select_u", (b,), "uniform", generator,
                            dev) < 1.0 / sde.N
             time = torch.where(select, torch.full_like(time, sde.T), time)
-        mean, L = sde.marginal_prob(target, time)
+        mean, L = sde.marginal_prob(target, time, mix)
         z = _draw(draws, "z", target.shape, "normal", generator, dev)
         if hack4:
             z_mod = z + sde.mult_std_inv(L, self._anchor(mix, target.shape)
                                          - mean)
-            z = torch.where(select[:, None, None], z_mod, z)
+            z = torch.where(bcast_right(select, z.ndim), z_mod, z)
         x_t = mean + sde.mult_std(L, z)
         pred = self.model_fwd(x_t, time, mix, model)
         return _batch_mean((sde.mult_std(L, pred) + z) ** 2)
@@ -295,19 +336,21 @@ class DiffSepTrainer:
                                          generator=None,
                                          draws: Draws = None) -> Tensor:
         """PIT at t=T: x_t = anchor + L z0, the loss the min over the
-        permutations of the target (:216-239)."""
+        permutations of the target (:216-239); under EDM the noise target
+        is z0 itself."""
         sde, dev = self.sde, target.device
         time = torch.full((target.shape[0],), sde.T, dtype=target.dtype,
                           device=dev)
         z0 = _draw(draws, "pit_z", target.shape, "normal", generator, dev)
         anchor = self._anchor(mix, target.shape)
-        _, L = sde.marginal_prob(target, time)
+        _, L = sde.marginal_prob(target, time, mix)
         pred = self.model_fwd(anchor + sde.mult_std(L, z0), time, mix, model)
         l_pred = sde.mult_std(L, pred)
         losses = []
         for p in _perms(target.shape[1]):
-            mean_p, L_p = sde.marginal_prob(target[:, list(p)], time)
-            z_p = z0 + sde.mult_std_inv(L_p, anchor - mean_p)
+            mean_p, L_p = sde.marginal_prob(target[:, list(p)], time, mix)
+            z_p = (z0 if self.is_edm
+                   else z0 + sde.mult_std_inv(L_p, anchor - mean_p))
             losses.append(_batch_mean((l_pred + z_p) ** 2))
         return torch.stack(losses).min(dim=0).values
 
@@ -321,9 +364,10 @@ class DiffSepTrainer:
         time = self.sample_time(b, generator=generator, draws=draws,
                                 device=dev)
         perms = _perms(n_src)
-        means = torch.stack([sde.marginal_prob(target[:, list(p)], time)[0]
+        means = torch.stack([sde.marginal_prob(target[:, list(p)], time,
+                                               mix)[0]
                              for p in perms], dim=1)  # (B, n_perm, n, T)
-        _, L = sde.marginal_prob(target, time)
+        _, L = sde.marginal_prob(target, time, mix)
         z = _draw(draws, "z", target.shape, "normal", generator, dev)
         lz = sde.mult_std(L, z)
         if draws is not None:
@@ -357,13 +401,13 @@ class DiffSepTrainer:
                                 draws=draws, device=dev)
         target = sep_utils.shuffle_sources(target, u=_draw(
             draws, "shuffle_u", target.shape[:2], "uniform", generator, dev))
-        mean_0, L = sde.marginal_prob(target, time)
+        mean_0, L = sde.marginal_prob(target, time, mix)
         z0 = _draw(draws, "z", target.shape, "normal", generator, dev)
         pred = self.model_fwd(mean_0 + sde.mult_std(L, z0), time, mix, model)
         l_pred = sde.mult_std(L, pred)
         losses = []
         for p in _perms(target.shape[1]):
-            mean_p, _ = sde.marginal_prob(target[:, list(p)], time)
+            mean_p, _ = sde.marginal_prob(target[:, list(p)], time, mix)
             z_p = z0 + sde.mult_std_inv(L, mean_0 - mean_p)
             losses.append(_batch_mean((l_pred + z_p) ** 2))
         return torch.stack(losses).min(dim=0).values
@@ -483,29 +527,45 @@ class DiffSepTrainer:
                  generator: Optional[torch.Generator] = None,
                  noise: Optional[Sequence] = None,
                  model: Optional[nn.Module] = None) -> Tuple[Tensor, int]:
-        """Normalize -> PC sampling (reverse_diffusion + ald2) ->
-        denormalize. ``mix`` is (B, 1, T) on the model's device. With
-        ``lengths`` (B,), each item's valid sample count, the
-        normalization takes each item's valid samples only and every
+        """Normalize -> reverse sampling -> denormalize. ``mix`` is (B, 1,
+        T) on the model's device. The sampler follows the SDE, as the
+        reference's: the Schroedinger-bridge sampler for SBVESDE (its
+        ``sampler_type``; ``sampler``, ``snr`` and ``corrector_steps`` do
+        not apply), else PC with the reverse-diffusion predictor and the
+        ald2 (matrix SDEs) or ald (scalar) corrector, or with ``sampler=
+        'ab2'`` the Adams-Bashforth integrator (one score evaluation a
+        step). ``noise`` is the chosen sampler's explicit draws (see its
+        docstring). With ``lengths`` (B,), each item's valid sample count,
+        the normalization takes each item's valid samples only and every
         score call gets the lengths (masked scoring). Returns (estimates
         (B, n_speakers, T), nfe)."""
-        if sampler != "pc":
-            raise NotImplementedError(
-                f"sampler {sampler!r} is not ported yet (ROADMAP A9)")
+        if sampler not in ("pc", "ab2"):
+            raise ValueError(f"unknown sampler {sampler!r}")
         cfg = self.cfg
         (mix, _), mean, std = sep_utils.normalize_batch((mix, None),
                                                         lengths=lengths)
-        est, nfe = pc_sample(
-            self.sde,
-            lambda x, t, y: self.model_fwd(x, t, y, model, lengths=lengths),
-            mix,
-            predictor="reverse_diffusion", corrector="ald2",
-            N=cfg.sampler_N if N is None else N,
-            snr=cfg.sampler_snr if snr is None else snr,
-            corrector_steps=(cfg.sampler_corrector_steps
-                             if corrector_steps is None else corrector_steps),
-            denoise=True, eps=cfg.t_eps, n_spkrs=cfg.n_speakers,
-            generator=generator, noise=noise)
+        score_fn = lambda x, t, y: self.model_fwd(  # noqa: E731
+            x, t, y, model, lengths=lengths)
+        kw = dict(n_spkrs=cfg.n_speakers, generator=generator, noise=noise)
+        if self.is_edm:
+            sde = self.sde if N is None else dataclasses.replace(self.sde,
+                                                                 N=N)
+            est, nfe = sb_sample(sde, score_fn, mix,
+                                 sampler_type=sde.sampler_type, **kw)
+        elif sampler == "ab2":
+            est, nfe = ab2_sample(self.sde, score_fn, mix,
+                                  N=cfg.sampler_N if N is None else N,
+                                  eps=cfg.t_eps, **kw)
+        else:
+            est, nfe = pc_sample(
+                self.sde, score_fn, mix, predictor="reverse_diffusion",
+                corrector="ald2" if self.is_matrix else "ald",
+                N=cfg.sampler_N if N is None else N,
+                snr=cfg.sampler_snr if snr is None else snr,
+                corrector_steps=(cfg.sampler_corrector_steps
+                                 if corrector_steps is None
+                                 else corrector_steps),
+                denoise=True, eps=cfg.t_eps, **kw)
         return sep_utils.denormalize_batch(est, mean, std), nfe
 
     def separate_minibatched(self, mix: Tensor, *, max_batch: int = 4,

@@ -695,3 +695,103 @@ def test_masked_separate_launches_follow_the_plan(cuda_device):
     assert nfe == 6 and est.shape == (3, 2, 7000)
     assert cuda_kernels.fir_down2d.launches - before == 9 * nfe
     assert bool(torch.isfinite(est).all())
+
+
+def _family_trainer(family, device):
+    """``family``'s config at nf=32 with 4 levels, seeded weights with the
+    zero-init layers at unit scale, on ``device``."""
+    from ditsep_tpu_torch.configs import (
+        CONFIG_FAMILIES, build_diffsep_trainer, override,
+    )
+    cfg = override(CONFIG_FAMILIES[family](), {
+        "model.score_model.nf": 32,
+        "model.score_model.ch_mult": (1, 1, 2, 2),
+        "model.score_model.attn_resolutions": (32,)})
+    trainer = build_diffsep_trainer(cfg, device="cpu", seed=0)
+    for m in trainer.model.modules():
+        if getattr(m, "init_scale", None) == 0.0:
+            m.init_scale = 1.0
+            m.reset_parameters(torch.Generator().manual_seed(1))
+    trainer.model.to(device)
+    return trainer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,sampler,sampler_type,n", [
+    ("diffsep_ouve", "pc", None, 3),
+    ("enhancement", "pc", None, 3),
+    ("diffsep", "ab2", None, 3),
+    ("diffsep_sb", "pc", "ode", 1),  # past step 1 the bridge scales
+    ("diffsep_sb", "pc", "sde", 3),  # round-off by thousands
+])
+def test_family_separate_on_card(cuda_device, family, sampler, sampler_type,
+                                 n):
+    """Each new family's separation on the card (TF32 off) against the
+    CPU with the same explicit noise: 1e-3 relative at the waveform, the
+    same NFE, 9 fir_down2d launches a score call on the card."""
+    import dataclasses
+    fs = 16000 if family == "enhancement" else 8000
+    rng = np.random.default_rng(5)
+    mix = (0.1 * rng.standard_normal((1, 1, fs))).astype(np.float32)
+    shape = (1, 2, fs)
+    z = lambda *lead: rng.standard_normal(lead + shape).astype(  # noqa
+        np.float32)
+    noise = {"pc": (z(), z(n, 1), z(n)), "ab2": (z(), None)}[sampler]
+    if family == "diffsep_sb":
+        noise = z(n) if sampler_type == "sde" else None
+    out = {}
+    for dev in ("cpu", cuda_device):
+        trainer = _family_trainer(family, dev)
+        if sampler_type is not None:
+            trainer = dataclasses.replace(trainer, sde=dataclasses.replace(
+                trainer.sde, sampler_type=sampler_type))
+        before = cuda_kernels.fir_down2d.launches
+        with _full_f32():
+            est, nfe = trainer.separate(torch.from_numpy(mix).to(dev), N=n,
+                                        sampler=sampler, noise=noise)
+        torch.cuda.synchronize()
+        out[str(dev)] = (est.cpu(), nfe,
+                         cuda_kernels.fir_down2d.launches - before)
+    (want, nfe_cpu, l_cpu), (got, nfe_card, l_card) = out.values()
+    assert nfe_card == nfe_cpu and l_cpu == 0 and l_card == 9 * nfe_card
+    assert got.shape == shape and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_edm_train_step_gradient_on_card(cuda_device):
+    """The EDM loss of diffsep_sb (init hack 5, p 0: both forwards run,
+    the t=T PIT one masked out) on the card (TF32 off): its backward
+    launches fir_up2d 6 times (3 down blocks x h and the skip x) for each
+    of the two forwards, and its gradient matches the CPU's, each leaf
+    within 1e-3 of its own max|ref|."""
+    rng = np.random.default_rng(6)
+    tgt = (0.3 * rng.standard_normal((2, 2, 8000))).astype(np.float32)
+    mix = tgt.sum(1, keepdims=True)
+    draws = {"mask_u": np.array([0.05, 0.5], np.float32),
+             "pit_z": rng.standard_normal(tgt.shape).astype(np.float32),
+             "shuffle_u": rng.random((2, 2)).astype(np.float32),
+             "time_u": rng.random(2).astype(np.float32),
+             "z": rng.standard_normal(tgt.shape).astype(np.float32)}
+    grads = []
+    for dev in ("cpu", cuda_device):
+        trainer = _family_trainer("diffsep_sb", dev)
+        named = dict(trainer.model.named_parameters())
+        before = cuda_kernels.fir_up2d.launches
+        with _full_f32():
+            loss = trainer.training_loss(
+                trainer.model, torch.from_numpy(mix).to(dev),
+                torch.from_numpy(tgt).to(dev), draws=draws)
+            g = torch.autograd.grad(loss, list(named.values()))
+        torch.cuda.synchronize()
+        launches = cuda_kernels.fir_up2d.launches - before
+        assert launches == (0 if str(dev) == "cpu" else 2 * 6)
+        assert bool(torch.isfinite(loss))
+        grads.append({k: v.cpu() for k, v in zip(named, g)})
+    top = max(v.abs().max() for v in grads[0].values())
+    for k, want in grads[0].items():
+        got = grads[1][k]
+        if k.endswith("NIN_1.b"):  # the attention's key bias: exactly 0
+            assert max(want.abs().max(), got.abs().max()) <= 1e-6 * top
+        else:
+            assert (got - want).abs().max() <= 1e-3 * want.abs().max()

@@ -3,7 +3,7 @@ cli.evaluate) against the JAX package's, on the CPU: bucket assignment
 (exact), ``evaluate_dataset`` with one deterministic numpy separator on
 both sides (the JSON files key for key and in order, every value but
 ``runtime`` within 1e-6 abs, the same lengths passed), the evaluate CLI at
-a tiny size, and the flags that are not ported yet.
+a tiny size (PC and ab2), and the flags that are not ported yet.
 """
 import json
 
@@ -140,7 +140,8 @@ def _schema(out_dir):
     return per, summary
 
 
-@pytest.mark.parametrize("mode", ["unmasked", "mask_padding", "no_proc"])
+@pytest.mark.parametrize("mode", ["unmasked", "mask_padding", "no_proc",
+                                  "ab2"])
 def test_cli_evaluate_on_cpu(tmp_path, mode):
     args = ["--config", "diffsep", "--cpu", "--synthetic",
             "--synthetic-items", "2", "--eval-batch-size", "2",
@@ -150,10 +151,12 @@ def test_cli_evaluate_on_cpu(tmp_path, mode):
         args.insert(0, "--mask-padding")
     if mode == "no_proc":
         args.insert(0, "--no-proc")
+    if mode == "ab2":
+        args[:0] = ["--sampler", "ab2"]
     res = cli.main(args)
     per, summary = _schema(tmp_path)
     assert summary["number"] == len(per) == 2
-    assert summary["nfe"] == (0 if mode == "no_proc" else 4)
+    assert summary["nfe"] == {"no_proc": 0, "ab2": 2}.get(mode, 4)
     assert summary["pesq_impl"] == "p862_numpy"
     if mode != "no_proc":  # 3.0 and 4.0 s: two frame blocks
         assert len(res["buckets"]) == 2
@@ -162,7 +165,7 @@ def test_cli_evaluate_on_cpu(tmp_path, mode):
 
 
 @pytest.mark.parametrize("flag", [["--latent"], ["--mesh"],
-                                  ["--sampler", "ab2"],
+                                  ["--config", "latent_diffsep_ouve"],
                                   ["--save-figures", "1"]])
 def test_unported_evaluate_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

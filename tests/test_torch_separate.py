@@ -197,28 +197,29 @@ def test_cli_separate_on_cpu(tmp_path):
             assert np.isfinite(data).all()
 
 
-@pytest.mark.parametrize("what", ["latent", "mesh", "ab2", "sde",
-                                  "save_figures"])
+@pytest.mark.parametrize("what", ["latent", "mesh", "latent_config",
+                                  "ldm_config", "save_figures"])
 def test_unported_options_raise(what, tmp_path):
-    """What is not ported yet raises: the latent path (A11), a mesh (A14),
-    the ab2 sampler (A9), other SDEs (A9) and figures (A16)."""
+    """What is not ported yet raises: the latent path and its config
+    (A11), a mesh (A14), the LDM config (A13) and figures (A16)."""
     from ditsep_tpu_torch.cli import evaluate as eval_cli
+    from ditsep_tpu_torch.cli import separate as sep_cli
     from ditsep_tpu_torch.cli import train_diffsep
-    cfg = override(diffsep(), TINY)
-    if what == "sde":
-        cfg["model"]["sde"] = {"kind": "ouve", "theta": 1.5,
-                               "sigma_min": 0.05, "sigma_max": 0.5, "N": 30}
     with pytest.raises(NotImplementedError):
         if what == "latent":
             eval_cli.main(["--latent", "--cpu", "--synthetic"])
         if what == "mesh":
             train_diffsep.main(["--mesh", "--cpu", "--synthetic",
                                 "--workdir", str(tmp_path)])
+        if what == "latent_config":
+            sep_cli.main(["--config", "latent_diffsep_ouve", "--cpu",
+                          "--input", str(tmp_path), "--output",
+                          str(tmp_path)])
+        if what == "ldm_config":
+            train_diffsep.main(["--config", "ldm", "--cpu", "--synthetic",
+                                "--workdir", str(tmp_path)])
         if what == "save_figures":
             eval_cli.main(["--save-figures", "1", "--cpu", "--synthetic"])
-        trainer = build_diffsep_trainer(cfg, device="cpu")
-        if what == "ab2":
-            trainer.separate(torch.zeros(1, 1, 800), N=1, sampler="ab2")
 
 
 def test_cuda_requested_without_cuda_raises(monkeypatch):
@@ -244,6 +245,13 @@ def test_port_imports_no_jax_and_nothing_of_ditsep_tpu(root):
     paths = ([REPO / root] if root.endswith(".py")
              else sorted((REPO / root).rglob("*.py")))
     assert paths
+    if root == "ditsep_tpu_torch":  # the SDE, trainer and CLI modules too
+        names = {p.relative_to(REPO).as_posix() for p in paths}
+        assert {f"ditsep_tpu_torch/{m}.py" for m in (
+            "sdes/core", "sdes/samplers", "sdes/predictors",
+            "sdes/correctors", "training/diffsep", "configs/__init__",
+            "configs/build", "data/vctk_demand", "cli/common",
+            "cli/separate", "cli/evaluate", "cli/train_diffsep")} <= names
     for path in paths:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
