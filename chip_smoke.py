@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, all at once) and runs fourteen phases, each printing JSON
+nvcc per source, all at once) and runs eighteen phases, each printing JSON
 lines; any failure raises and the exit code is non-zero:
 
 1. device   -- card name and power limit (nvidia-smi), kernel build time;
@@ -102,12 +102,36 @@ lines; any failure raises and the exit code is non-zero:
                directory of synthetic WAVs, 3 steps each: steps/s, peak
                memory, launches; then two EDM train steps at nf=32 on the
                card against the CPU with the same batches and draws, each
-               step's gradient leaf by leaf within 1e-3 of its max|ref|.
+               step's gradient leaf by leaf within 1e-3 of its max|ref|;
+15. latent_kernel -- fir_down2d and fir_up2d at every latent-U-Net shape
+               (36 and 20 latent frames, batch 1, 4 and 16, f32 and bf16)
+               against their plain versions bit for bit, fir_down2d on its
+               scalar path (fir_up2d's vector path, at level 0 in f32,
+               equal to its scalar one); their times there
+               (``scripts/fir_timing.py --latent [--backward]``);
+16. latent_parity -- a small latent_diffsep_ouve (VAE 32 channels, hop 64,
+               16 latent channels; U-Net nf=32), seeded weights, on the
+               card (TF32 off) against the CPU with the same draws: VAE
+               encode (mode and sample), decode and ``separate_latent`` at
+               N=3 within 1e-3 relative; two ``train_step_latent`` steps
+               at the train-step bars;
+17. latent_flagship -- latent_diffsep_ouve at full width (VAE hop 2048, 64
+               latent channels; U-Net nf=128), seeded weights:
+               ``cli.evaluate --latent`` on 8 synthetic 8.415 s items at
+               batch 4, N=30; ``separate_latent`` at batch 4 in f32 and
+               bf16 with the same draws; one call split into VAE encode,
+               sampler and VAE decode; one replayed at N=2 under the
+               profiler;
+18. latent_train -- ``cli.train_diffsep_latent`` at the config's batch 16
+               of 5 s crops, 4 steps and one validation (steps/s, peak
+               memory, launches), then ``cli.cache_latents`` on 2 items
+               at N=30.
 
 Every launch count is set to 0 just before each path (the fused bias-act
 op, the conv probe, the separation CLI, the training CLI, each evaluate
-run, the long-form CLI, each family's separation and training CLI) and
-read just after it. The script then prints
+run, the long-form CLI, each family's separation and training CLI, the
+latent evaluate, separate, training and caching paths) and read just
+after it. The script then prints
 the ``kernels`` JSON line (all six kernels), and as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -698,31 +722,38 @@ def separate_call_times(calls) -> dict:
 
 def profile_separate_call(call, n: int = 2) -> dict:
     """A recorded ``separate`` call replayed at N = n on its trainer and
-    mix: warmed, timed unprofiled on the host clock, then once under
-    torch.profiler. Device busy time, and the device's idle share of the
-    unprofiled call's wall time."""
+    mix (``profile_replay``)."""
+    trainer, mix, kw = call["trainer"], call["mix"], {**call["kw"], "N": n}
+    return {"N": n, **profile_replay(
+        lambda: trainer.separate(mix, **kw)[1])}
+
+
+def profile_replay(run) -> dict:
+    """``run()`` (one call; returns its NFE) warmed, timed unprofiled on
+    the host clock, then once under torch.profiler. Device busy time, and
+    the device's idle share of the unprofiled call's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    trainer, mix, kw = call["trainer"], call["mix"], {**call["kw"], "N": n}
     with torch.no_grad():
-        trainer.separate(mix, **kw)
+        run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, nfe = trainer.separate(mix, **kw)
+        nfe = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            trainer.separate(mix, **kw)
+            run()
             torch.cuda.synchronize()
     summary = profile_summary(prof, wall_ms)
     check(summary["device_busy_ms"] > 0, "the profiler saw no device time")
-    return {"N": n, "nfe": nfe, "wall_ms": wall_ms,
+    return {"nfe": nfe, "wall_ms": wall_ms,
             "device_busy_ms": summary["device_busy_ms"],
             "busy_ms_per_score_call": summary["device_busy_ms"] / nfe,
             "idle_share": summary["idle_share"],
             "top": summary["top"][:5]}
+
 
 def phase_flagship(ctx):
     import numpy as np
@@ -924,11 +955,13 @@ def synthetic_batch(n: int, len_s: float, seed: int = 0):
                                     multiple=4096, shuffle=False)))
 
 
-def train_steps_card_vs_cpu(cfg, batches, draws) -> dict:
-    """Train steps of ``cfg`` from the trained nf=32 checkpoint's weights on
-    the CPU and on the card (TF32 off), over the same batches and draws.
-    Per device: the initial parameters and, per step, the loss, the grad
-    norm, the step's gradient, and the parameters and EMA after it."""
+def train_steps_card_vs_cpu(cfg, batches, draws, latent=False) -> dict:
+    """Train steps of ``cfg`` on the CPU and on the card (TF32 off), over
+    the same batches and draws: from the trained nf=32 checkpoint's
+    weights, or with ``latent`` from ``latent_trainer``'s seeded ones
+    through ``train_step_latent``. Per device: the initial parameters and,
+    per step, the loss, the grad norm, the step's gradient, and the
+    parameters and EMA after it."""
     import torch
     from ditsep_tpu_torch.configs import build_diffsep_trainer
     from ditsep_tpu_torch.utils.separate import normalize_batch
@@ -936,8 +969,14 @@ def train_steps_card_vs_cpu(cfg, batches, draws) -> dict:
     hist = {}
     with full_f32():
         for device in ("cpu", "cuda"):
-            trainer = build_diffsep_trainer(cfg, device=device,
-                                            params_npz=str(CKPT))
+            if latent:
+                trainer = latent_trainer(cfg, device)
+                loss_fn, step_fn = (trainer.training_loss_latent,
+                                    trainer.train_step_latent)
+            else:
+                trainer = build_diffsep_trainer(cfg, device=device,
+                                                params_npz=str(CKPT))
+                loss_fn, step_fn = trainer.training_loss, trainer.train_step
             state = trainer.init_state()
             names = [k for k, _ in trainer.model.named_parameters()]
             params = [p for _, p in trainer.model.named_parameters()]
@@ -947,11 +986,11 @@ def train_steps_card_vs_cpu(cfg, batches, draws) -> dict:
             for (mix, tgt), d in zip(batches, draws):
                 batch = (torch.from_numpy(mix).to(device),
                          torch.from_numpy(tgt).to(device))
-                (m, tg), _, _ = normalize_batch(batch)
-                loss = trainer.training_loss(trainer.model, m, tg, draws=d)
+                m, tg = batch if latent else normalize_batch(batch)[0]
+                loss = loss_fn(trainer.model, m, tg, draws=d)
                 grads = {k: v.cpu().numpy() for k, v in zip(
                     names, torch.autograd.grad(loss, params))}
-                state, met = trainer.train_step(state, batch, draws=d)
+                state, met = step_fn(state, batch, draws=d)
                 out["steps"].append({
                     "loss": met["train/score_loss"].item(),
                     "grad_norm": met["train/grad_norm"].item(),
@@ -1756,6 +1795,431 @@ def phase_families_train(ctx):
           "card": ctx["card"]})
 
 
+# the latent path (latent_diffsep_ouve): the latent U-Net downsamples at
+# its two level transitions, twice in the down block and once on the input
+# pyramid; a forward's backward takes fir_up2d for the down blocks' two
+LATENT_LAUNCHES_PER_FORWARD = 6
+LATENT_UP_LAUNCHES_PER_BACKWARD = 4
+LATENT_BATCH = 4                  # the direct separate_latent calls
+LATENT_EVAL_ITEMS = 8             # cli.evaluate --latent, batch 4
+# cli.train_diffsep_latent: the config's batch 16 of 5 s crops, 64 items:
+# 4 steps in one epoch, ending in one validation (its 4 items fill one
+# batch of 16: the score loss, 2 forwards, and a PC-30 separation, 60)
+LATENT_TRAIN_ITEMS, LATENT_TRAIN_BATCH, LATENT_TRAIN_STEPS = 64, 16, 4
+LATENT_TRAIN_LEN_S = 5.0
+LATENT_CACHE_ITEMS = 2
+# the small latent config of the card-vs-CPU phase (hop 64)
+LATENT_PARITY_OVERRIDES = {
+    "model.vae.channels": 32, "model.vae.c_mults": (1, 2, 4),
+    "model.vae.strides": (2, 4, 8), "model.vae.latent_dim": 16,
+    "model.score_model.nf": 32, "model.score_model.ch_mult": (1, 2, 2),
+    "model.score_model.image_size": 16,
+    "model.score_model.attn_resolutions": (4,)}
+
+
+def latent_trainer(cfg, device: str, dtype: str = "f32"):
+    """``cfg``'s latent trainer with seeded weights (the VAE's and the
+    score model's), the score model's zero-init layers redrawn at unit
+    scale, on ``device``; ``dtype`` the compute dtype of both."""
+    from ditsep_tpu_torch.configs import build_latent_trainer, override
+    cfg = override(cfg, {"model.score_model.dtype": dtype,
+                         "model.vae.dtype": dtype})
+    trainer = build_latent_trainer(cfg, device="cpu", seed=0)
+    unit_scale_zero_init_layers(trainer.model, seed=0)
+    trainer.model.to(device)
+    trainer.vae.to(device)
+    return trainer
+
+
+def check_fir_pair(x, g, taps, plain_k) -> tuple:
+    """fir_down2d on ``x`` and fir_up2d on a gradient of its output's
+    shape (drawn from ``g``), each against its plain version bit for bit.
+    fir_down2d's plan must take the scalar path (no latent width is a
+    multiple of 2V = 8 / 16); fir_up2d's vector path (W a multiple of 2V =
+    4 f32 / 8 bf16) must give its scalar path's bits. Returns the two max
+    abs errors and fir_up2d's path."""
+    import torch
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+    hw = tuple(x.shape[2:])
+    check(ck.fir_down2d.plan(x)["path"] == "scalar",
+          f"fir_down2d plan at latent shape {tuple(x.shape)} {x.dtype}: "
+          "not the scalar path")
+    y = ck.fir_down2d(x, *taps)
+    ref = ck.downsample_2d_plain(x, plain_k)
+    gy = torch.randn(y.shape, generator=g, device="cuda").to(x.dtype)
+    up_path = ck.fir_up2d.plan(gy, hw)["path"]
+    dx = ck.fir_up2d(gy, *taps, hw)
+    dref = ck.downsample_2d_bwd_plain(gy, plain_k, hw)
+    same = (torch.equal(ck.fir_up2d(gy, *taps, hw, force_path="scalar"), dx)
+            if up_path == "vector" else True)
+    torch.cuda.synchronize()
+    errs = ((y.float() - ref.float()).abs().max().item(),
+            (dx.float() - dref.float()).abs().max().item())
+    check(torch.equal(y, ref) and torch.equal(dx, dref) and same,
+          f"fir kernels at latent shape {tuple(x.shape)} {x.dtype}: not the "
+          f"plain versions' bits (max errs {errs}), or fir_up2d's paths "
+          "differ")
+    return errs + (up_path,)
+
+
+def phase_latent_kernel(ctx):
+    """fir_down2d and fir_up2d at every latent-U-Net shape (``scripts/
+    fir_timing.py``'s latent cases: batch 1 and the phases' batches, 36
+    and 20 latent frames), f32 and bf16, against their plain versions bit
+    for bit, the scalar path asserted; then their times there."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+    from ditsep_tpu_torch.scripts import fir_timing
+
+    k = fir_timing.FIR_K
+    taps = ck.separable_taps(np.asarray(k), 1.0)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    cases, up_paths = 0, {"vector": 0, "scalar": 0}
+    for batch, tl in fir_timing.LATENT_CASES:
+        for kind, _, shape in fir_timing.latent_path_shapes(batch, tl):
+            base = torch.randn(shape, generator=g, device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                *errs, up_path = check_fir_pair(base.to(dtype), g, taps, k)
+                name = str(dtype).split(".")[-1]
+                worst[name] = [max(a, b) for a, b in zip(worst[name], errs)]
+                cases += 1
+                if kind == "down":  # the backward's shapes
+                    up_paths[up_path] += 1
+    fwd = fir_timing.time_latent_path(ctx["bandwidth"])
+    bwd = fir_timing.time_latent_path(ctx["bandwidth"], backward=True)
+    check(all(r["path"] == "scalar" for r in fwd if "path" in r),
+          "a timed latent fir_down2d row took the vector path")
+    ctx["latent_kernel"] = {"err": worst, "fwd": fwd, "bwd": bwd}
+    keys = ("path", "kernel_ms", "bound_ms", "plain_ms", "library_ms",
+            "call_ms", "in_l2")
+    for name, rows in (("fir_down2d", fwd), ("fir_up2d", bwd)):
+        emit({"phase": "latent_kernel", "kernel": name, "cases": cases,
+              "max_abs_err": {d: v[0 if name == "fir_down2d" else 1]
+                              for d, v in worst.items()},
+              "tolerance": "the plain version's bits; fir_down2d on the "
+                           "scalar path, fir_up2d's vector path equal to "
+                           "its scalar path",
+              **({"up_paths_at_down_block_shapes": up_paths}
+                 if name == "fir_up2d" else {}),
+              "timing": "device ms by CUDA graphs cycling past twice the "
+                        "L2 (scripts/fir_timing.py --latent); library: "
+                        "F.conv2d / F.conv_transpose2d depthwise 4x4 "
+                        "stride 2",
+              "columns": ["shape", "dtype", *keys],
+              "rows": [[r["shape"], r["dtype"], *(r.get(c) for c in keys)]
+                       for r in rows if "shape" in r],
+              "sums": [r for r in rows if "shape" not in r],
+              "card": ctx["card"]})
+
+
+def phase_latent_parity(ctx):
+    """The small latent config, seeded weights, on the card (TF32 off)
+    against the CPU with the same draws: the VAE's encode (the mode), its
+    posterior sample and decode, ``separate_latent`` at N = 3 (1e-3
+    relative each), then two ``train_step_latent`` steps at PR 5's bars
+    (the plain bar and, where Adam's first moment nearly cancels, plus
+    the part the two devices' gradients explain)."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.configs import latent_diffsep_ouve, override
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = override(latent_diffsep_ouve(), LATENT_PARITY_OVERRIDES)
+    rng = np.random.default_rng(31)
+    n, b = 3, 2
+    mix = (0.1 * rng.standard_normal((b, 1, FS))).astype(np.float32)
+    est_in = rng.standard_normal((b, 2, 16, FS // 64)).astype(np.float32)
+    lat_shape = (b, 16, -(-FS // 64))
+    enc = rng.standard_normal(lat_shape).astype(np.float32)
+    shape = (b, 2) + lat_shape[1:]
+    noise = (rng.standard_normal(shape).astype(np.float32),
+             rng.standard_normal((n, 1) + shape).astype(np.float32),
+             rng.standard_normal((n,) + shape).astype(np.float32))
+    out = {}
+    with full_f32():
+        for device in ("cuda", "cpu"):
+            tr = latent_trainer(cfg, device)
+            m = torch.from_numpy(mix).to(device)
+            torch.cuda.synchronize()
+            ck.fir_down2d.launches = 0
+            mode, _ = tr.encode(m, None)
+            post, _ = tr.encode(m, None, draws={"enc_mix_z": enc})
+            dec = tr.decode(torch.from_numpy(est_in).to(device), FS)
+            est, nfe = tr.separate_latent(m, target_dim=FS, N=n,
+                                          enc_noise=enc, noise=noise)
+            torch.cuda.synchronize()
+            out[device] = {k: v.cpu().numpy() for k, v in (
+                ("encode_mode", mode), ("encode_sample", post),
+                ("decode", dec), ("separate_latent", est))}
+            out[device]["nfe"] = nfe
+            out[device]["launches"] = ck.fir_down2d.launches
+            del tr
+    rel = {}
+    for k in ("encode_mode", "encode_sample", "decode", "separate_latent"):
+        gpu, cpu = out["cuda"][k], out["cpu"][k]
+        check(gpu.shape == cpu.shape and np.isfinite(gpu).all(),
+              f"latent {k}: card shape / finiteness")
+        rel[k] = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
+        check(rel[k] <= 1e-3, f"latent {k}: card vs CPU {rel[k]} > 1e-3")
+    want = LATENT_LAUNCHES_PER_FORWARD * 2 * n
+    check(out["cuda"]["nfe"] == out["cpu"]["nfe"] == 2 * n, "latent NFE")
+    check(out["cuda"]["launches"] == want and out["cpu"]["launches"] == 0,
+          f"latent parity launches card {out['cuda']['launches']} (want "
+          f"{want}), CPU {out['cpu']['launches']}")
+    emit({"phase": "latent_parity", "config": "latent_diffsep_ouve, VAE "
+          "channels 32 c_mults (1,2,4) strides (2,4,8) latent 16; U-Net "
+          "nf=32 ch_mult (1,2,2) attn (4,); seeded weights, zero-init "
+          "layers at unit scale", "samples": FS, "batch": b, "N": n,
+          "tf32": False, "tolerance": 1e-3, "max_rel_err": rel,
+          "launches_card": out["cuda"]["launches"], "card": ctx["card"]})
+
+    # two train steps, card vs CPU, the same batches and draws (1 s items
+    # padded by the train loader to 8,192 samples: 128 latent frames)
+    batches, draws = [], []
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    for step in range(2):
+        mixb, tgt = synthetic_batch(b, 1.0, seed=40 + step)
+        tl = -(-mixb.shape[-1] // 64)
+        batches.append((mixb, tgt))
+        draws.append({"mask_u": f32([0.05, 0.5]),
+                      "pit_z": f32(rng.standard_normal((b, 2, 16, tl))),
+                      "shuffle_u": f32(rng.random((b, 2))),
+                      "time_u": f32(rng.random(b)),
+                      "z": f32(rng.standard_normal((b, 2, 16, tl))),
+                      "enc_mix_z": f32(rng.standard_normal((b, 16, tl))),
+                      "enc_tgt_z": f32(rng.standard_normal((2 * b, 16,
+                                                            tl)))})
+    hist = train_steps_card_vs_cpu(cfg, batches, draws, latent=True)
+    plain = train_parity_worst(hist, explain=False)
+    worst = train_parity_worst(hist, explain=True)
+    check(worst["param_over_bar"] <= 1 and worst["ema_over_bar"] <= 1,
+          f"card vs CPU latent train steps: {worst}")
+    emit({"phase": "latent_train_parity", "config": "the latent_parity "
+          "config", "batch": b, "samples": int(batches[0][0].shape[-1]),
+          "steps": len(batches),
+          "tf32": False, **{k: float(v) for k, v in worst.items()},
+          "plain_bar": {k: float(v) for k, v in plain.items()},
+          "losses_card": [h["loss"] for h in hist["cuda"]["steps"]],
+          "losses_cpu": [h["loss"] for h in hist["cpu"]["steps"]],
+          "tolerance": TRAIN_PARITY_TOLERANCE + "; plus twice the part "
+          "of the difference the devices' gradients explain through "
+          "float64 clip + Adam (plain_bar: without it)",
+          "card": ctx["card"]})
+
+
+def phase_latent_flagship(ctx):
+    """latent_diffsep_ouve at full width, seeded weights: cli.evaluate
+    --latent on synthetic 8.415 s items; separate_latent directly at batch
+    4 in f32 and bf16 with the same draws; one f32 call split into VAE
+    encode, sampler and VAE decode; one call replayed at N = 2 under the
+    profiler."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.configs import latent_diffsep_ouve
+    from ditsep_tpu_torch.data import SyntheticMixDataset
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+
+    args = ["--latent", "--config", "latent_diffsep_ouve", "--synthetic",
+            "--synthetic-items", str(LATENT_EVAL_ITEMS),
+            "--synthetic-len-s", str(FLAGSHIP_SAMPLES / FS),
+            "--eval-batch-size", str(LATENT_BATCH), "--sampler-N",
+            str(N_STEPS), "--seed", "0"]
+    torch.cuda.reset_peak_memory_stats()
+    ev = run_evaluate(args, LATENT_LAUNCHES_PER_FORWARD)
+    ev["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ctx["latent_launches"] = {"evaluate_latent": ev["launches"]}
+
+    ds = SyntheticMixDataset(n_items=LATENT_BATCH, min_len_s=FLAGSHIP_SAMPLES
+                             / FS, max_len_s=FLAGSHIP_SAMPLES / FS, seed=11)
+    mix = torch.from_numpy(np.stack([ds[i][0] for i in range(LATENT_BATCH)])
+                           ).cuda()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    tl = -(-FLAGSHIP_SAMPLES // 2048)
+    lat = (LATENT_BATCH, 64, tl)
+    shape = (LATENT_BATCH, 2, 64, tl)
+    enc = torch.randn(lat, generator=g, device="cuda")
+    noise = (torch.randn(shape, generator=g, device="cuda"),
+             torch.randn((N_STEPS, 1) + shape, generator=g, device="cuda"),
+             torch.randn((N_STEPS,) + shape, generator=g, device="cuda"))
+    results, ests = {}, {}
+    for dtype in ("f32", "bf16"):
+        tr = latent_trainer(latent_diffsep_ouve(), "cuda", dtype)
+        warm = (noise[0], noise[1][:2], noise[2][:2])  # cuDNN's setup
+        tr.separate_latent(mix, target_dim=FLAGSHIP_SAMPLES, N=2,
+                           enc_noise=enc, noise=warm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.fir_down2d.launches = 0
+        t0 = time.perf_counter()
+        est, nfe = tr.separate_latent(mix, target_dim=FLAGSHIP_SAMPLES,
+                                      N=N_STEPS, enc_noise=enc, noise=noise)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = ck.fir_down2d.launches
+        check(nfe == 2 * N_STEPS, f"latent {dtype} NFE {nfe}")
+        check(tuple(est.shape) == (LATENT_BATCH, 2, FLAGSHIP_SAMPLES)
+              and bool(torch.isfinite(est).all()),
+              f"latent {dtype} output shape / finiteness")
+        check(launches == LATENT_LAUNCHES_PER_FORWARD * nfe,
+              f"latent {dtype} launches {launches}")
+        results[dtype] = {"seconds": sec, "utt_per_s": LATENT_BATCH / sec,
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2 ** 30, "launches": launches, "nfe": nfe}
+        ests[dtype] = est.float().cpu().numpy()
+        if dtype == "f32":
+            results["split_f32"] = latent_call_split(tr, mix, enc, noise)
+            results["profiled_call_f32"] = {"N": 2, **profile_replay(
+                lambda: tr.separate_latent(
+                    mix, target_dim=FLAGSHIP_SAMPLES, N=2, enc_noise=enc,
+                    noise=warm)[1])}
+        ctx["latent_launches"]["separate_latent"] = launches
+        del tr, est
+        torch.cuda.empty_cache()
+    agree = si_sdr_db(ests["bf16"], ests["f32"])
+    emit({"phase": "latent_flagship", "config": "latent_diffsep_ouve (VAE "
+          "channels 128, hop 2048, latent 64; U-Net nf=128 ch_mult (1,2,2); "
+          "seeded weights, zero-init layers at unit scale)",
+          "samples": FLAGSHIP_SAMPLES, "latent_frames": tl, "N": N_STEPS,
+          "evaluate_cli": {"items": LATENT_EVAL_ITEMS,
+                           "batch": LATENT_BATCH, **ev},
+          "batch": LATENT_BATCH, "tf32_conv": True, **results,
+          "bf16_vs_f32_si_sdr_db": {"mean": float(agree.mean()),
+                                    "min": float(agree.min())},
+          "timing": "host clock between two synchronizations; the split: "
+                    "synchronized around encode, sampling and decode",
+          "card": ctx["card"]})
+
+
+def latent_call_split(tr, mix, enc, noise) -> dict:
+    """One f32 separate_latent call in its three parts, each between two
+    synchronizations: VAE encode (the posterior sample), the sampler, VAE
+    decode."""
+    import torch
+    marks = [time.perf_counter()]
+    lat, _ = tr.encode(mix, None, draws={"enc_mix_z": enc})
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    est, nfe = tr.sample_latents(lat, latent=True, N=N_STEPS, noise=noise)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    tr.decode(est, FLAGSHIP_SAMPLES)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    enc_ms, samp_ms, dec_ms = (1e3 * (b - a) for a, b in zip(marks,
+                                                             marks[1:]))
+    return {"vae_encode_ms": enc_ms, "sampler_ms": samp_ms,
+            "ms_per_score_call": samp_ms / nfe, "vae_decode_ms": dec_ms,
+            "vae_share": (enc_ms + dec_ms) / (enc_ms + samp_ms + dec_ms)}
+
+
+def phase_latent_train(ctx):
+    """cli.train_diffsep_latent at full width (the config's batch 16 of
+    5 s synthetic crops, 4 steps, one validation): steps/s over steps
+    2-4, peak memory, launches; then cli.cache_latents on 2 items at
+    N = 30."""
+    import gc
+
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.cli import cache_latents, train_diffsep_latent
+    from ditsep_tpu_torch.data import LatentDataset
+    from ditsep_tpu_torch.training.diffsep_latent import LatentDiffSepTrainer
+
+    spans, losses = [], []
+    real_step = LatentDiffSepTrainer.train_step_latent
+
+    def timed_step(self, state, batch, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = real_step(self, state, batch, **kw)
+        losses.append(met["train/score_loss"].item())  # syncs
+        spans.append(time.perf_counter() - t0)
+        return state, met
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp, "run")
+        LatentDiffSepTrainer.train_step_latent = timed_step
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            state = train_diffsep_latent.main([
+                "--synthetic", "--synthetic-items", str(LATENT_TRAIN_ITEMS),
+                "--synthetic-len-s", str(LATENT_TRAIN_LEN_S), "--max-steps",
+                str(LATENT_TRAIN_STEPS), "--workdir", str(work)])
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            launches = counts()
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            LatentDiffSepTrainer.train_step_latent = real_step
+        check(state.step == LATENT_TRAIN_STEPS == len(losses),
+              f"latent train steps {state.step}, timed {len(losses)}")
+        check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+        per_val = (2 + 2 * N_STEPS) * LATENT_LAUNCHES_PER_FORWARD
+        want = {"fir_down2d": LATENT_TRAIN_STEPS * 2
+                * LATENT_LAUNCHES_PER_FORWARD + per_val,
+                "fir_up2d": LATENT_TRAIN_STEPS * 2
+                * LATENT_UP_LAUNCHES_PER_BACKWARD}
+        want.update({k: 0 for k in launches if k not in want})
+        check(launches == want, f"latent train launches {launches}, want "
+                                f"{want}")
+        vals = [json.loads(ln) for ln in open(work / "metrics.jsonl")
+                if "val/si_sdr" in ln]
+        check(len(vals) == 1 and math.isfinite(vals[0]["val/si_sdr"])
+              and math.isfinite(vals[0]["val/score_loss"]),
+              f"latent validations {vals}")
+        check((work / "ema.npz").exists()
+              and (work / "checkpoints" / "latest" / "state.pt").exists(),
+              "latent train outputs")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx["latent_launches"]["train_cli_latent_diffsep_ouve"] = launches
+
+        cache = Path(tmp, "cache")
+        reset_counts()
+        t0 = time.perf_counter()
+        n = cache_latents.main([
+            "--synthetic", "--synthetic-items", str(LATENT_CACHE_ITEMS),
+            "--synthetic-len-s", str(FLAGSHIP_SAMPLES / FS), "--sampler-N",
+            str(N_STEPS), "--out-dir", str(cache), "--seed", "0"])
+        torch.cuda.synchronize()
+        cache_s = time.perf_counter() - t0
+        cache_launches = counts()
+        want_c = LATENT_LAUNCHES_PER_FORWARD * 2 * N_STEPS * n
+        check(n == LATENT_CACHE_ITEMS
+              and cache_launches["fir_down2d"] == want_c
+              and all(v == 0 for k, v in cache_launches.items()
+                      if k != "fir_down2d"),
+              f"cache_latents: {n} items, launches {cache_launches}")
+        ds = LatentDataset(str(cache))
+        tl = -(-FLAGSHIP_SAMPLES // 2048)
+        for i in range(len(ds)):
+            tgt, lat = ds[i]
+            check(lat.shape == (2, 64, tl) and np.isfinite(lat).all()
+                  and tgt.shape == (2, FLAGSHIP_SAMPLES),
+                  f"cached latent {i}: {lat.shape} {tgt.shape}")
+        ctx["latent_launches"]["cache_latents"] = cache_launches["fir_down2d"]
+    timed = spans[1:]  # steps 2-4: the first warms cuDNN
+    steps_per_s = len(timed) / sum(timed)
+    emit({"phase": "latent_train", "config": "latent_diffsep_ouve (seeded "
+          "weights), batch 16 of 5.0 s synthetic crops (40,960 samples "
+          "after bucketing: 20 latent frames)", "steps": LATENT_TRAIN_STEPS,
+          "losses": losses, "step_s": spans, "steps_per_s_2_4": steps_per_s,
+          "items_per_s_2_4": LATENT_TRAIN_BATCH * steps_per_s,
+          "total_s": total_s, "peak_gib": peak_gib, "validations": vals,
+          "launches": launches,
+          "timing": "host clock around each train_step_latent, "
+                    "synchronized before and after; TF32 convs",
+          "cache_latents": {"items": n, "N": N_STEPS, "seconds": cache_s,
+                            "launches": cache_launches["fir_down2d"]},
+          "card": ctx["card"]})
+
+
 def main() -> int:
     try:
         import torch
@@ -1798,6 +2262,10 @@ def main() -> int:
     phase_upsample(ctx)
     phase_families(ctx)
     phase_families_train(ctx)
+    phase_latent_kernel(ctx)
+    phase_latent_parity(ctx)
+    phase_latent_flagship(ctx)
+    phase_latent_train(ctx)
 
     t = ctx["kernel_times"]["float32"]
     fba = ctx["fba"]["times"]["float32"]
@@ -1814,7 +2282,9 @@ def main() -> int:
             "longform_cli": ctx["longform_launches"],
             **ctx["families_launches"],
             **{f"train_cli_{k}": v["fir_down2d"] for k, v
-               in ctx["families_train_launches"].items()}},
+               in ctx["families_train_launches"].items()},
+            **{k: v["fir_down2d"] if isinstance(v, dict) else v
+               for k, v in ctx["latent_launches"].items()}},
         "max_abs_err": ctx["kernel_err"][torch.float32],
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": "bytes",
@@ -1829,7 +2299,9 @@ def main() -> int:
         "launches_by_path": {
             "train_cli_diffsep_icassp": ctx["train_launches"]["fir_up2d"],
             **{f"train_cli_{k}": v["fir_up2d"] for k, v
-               in ctx["families_train_launches"].items()}},
+               in ctx["families_train_launches"].items()},
+            "train_cli_latent_diffsep_ouve": ctx["latent_launches"][
+                "train_cli_latent_diffsep_ouve"]["fir_up2d"]},
         "max_abs_err": ctx["up"]["err"][torch.float32],
         "ms": up["kernel_ms"], "plain_ms": up["plain_ms"],
         "bound_ms": up["bound_ms"], "bound_by": "bytes",

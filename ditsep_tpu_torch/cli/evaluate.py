@@ -6,6 +6,11 @@ unless --cpu is given.
     python -m ditsep_tpu_torch.cli.evaluate --config diffsep \\
         [--params X.npz] [--data-path DIR | --synthetic] \\
         [--sampler pc|ab2] [--mask-padding] [--out-dir DIR] [--cpu]
+
+``--latent`` evaluates the latent pipeline (``--config
+latent_diffsep_ouve``, the VAE's weights from ``--vae-params``): encode,
+PC with the ald corrector in the latent space, decode; sample-domain
+buckets (``--bucket-multiple``).
 """
 from __future__ import annotations
 
@@ -14,7 +19,9 @@ import json
 
 from ditsep_tpu_torch.cli.common import (add_common_args, load_config,
                                          make_dataset)
-from ditsep_tpu_torch.configs import build_diffsep_trainer
+from ditsep_tpu_torch.configs import (
+    build_diffsep_trainer, build_latent_trainer,
+)
 from ditsep_tpu_torch.eval import evaluate_dataset
 from ditsep_tpu_torch.utils.device import resolve_device
 
@@ -38,8 +45,8 @@ def main(argv=None) -> dict:
     p.add_argument("--eval-batch-size", type=int, default=4)
     p.add_argument("--bucket-multiple", type=int, default=4096,
                    help="sample-domain bucket granularity, used only by "
-                        "--no-proc; the model path buckets by the score "
-                        "model's 64-frame STFT blocks")
+                        "--latent and --no-proc; the waveform model path "
+                        "buckets by the score model's 64-frame STFT blocks")
     p.add_argument("--max-buckets", type=int, default=24,
                    help="cap on distinct padded lengths; past it the "
                         "sparsest frame blocks merge upward, padding their "
@@ -63,10 +70,14 @@ def main(argv=None) -> dict:
                    help="mixture baseline: score the raw mix, no model "
                         "(nfe 0)")
     p.add_argument("--latent", action="store_true",
-                   help="the latent pipeline (not ported yet, ROADMAP A11)")
+                   help="the latent pipeline: encode -> latent PC -> decode")
+    p.add_argument("--vae-params", default=None,
+                   help="npz with the OobleckVAE's parameters (--latent)")
     args = p.parse_args(argv)
-    if args.latent:
-        raise NotImplementedError("--latent is not ported yet (ROADMAP A11)")
+    if args.latent and args.sampler != "pc":
+        raise SystemExit("--sampler ab2 is not wired for the latent path "
+                         "(separate_latent follows the reference 'ald' PC "
+                         "config)")
     if args.mesh:
         raise NotImplementedError("--mesh is not ported yet (ROADMAP A14)")
     if args.save_figures:
@@ -102,26 +113,40 @@ def main(argv=None) -> dict:
         print(json.dumps(res["summary"], indent=2))
         return res
 
-    trainer = build_diffsep_trainer(cfg, device=device, seed=args.seed,
-                                    params_npz=args.params)
+    if args.latent:
+        trainer = build_latent_trainer(cfg, device=device, seed=args.seed,
+                                       params_npz=args.params,
+                                       vae_params_npz=args.vae_params)
 
-    def sep(mix, lengths=None, generator=None):
-        return trainer.separate(mix, N=args.sampler_N, snr=args.snr,
-                                corrector_steps=args.corrector_steps,
-                                sampler=args.sampler, lengths=lengths,
-                                generator=generator)[0]
+        def sep(mix, lengths=None, generator=None):
+            return trainer.separate_latent(mix, target_dim=mix.shape[-1],
+                                           N=args.sampler_N,
+                                           generator=generator)[0]
+    else:
+        trainer = build_diffsep_trainer(cfg, device=device, seed=args.seed,
+                                        params_npz=args.params)
+
+        def sep(mix, lengths=None, generator=None):
+            return trainer.separate(mix, N=args.sampler_N, snr=args.snr,
+                                    corrector_steps=args.corrector_steps,
+                                    sampler=args.sampler, lengths=lengths,
+                                    generator=generator)[0]
 
     # the JAX package's count, for every config: N for ab2, else N x
     # (corrector steps + 1), the bridge sampler's N evaluations included
     nfe = (args.sampler_N if args.sampler == "ab2"
            else args.sampler_N * (args.corrector_steps + 1))
     # bucket by the score model's own STFT frame blocks: each utterance
-    # keeps the quiet fraction of its native-length evaluation
-    frame_spec = (sm.get("n_fft", 510), sm.get("hop_length", 128), 64)
+    # keeps the quiet fraction of its native-length evaluation; the latent
+    # model pads its frames only to a multiple of max_latent_length (4),
+    # so sample-domain buckets serve it
+    frame_spec = (None if args.latent else
+                  (sm.get("n_fft", 510), sm.get("hop_length", 128), 64))
     res = evaluate_dataset(sep, ds, nfe=nfe, frame_spec=frame_spec,
                            save_samples=args.save_samples,
                            warmup=not args.no_warmup,
-                           pass_lengths=args.mask_padding, **common)
+                           pass_lengths=args.mask_padding and not args.latent,
+                           **common)
     print(json.dumps(res["summary"], indent=2))
     return res
 

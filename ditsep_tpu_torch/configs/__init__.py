@@ -2,14 +2,17 @@
 ditsep_tpu/configs/__init__.py: ``diffsep`` and ``diffsep_icassp``
 (MixSDE), ``diffsep_ouve`` (OUVESDE), ``diffsep_sb`` (SBVESDE with EDM
 preconditioning) and ``enhancement`` (PriorMixSDE at 16 kHz on
-VCTK-DEMAND); and ``override`` for dotted-path overrides. The latent
-families are not ported yet (``UNPORTED_FAMILIES``)."""
+VCTK-DEMAND), ``latent_diffsep_ouve`` (OUVESDE in the OobleckVAE's latent
+space); and ``override`` for dotted-path overrides. The LDM decoder
+finetune family is not ported yet (``UNPORTED_FAMILIES``)."""
 from __future__ import annotations
 
 import copy
 from typing import Any, Dict, Optional
 
-from ditsep_tpu_torch.configs.build import build_diffsep_trainer  # noqa: F401
+from ditsep_tpu_torch.configs.build import (  # noqa: F401
+    build_diffsep_trainer, build_latent_trainer, build_oobleck_vae,
+)
 
 
 def override(cfg: Dict[str, Any], overrides: Optional[Dict[str, Any]] = None
@@ -147,16 +150,60 @@ def enhancement() -> Dict[str, Any]:
     return cfg
 
 
+def latent_diffsep_ouve() -> Dict[str, Any]:
+    """Latent-domain separation: the latent NCSN++ with OUVESDE (theta 1.5,
+    sigma in [0.96, 10]) on the frozen oobleck_finetune VAE (hop 2048,
+    64 latent channels, 8 kHz)."""
+    return {
+        "name": "latent_diffsep_ouve",
+        "model": {
+            **_TRAIN_COMMON,
+            "train_source_order": "pit",
+            "score_model": {
+                "kind": "LatentScoreModelNCSNpp",
+                "num_sources": 2,
+                "nf": 128,
+                "ch_mult": (1, 2, 2),
+                "num_res_blocks": 2,
+                "attn_resolutions": (16,),
+                "resamp_with_conv": True,
+                "image_size": 64,
+                "centered": True,
+                "max_latent_length": 4,
+            },
+            "vae": dict(_OOBLECK_FINETUNE),
+            "sde": {"kind": "ouve", "theta": 1.5, "sigma_min": 0.96,
+                    "sigma_max": 10.0, "N": 30},
+            "sampler": {"N": 30, "snr": 0.5, "corrector_steps": 1},
+        },
+        "datamodule": _datamodule_default(),
+        "trainer": {"accumulate_grad_batches": 4, "precision": "bf16"},
+    }
+
+
+_OOBLECK_FINETUNE = {
+    # the reference's oobleck_finetune.json autoencoder
+    "in_channels": 1,
+    "out_channels": 1,
+    "channels": 128,
+    "latent_dim": 64,
+    "c_mults": (1, 2, 4, 8, 16),
+    "strides": (2, 4, 4, 8, 8),
+    "sample_rate": 8000,
+    "sample_size": 247808,
+}
+
+
 CONFIG_FAMILIES = {
     "diffsep": diffsep,
     "diffsep_icassp": diffsep_icassp,
     "diffsep_ouve": diffsep_ouve,
     "diffsep_sb": diffsep_sb,
     "enhancement": enhancement,
+    "latent_diffsep_ouve": latent_diffsep_ouve,
 }
 
 # the JAX package's other families, and the ROADMAP item that ports each
 UNPORTED_FAMILIES = {
-    "latent_diffsep_ouve": "ROADMAP A11 (the latent path)",
     "ldm": "ROADMAP A13 (the LDM decoder finetune)",
 }

@@ -1,6 +1,10 @@
 """Models of the PyTorch port, mirroring ditsep_tpu.models."""
 from ditsep_tpu_torch.models.ncsnpp import NCSNpp  # noqa: F401
-from ditsep_tpu_torch.models.score_models import ScoreModelNCSNpp  # noqa: F401
+from ditsep_tpu_torch.models.oobleck import OobleckVAE  # noqa: F401
+from ditsep_tpu_torch.models.score_models import (  # noqa: F401
+    LatentScoreModelNCSNpp, ScoreModelNCSNpp,
+)
 from ditsep_tpu_torch.models.weights import (  # noqa: F401
-    load_params_npz, params_from_jax, params_to_jax, save_params_npz,
+    load_params_npz, oobleck_params_from_jax, oobleck_params_to_jax,
+    params_from_jax, params_to_jax, save_params_npz,
 )

@@ -159,3 +159,59 @@ class ScoreModelNCSNpp(nn.Module):
                      else None)
         h = self.backbone(h, time_cond, time_mask=time_mask)
         return self.post_process(h, n_samples, n_pad)
+
+
+class LatentScoreModelNCSNpp(nn.Module):
+    """The latent-domain score network (port of ditsep_tpu/models/
+    score_models.py:191-244): forward(xt (B, n_src, D, Tl), time_cond,
+    mix (B, 1, D, Tl)) concatenates the channels, zero-pads Tl on the
+    right to a multiple of ``max_latent_length``, runs NCSN++ on (B,
+    n_src + 1, D, Tl) with the latent dimension D as its height, and crops
+    the pad. Returns float32.
+
+    ``mask_padding``: the padded frames are masked out of every GroupNorm
+    and attention statistic; with ``lengths`` (B,), each item's count of
+    valid latent frames, each item's tail too."""
+
+    def __init__(
+        self,
+        num_sources: int = 2,
+        max_latent_length: int = 4,
+        nf: int = 128,
+        ch_mult: Tuple[int, ...] = (1, 2, 2),
+        num_res_blocks: int = 2,
+        attn_resolutions: Tuple[int, ...] = (16,),
+        resamp_with_conv: bool = True,
+        image_size: int = 64,
+        centered: bool = True,
+        dropout: float = 0.0,
+        mask_padding: bool = False,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        self.max_latent_length = max_latent_length
+        self.mask_padding = mask_padding
+        self.backbone = NCSNpp(
+            nf=nf, ch_mult=tuple(ch_mult), num_res_blocks=num_res_blocks,
+            attn_resolutions=tuple(attn_resolutions),
+            resamp_with_conv=resamp_with_conv, image_size=image_size,
+            centered=centered, dropout=dropout,
+            num_channels_in=num_sources + 1, num_channels_out=num_sources,
+            dtype=dtype)
+
+    def forward(self, xt: Tensor, time_cond: Tensor, mix: Tensor, *,
+                lengths: Optional[Tensor] = None) -> Tensor:
+        x = torch.cat([xt, mix], dim=1)
+        n_t = x.shape[-1]
+        n_pad = -n_t % self.max_latent_length
+        if n_pad:
+            x = F.pad(x, (0, n_pad))
+        time_mask = None
+        if self.mask_padding:
+            t_idx = torch.arange(n_t + n_pad, device=x.device)
+            if lengths is None:
+                time_mask = (t_idx < n_t).expand(x.shape[0], n_t + n_pad)
+            else:
+                time_mask = t_idx[None, :] < lengths.to(x.device)[:, None]
+        h = self.backbone(x, time_cond, time_mask=time_mask).float()
+        return h[..., :n_t] if n_pad else h

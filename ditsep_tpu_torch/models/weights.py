@@ -12,6 +12,15 @@ conv HWIO -> OIHW, Dense (in, out) -> (out, in), GroupNorm ``scale`` ->
 GroupNorm's ``scale`` or a conv's or Dense's ``kernel``), and
 ``save_params_npz`` writes it, so weights trained by the port load into
 both packages.
+
+The OobleckVAE has a bridge of its own (``oobleck_params_from_jax`` /
+``oobleck_params_to_jax``, a copy of ditsep_tpu/models/torch_import.py:
+151-205's key map and its inverse): the flax tree (``encoder/stem/v``,
+``encoder/block_i/res_j/conv_k/g``, SnakeBeta ``alpha`` / ``beta``)
+against the reference's ``nn.Sequential`` keys, ``v`` WIO (k, in, out) <->
+(out, in, k) (a transposed conv's (k, out, in) <-> (in, out, k)) and ``g``
+(n,) <-> (n, 1, 1). ``load_params_npz`` and ``save_params_npz`` take it for
+an OobleckVAE.
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+
+from ditsep_tpu_torch.models.oobleck import OobleckVAE
 
 
 def flax_path_to_torch_key(path: Tuple[str, ...]) -> Optional[str]:
@@ -102,20 +113,25 @@ def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
 
 
 def save_params_npz(path: str, model: nn.Module) -> None:
-    """Write ``params_to_jax(model)`` as a flat ``.npz`` (the layout of
-    ditsep_tpu/utils/checkpoint.py:save_params_npz), atomically: a
-    sibling temp file renamed over the target."""
+    """Write ``params_to_jax(model)`` (``oobleck_params_to_jax`` for an
+    OobleckVAE) as a flat ``.npz`` (the layout of ditsep_tpu/utils/
+    checkpoint.py:save_params_npz), atomically: a sibling temp file renamed
+    over the target."""
     tmp = f"{path}.tmp-{os.getpid()}.npz"
-    np.savez(tmp, **params_to_jax(model))
+    flat = (oobleck_params_to_jax(model) if isinstance(model, OobleckVAE)
+            else params_to_jax(model))
+    np.savez(tmp, **flat)
     os.replace(tmp, path if path.endswith(".npz") else f"{path}.npz")
 
 
 def load_params_npz(path: str, model: nn.Module) -> nn.Module:
     """Load a JAX ``.npz`` parameter export into ``model`` (strict: every
     key and shape must match). ``backbone.`` is added or stripped to fit a
-    ScoreModelNCSNpp or a bare NCSNpp."""
+    score model or a bare NCSNpp; an OobleckVAE reads the VAE's tree."""
     with np.load(path) as data:
-        state = params_from_jax({k: data[k] for k in data.files})
+        flat = {k: data[k] for k in data.files}
+    state = (oobleck_params_from_jax(flat) if isinstance(model, OobleckVAE)
+             else params_from_jax(flat))
     want = model.state_dict()
     model_prefixed = all(k.startswith("backbone.") for k in want)
     state_prefixed = all(k.startswith("backbone.") for k in state)
@@ -136,3 +152,125 @@ def load_params_npz(path: str, model: nn.Module) -> nn.Module:
         state[k] = v.to(want[k].dtype)
     model.load_state_dict(state, strict=True)
     return model
+
+
+# -------------------------------------------------------------- OobleckVAE --
+_OOBLECK_LEAVES = {"v": "weight_v", "g": "weight_g", "bias": "bias",
+                   "alpha": "alpha", "beta": "beta"}
+# ResidualUnit.layers: 0 act, 1 conv k=7, 2 act, 3 conv k=1
+_RES_LOCAL = {"conv_0": "layers.1", "conv_1": "layers.3",
+              "act_0": "layers.0.act", "act_1": "layers.2.act"}
+
+
+def oobleck_flax_path_to_torch_key(path: Tuple[str, ...],
+                                   n_blocks: int = 5) -> Optional[str]:
+    """An OobleckVAE flax parameter path -> the reference state_dict key
+    (EncoderBlock.layers: 0-2 residual units, 3 act, 4 down; DecoderBlock:
+    0 act, 1 up, 2-4 residual units; the stem at 0, the blocks at 1..n,
+    the top act at n + 1, the head at n + 2). None when unmapped."""
+    parts = list(path)
+    leaf = parts.pop()
+    if leaf not in _OOBLECK_LEAVES or len(parts) < 2:
+        return None
+    side, rest = parts[0], parts[1:]
+    out = [side]
+    if rest[0] == "stem":
+        out.append("layers.0")
+    elif rest[0] == "head":
+        out.append(f"layers.{n_blocks + 2}")
+    elif rest[0] == "act":
+        out.append(f"layers.{n_blocks + 1}.act")
+    elif rest[0].startswith("block_") and len(rest) >= 2:
+        out.append(f"layers.{int(rest[0][6:]) + 1}")
+        if rest[1].startswith("res_") and len(rest) == 3:
+            r = int(rest[1][4:])
+            out += [f"layers.{r if side == 'encoder' else 2 + r}",
+                    _RES_LOCAL[rest[2]]]
+        elif side == "encoder" and rest[1] in ("down", "act"):
+            out.append({"down": "layers.4", "act": "layers.3.act"}[rest[1]])
+        elif side == "decoder" and rest[1] in ("up", "act"):
+            out.append({"up": "layers.1", "act": "layers.0.act"}[rest[1]])
+        else:
+            return None
+    else:
+        return None
+    out.append(_OOBLECK_LEAVES[leaf])
+    return ".".join(out)
+
+
+def oobleck_torch_key_to_flax_path(key: str, n_blocks: int) -> str:
+    """The inverse of ``oobleck_flax_path_to_torch_key``, as "a/b/c"."""
+    leaves = {v: k for k, v in _OOBLECK_LEAVES.items()}
+    res_local = {v: k for k, v in _RES_LOCAL.items()}
+    parts = key.split(".")
+    side, idx, rest, leaf = parts[0], int(parts[2]), parts[3:-1], parts[-1]
+    if parts[1] != "layers" or leaf not in leaves:
+        raise KeyError(f"{key} is not an OobleckVAE key")
+    if idx == 0:
+        path = ["stem"]
+    elif idx == n_blocks + 2:
+        path = ["head"]
+    elif idx == n_blocks + 1:
+        path = ["act"]
+    else:
+        path = [f"block_{idx - 1}"]
+        sub = int(rest[1])
+        if side == "encoder":
+            named = {3: "act", 4: "down"}
+            first_res = 0
+        else:
+            named = {0: "act", 1: "up"}
+            first_res = 2
+        if sub in named:
+            path.append(named[sub])
+        else:
+            path += [f"res_{sub - first_res}",
+                     res_local[".".join(rest[2:])]]
+    return "/".join([side, *path, leaves[leaf]])
+
+
+def _oobleck_n_blocks(keys) -> int:
+    """The block count of a flat VAE tree (or of a lone encoder's or
+    decoder's)."""
+    return max(len({k.split("/")[1] for k in keys
+                    if k.startswith(f"{side}/block_")})
+               for side in ("encoder", "decoder"))
+
+
+def oobleck_params_from_jax(flat: Mapping[str, np.ndarray]
+                            ) -> Dict[str, torch.Tensor]:
+    """``{"encoder/stem/v": array, ...}`` OobleckVAE parameters (with or
+    without ``params/``) -> the reference state_dict."""
+    flat = {(k[len("params/"):] if k.startswith("params/") else k): v
+            for k, v in flat.items()}
+    n_blocks = _oobleck_n_blocks(flat)
+    out = {}
+    for key, arr in flat.items():
+        tkey = oobleck_flax_path_to_torch_key(tuple(key.split("/")),
+                                              n_blocks)
+        if tkey is None:
+            raise KeyError(f"OobleckVAE parameter {key!r} has no torch "
+                           "counterpart")
+        a = np.asarray(arr)
+        if key.endswith("/v"):
+            a = a.transpose(2, 1, 0)
+        elif key.endswith("/g"):
+            a = a.reshape(-1, 1, 1)
+        out[tkey] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+def oobleck_params_to_jax(vae: nn.Module) -> Dict[str, np.ndarray]:
+    """An OobleckVAE's parameters as the JAX package's flat tree (float32
+    numpy arrays in the flax layouts)."""
+    n_blocks = len(vae.strides)
+    out = {}
+    for key, t in vae.state_dict().items():
+        a = t.detach().float().cpu().numpy()
+        if key.endswith("weight_v"):
+            a = a.transpose(2, 1, 0)
+        elif key.endswith("weight_g"):
+            a = a.reshape(-1)
+        out[oobleck_torch_key_to_flax_path(key, n_blocks)] = (
+            np.ascontiguousarray(a))
+    return out

@@ -1,6 +1,7 @@
 """Times of ``fir_down2d`` at every shape of the main path, on one CUDA card.
 
     python -m ditsep_tpu_torch.scripts.fir_timing [--iters 30] [--force]
+        [--backward] [--latent]
 
 The flagship U-Net (``diffsep_icassp``: nf=128, ch_mult (1,1,2,2,2,2,2))
 downsamples by FIR at six levels: twice in each down block, on
@@ -30,6 +31,19 @@ level).
 
 ``--force`` also times the scalar path where the vector one applies.
 
+``--latent`` times the latent U-Net's shapes instead (``LatentScoreModel
+NCSNpp`` of latent_diffsep_ouve: nf 128, ch_mult (1, 2, 2), the VAE's 64
+latent channels as the height): at each of its two level transitions the
+down block's two launches on (B, C, 64 >> i, Tl >> i), C = 128, 256, and
+the input pyramid's on (B, 3, ...): 6 launches a forward, at (batch, Tl)
+= (1, 36), (4, 36) (an 8.415 s separation: 33 latent frames padded to
+36) and (1, 20), (16, 20) (a 5 s train crop), f32 and bf16, NCHW, each
+row with the plan's path (fir_down2d's vector path needs W a multiple of
+8 / 16, so none takes it); then the sums over a forward's 6 launches.
+With ``--backward``, ``fir_up2d`` at the down-block shapes (its vector
+path needs W a multiple of 4 / 8: level 0 in f32) and the sums over the 4
+launches of a forward's backward.
+
 ``--backward`` times ``fir_up2d``, the downsample's backward, instead: at
 the 12 down-block shapes of the flagship train step, (6, C, 256 x 384 >>
 i) as the forward's input (g a quarter of it), in f32 and bf16, NCHW,
@@ -54,6 +68,12 @@ L2_SPAN = 2       # the bytes a timing graph cycles through, in L2 sizes
 MAX_CALLS = 256   # calls of one timing graph, at most
 TRAIN_BATCH = 6   # the flagship's train batch
 TRAIN_HW = (256, 384)  # 40,960 samples: 323 frames padded to 384
+LATENT_D = 64     # the latent U-Net's height: the VAE's latent channels
+LATENT_DOWN_CHANNELS = (128, 256)  # nf 128, ch_mult (1, 2, 2)
+LATENT_PYRAMID_CHANNELS = 3        # the sources and the mixture
+# (batch, latent frames): an 8.415 s separation at batch 1 and 4, a 5 s
+# train crop at batch 1 and the config's 16
+LATENT_CASES = ((1, 36), (4, 36), (1, 20), (16, 20))
 
 
 def main_path_shapes(batch: int) -> list:
@@ -144,6 +164,7 @@ def time_shape(shape, dtype, channels_last: bool, bandwidth: float,
     plain = [lambda xi=xi: ck.downsample_2d_plain(xi, FIR_K) for xi in xs]
     row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
            "layout": "channels_last" if channels_last else "nchw",
+           "path": ck.fir_down2d.plan(x)["path"],
            "kernel_ms": graph_ms(kern, calls),
            "plain_ms": graph_ms(plain, calls),
            "library_ms": graph_ms(lib, calls),
@@ -221,6 +242,7 @@ def _time_up_shape(shape, dtype, channels_last, bandwidth, iters, seed):
             for gi in gs]
     return {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
             "layout": "channels_last" if channels_last else "nchw",
+            "path": ck.fir_up2d.plan(gy, (h, w))["path"],
             "kernel_ms": graph_ms(kern, calls),
             "plain_ms": graph_ms([lambda gi=gi: ck.downsample_2d_bwd_plain(
                 gi, FIR_K, (h, w)) for gi in gs], calls),
@@ -296,6 +318,54 @@ def time_main_path(bandwidth: float, batches=(1, 4), iters: int = 30,
     return out + forward_sums(out)
 
 
+def latent_path_shapes(batch: int, tl: int) -> list:
+    """(kind, level, NCHW shape) of the latent U-Net's fir_down2d inputs
+    at ``tl`` latent frames."""
+    out = []
+    for i, c in enumerate(LATENT_DOWN_CHANNELS):
+        h, w = LATENT_D >> i, tl >> i
+        out += [("down", i, (batch, c, h, w)),
+                ("pyramid", i, (batch, LATENT_PYRAMID_CHANNELS, h, w))]
+    return out
+
+
+def time_latent_path(bandwidth: float, backward: bool = False,
+                     iters: int = 30) -> list:
+    """Rows at the latent U-Net's shapes of every LATENT_CASES entry, f32
+    and bf16, NCHW (``backward``: fir_up2d at the down-block shapes), then
+    per case and dtype the sums over a forward's 6 launches (2 a down
+    block, 1 a pyramid level) or a forward's backward's 4 (2 a down
+    block)."""
+    import torch
+    rows, sums = [], []
+    for batch, tl in LATENT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            mine = []
+            for kind, _, shape in latent_path_shapes(batch, tl):
+                if backward and kind == "pyramid":
+                    continue
+                row = (time_up_shape(shape, dtype, False, bandwidth, iters)
+                       if backward else
+                       time_shape(shape, dtype, False, bandwidth, iters))
+                row["weight"] = 2 if kind == "down" else 1
+                mine.append(row)
+            rows += mine
+            tot = {k: sum(r["weight"] * r[k] for r in mine)
+                   for k in ("kernel_ms", "plain_ms", "library_ms",
+                             "bound_ms")}
+            sums.append({"per_forward" if not backward
+                         else "per_backward": True, "batch": batch,
+                         "latent_frames": tl,
+                         "dtype": str(dtype).split(".")[-1],
+                         "launches": sum(r["weight"] for r in mine), **tot,
+                         "kernel_over_bound": tot["kernel_ms"]
+                         / tot["bound_ms"],
+                         "kernel_over_library": tot["kernel_ms"]
+                         / tot["library_ms"]})
+            torch.cuda.empty_cache()
+    return rows + sums
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=30)
@@ -305,13 +375,18 @@ def main(argv=None) -> list:
                          "applies")
     ap.add_argument("--backward", action="store_true",
                     help="time fir_up2d at the train step's shapes")
+    ap.add_argument("--latent", action="store_true",
+                    help="time the latent U-Net's shapes")
     args = ap.parse_args(argv)
     import torch
     from ditsep_tpu_torch.utils.device import card_line, card_peaks
     if not torch.cuda.is_available():
         raise RuntimeError("fir_timing needs a CUDA card")
     card = card_line()
-    if args.backward:
+    if args.latent:
+        rows = time_latent_path(card_peaks(card)[1], args.backward,
+                                args.iters)
+    elif args.backward:
         rows = time_train_path(card_peaks(card)[1], args.iters)
     else:
         rows = time_main_path(card_peaks(card)[1], tuple(args.batches),

@@ -94,7 +94,10 @@ def _draw(draws: Draws, name: str, shape: Sequence[int], kind: str,
     if draws is not None:
         if name not in draws:
             raise KeyError(f"draws has no {name!r} (has {sorted(draws)})")
-        a = torch.as_tensor(np.asarray(draws[name])).to(device)
+        a = draws[name]
+        if not isinstance(a, torch.Tensor):
+            a = torch.tensor(np.asarray(a))
+        a = a.to(device)
         if tuple(a.shape) != tuple(shape):
             raise ValueError(f"draws[{name!r}] has shape {tuple(a.shape)}, "
                              f"want {tuple(shape)}")
@@ -485,9 +488,16 @@ class DiffSepTrainer:
         """One step: normalize -> loss -> grad -> clip -> Adam -> EMA. The
         parameters and the EMA are updated in place; the metrics are
         tensors on the device (reading them syncs)."""
+        (mix, target), _, _ = sep_utils.normalize_batch(batch)
+        return self._apply_step(state, mix, target, generator=generator,
+                                draws=draws)
+
+    def _apply_step(self, state: TrainState, mix: Tensor, target: Tensor, *,
+                    generator=None, draws: Draws = None
+                    ) -> Tuple[TrainState, Dict]:
+        """loss -> grad -> clip -> Adam -> EMA on a prepared batch."""
         model = state.model
         self._check_trainable(model)
-        (mix, target), _, _ = sep_utils.normalize_batch(batch)
         params = list(model.parameters())
         with _mode(model, True), torch.enable_grad():
             loss = self.training_loss(model, mix, target, generator=generator,

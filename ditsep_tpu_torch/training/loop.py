@@ -48,7 +48,10 @@ def fit(trainer, train_dataset, val_dataset=None, *, workdir: str,
         max_epochs: int = 1000, batch_size: int = 16, seed: int = 0,
         valid_max_sep_batches: int = 2, log_every: int = 10,
         resume: bool = False, max_steps: Optional[int] = None):
-    """Train ``trainer`` (a DiffSepTrainer) on its model's device; returns
+    """Train ``trainer`` (a DiffSepTrainer, or anything with its
+    ``model``, ``cfg``, ``sde``, ``init_state``, ``train_step``,
+    ``val_score_loss`` and ``val_separation_metrics``) on its model's
+    device; returns
     the final TrainState. Random draws come from one generator on that
     device, seeded with ``seed``."""
     logger = MetricsLogger(workdir)
@@ -68,13 +71,15 @@ def fit(trainer, train_dataset, val_dataset=None, *, workdir: str,
     val_loader = None
     if val_dataset is not None:
         # validation pads within each item's own 64-frame STFT block, all
-        # padding trailing, as the model sees items at native length
+        # padding trailing, as the model sees items at native length; a
+        # latent model (no STFT) takes sample-domain buckets
         m = trainer.model
+        frame_spec = ((m.n_fft, m.hop_length, 64) if hasattr(m, "n_fft")
+                      else None)
         val_loader = BucketedLoader(
             val_dataset, batch_size=batch_size, n_buckets=2,
-            multiple=BUCKET_MULTIPLE, shuffle=False,
-            frame_spec=(m.n_fft, m.hop_length, 64), align="left",
-            yield_counts=True)
+            multiple=BUCKET_MULTIPLE, shuffle=False, frame_spec=frame_spec,
+            align="left", yield_counts=True)
     try:
         _train_epochs(trainer, state, loader, val_loader, generator, device,
                       logger, ckpt, max_epochs, max_steps, log_every,

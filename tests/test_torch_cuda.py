@@ -795,3 +795,71 @@ def test_edm_train_step_gradient_on_card(cuda_device):
             assert max(want.abs().max(), got.abs().max()) <= 1e-6 * top
         else:
             assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,tl", [(1, 36), (4, 36), (1, 20), (16, 20)])
+def test_fir_kernels_at_latent_shapes_match_plain(
+        cuda_device, dtype, batch, tl):
+    """The latent U-Net's fir_down2d inputs (36 and 20 latent frames: no
+    width a multiple of 2V = 8 / 16) and their gradients: fir_down2d on
+    the scalar path; fir_up2d on its vector path where W is a multiple of
+    its 2V = 4 (f32) / 8 (bf16) and there equal to its scalar path; both
+    the plain versions' bits."""
+    from ditsep_tpu_torch.scripts.fir_timing import latent_path_shapes
+    k = (1, 3, 3, 1)
+    taps = _fir_taps()
+    g = torch.Generator(device=cuda_device).manual_seed(tl)
+    up_v = 2 if dtype == torch.float32 else 4
+    for _, _, shape in latent_path_shapes(batch, tl):
+        x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+        assert cuda_kernels.fir_down2d.plan(x)["path"] == "scalar"
+        y = cuda_kernels.fir_down2d(x, *taps)
+        assert torch.equal(y, cuda_kernels.downsample_2d_plain(x, k))
+        gy = torch.randn(y.shape, generator=g, device=cuda_device).to(dtype)
+        hw = tuple(shape[2:])
+        path = cuda_kernels.fir_up2d.plan(gy, hw)["path"]
+        assert path == ("vector" if hw[1] % (2 * up_v) == 0 else "scalar")
+        dx = cuda_kernels.fir_up2d(gy, *taps, hw)
+        assert torch.equal(dx, cuda_kernels.downsample_2d_bwd_plain(
+            gy, k, hw))
+        assert torch.equal(dx, cuda_kernels.fir_up2d(gy, *taps, hw,
+                                                     force_path="scalar"))
+
+
+@pytest.mark.cuda
+def test_oobleck_vae_on_card_matches_cpu(cuda_device):
+    """A small OobleckVAE with seeded weights: encode (the mode, and a
+    posterior sample with one draw) and decode on the card, TF32 off,
+    within 1e-5 of max|CPU|."""
+    from ditsep_tpu_torch.models import OobleckVAE
+    vae = OobleckVAE(channels=16, c_mults=(1, 2, 4), strides=(2, 4, 8),
+                     latent_dim=8, use_snake=True)
+    vae.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in vae.parameters():  # snake off its zero init
+            p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator()
+                                      .manual_seed(p.numel())))
+    g = torch.Generator().manual_seed(1)
+    audio = 0.3 * torch.randn(2, 1, 4096, generator=g)
+    z = torch.randn(2, 8, 64, generator=g)
+    lat = torch.randn(2, 8, 32, generator=g)
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = (vae.encode(audio), vae.encode(audio, noise=z),
+                    vae.decode(lat))
+            vae.to(cuda_device)
+            got = (vae.encode(audio.to(cuda_device)),
+                   vae.encode(audio.to(cuda_device), noise=z.to(cuda_device)),
+                   vae.decode(lat.to(cuda_device)))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert (a.cpu() - b).abs().max().item() <= 1e-5 * b.abs().max().item()

@@ -164,8 +164,8 @@ def test_cli_evaluate_on_cpu(tmp_path, mode):
                                    for n in res["buckets"].values())
 
 
-@pytest.mark.parametrize("flag", [["--latent"], ["--mesh"],
-                                  ["--config", "latent_diffsep_ouve"],
+@pytest.mark.parametrize("flag", [["--latent", "--mesh"], ["--mesh"],
+                                  ["--config", "ldm"],
                                   ["--save-figures", "1"]])
 def test_unported_evaluate_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

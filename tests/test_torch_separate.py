@@ -197,24 +197,25 @@ def test_cli_separate_on_cpu(tmp_path):
             assert np.isfinite(data).all()
 
 
-@pytest.mark.parametrize("what", ["latent", "mesh", "latent_config",
+@pytest.mark.parametrize("what", ["latent_mesh", "mesh", "latent_demo",
                                   "ldm_config", "save_figures"])
 def test_unported_options_raise(what, tmp_path):
-    """What is not ported yet raises: the latent path and its config
-    (A11), a mesh (A14), the LDM config (A13) and figures (A16)."""
+    """What is not ported yet raises: a mesh on either training CLI (A14),
+    the LDM config (A13), and the latent CLI's demo callbacks and
+    figures (A16)."""
     from ditsep_tpu_torch.cli import evaluate as eval_cli
-    from ditsep_tpu_torch.cli import separate as sep_cli
-    from ditsep_tpu_torch.cli import train_diffsep
+    from ditsep_tpu_torch.cli import train_diffsep, train_diffsep_latent
     with pytest.raises(NotImplementedError):
-        if what == "latent":
-            eval_cli.main(["--latent", "--cpu", "--synthetic"])
+        if what == "latent_mesh":
+            train_diffsep_latent.main(["--mesh", "--cpu", "--synthetic",
+                                       "--workdir", str(tmp_path)])
         if what == "mesh":
             train_diffsep.main(["--mesh", "--cpu", "--synthetic",
                                 "--workdir", str(tmp_path)])
-        if what == "latent_config":
-            sep_cli.main(["--config", "latent_diffsep_ouve", "--cpu",
-                          "--input", str(tmp_path), "--output",
-                          str(tmp_path)])
+        if what == "latent_demo":
+            train_diffsep_latent.main(["--demo-every", "5", "--cpu",
+                                       "--synthetic", "--workdir",
+                                       str(tmp_path)])
         if what == "ldm_config":
             train_diffsep.main(["--config", "ldm", "--cpu", "--synthetic",
                                 "--workdir", str(tmp_path)])
@@ -251,7 +252,10 @@ def test_port_imports_no_jax_and_nothing_of_ditsep_tpu(root):
             "sdes/core", "sdes/samplers", "sdes/predictors",
             "sdes/correctors", "training/diffsep", "configs/__init__",
             "configs/build", "data/vctk_demand", "cli/common",
-            "cli/separate", "cli/evaluate", "cli/train_diffsep")} <= names
+            "cli/separate", "cli/evaluate", "cli/train_diffsep",
+            "models/oobleck", "models/weights", "models/score_models",
+            "training/diffsep_latent", "data/latent_ds",
+            "cli/train_diffsep_latent", "cli/cache_latents")} <= names
     for path in paths:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

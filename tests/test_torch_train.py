@@ -131,12 +131,13 @@ def test_sample_time_varprop_matches_jax():
 
 
 # ------------------------------------------------- JAX's draws, by role ---
-def jax_draws(cfg, key, b, n, t_len, component=None):
+def jax_draws(cfg, key, b, n, *t_shape, component=None):
     """The raw draws the JAX code makes for ``training_loss(key)`` under
     ``cfg`` (or for one loss ``component`` called with ``key``), by the
-    role names of ditsep_tpu_torch.training.diffsep."""
+    role names of ditsep_tpu_torch.training.diffsep, for a (b, n,
+    *t_shape) target: (T,) waveforms, (D, Tl) latents."""
     d = {}
-    shape = (b, n, t_len)
+    shape = (b, n, *t_shape)
     uni = lambda k, s: np.array(jax.random.uniform(k, s))
     nor = lambda k: np.array(jax.random.normal(k, shape))
 
