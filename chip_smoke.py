@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, all at once) and runs eighteen phases, each printing JSON
+nvcc per source, all at once) and runs twenty-two phases, each printing JSON
 lines; any failure raises and the exit code is non-zero:
 
 1. device   -- card name and power limit (nvidia-smi), kernel build time;
@@ -125,13 +125,37 @@ lines; any failure raises and the exit code is non-zero:
 18. latent_train -- ``cli.train_diffsep_latent`` at the config's batch 16
                of 5 s crops, 4 steps and one validation (steps/s, peak
                memory, launches), then ``cli.cache_latents`` on 2 items
-               at N=30.
+               at N=30;
+19. serving_parity -- ``cli.serve_api.build_engine`` on the trained nf=32
+               checkpoint, masked, TF32 off: three requests of different
+               lengths in one bucket at max_batch 4 (a padded row); each
+               served stem equals the same row of a direct
+               ``trainer.separate`` on the padded batch bit for bit (the
+               engine's generator seeded alike, and its draws replayed by
+               ``pc_generator_noise``), and the card the CPU within 1e-3;
+20. serving -- the flagship behind ``SeparationAPIServer`` on 127.0.0.1
+               (``scripts/serving_bench``'s lengths, one 65,153-sample
+               bucket): every batch size warmed, then concurrency 1, 4 and
+               8 over HTTP, two waves each (utt/s, wave latency, p50 / p95,
+               occupancy from /v1/stats, batches, peak GiB, launches =
+               batches x 60 x 18); one wave at 8 with pipeline_depth=1 and
+               one with the int16 wire; /metrics parsed once;
+21. serving_stream -- two concurrent /v1/stream sessions of 10 s on the
+               same engine, pushed in real time in 0.5 s blocks, 4 s
+               windows with 1 s overlap: emitted = pushed, the windows
+               sharing batches, each response's wait; then ``cli.separate
+               --chunk-seconds 4 --overlap-seconds 1
+               --streaming-block-seconds 0.5`` on one 10 s file;
+22. serving_latent -- ``build_engine(latent=True)`` on latent_diffsep_ouve
+               at full width behind the API: the 65,536-sample bucket,
+               concurrency 4 and 8, launches = batches x 60 x 6.
 
 Every launch count is set to 0 just before each path (the fused bias-act
 op, the conv probe, the separation CLI, the training CLI, each evaluate
 run, the long-form CLI, each family's separation and training CLI, the
-latent evaluate, separate, training and caching paths) and read just
-after it. The script then prints
+latent evaluate, separate, training and caching paths, each serving
+warmup and level, the stream sessions and the streaming CLI) and read
+just after it. The script then prints
 the ``kernels`` JSON line (all six kernels), and as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -843,6 +867,7 @@ def phase_flagship(ctx):
             "est": est.float().cpu().numpy()}
         if dtype == "f32":
             ctx["profile"] = profile_forward(trainer, mix, noise[0])
+            ctx["flagship_batch4_utt_per_s"] = BATCH / sec
         del trainer, est
         torch.cuda.empty_cache()
     agree = si_sdr_db(results["bf16"].pop("est"), results["f32"].pop("est"))
@@ -2069,6 +2094,7 @@ def phase_latent_flagship(ctx):
                           / 2 ** 30, "launches": launches, "nfe": nfe}
         ests[dtype] = est.float().cpu().numpy()
         if dtype == "f32":
+            ctx["latent_batch4_utt_per_s"] = LATENT_BATCH / sec
             results["split_f32"] = latent_call_split(tr, mix, enc, noise)
             results["profiled_call_f32"] = {"N": 2, **profile_replay(
                 lambda: tr.separate_latent(
@@ -2220,6 +2246,444 @@ def phase_latent_train(ctx):
           "card": ctx["card"]})
 
 
+# the serving phases: the nf=32 checkpoint's parity through the engine; the
+# flagship behind the HTTP API at concurrency 1, 4 and 8 (two waves each,
+# every batch size warmed first) and two /v1/stream sessions on the same
+# engine; the latent flagship behind the API at concurrency 4 and 8
+SERVE_PARITY_LENGTHS, SERVE_PARITY_N, SERVE_PARITY_SEED = (7000, 6500,
+                                                          7600), 5, 7
+SERVE_LEVELS, SERVE_WAVES, SERVE_MAX_BATCH = (1, 4, 8), 2, 8
+SERVE_WAIT_MS = 100.0
+STREAM_S, STREAM_BLOCK_S, STREAMS = 10.0, 0.5, 2  # CHUNK_S, OVERLAP_S too
+LATENT_SERVE_LEVELS = (4, 8)
+LATENT_BUCKET = 65536             # 16 VAE hops of 2048
+
+
+def phase_serving_parity(ctx):
+    """build_engine on the trained nf=32 checkpoint, masked, TF32 off:
+    three requests of different lengths in one bucket at max_batch 4, so
+    the batch carries a padded row. Each served stem equals the same row
+    of a direct trainer.separate on the padded batch, trimmed, bit for
+    bit, with the engine's generator seeded alike; the engine's draws,
+    replayed (``pc_generator_noise``), give the same bits and, on the CPU,
+    the card's result within 1e-3 relative."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.cli.serve_api import build_engine
+    from ditsep_tpu_torch.configs import build_diffsep_trainer
+    from ditsep_tpu_torch.sdes.samplers import pc_generator_noise
+
+    n, seed, bs = SERVE_PARITY_N, SERVE_PARITY_SEED, 4
+    rng = np.random.default_rng(13)
+    audios = [(0.1 * rng.standard_normal(L)).astype(np.float32)
+              for L in SERVE_PARITY_LENGTHS]
+    with full_f32():
+        torch.cuda.synchronize()
+        reset_counts()
+        eng = build_engine(parity_config(mask_padding=True), device="cuda",
+                           params_npz=str(CKPT), sampler_N=n,
+                           mask_padding=True, max_batch=bs,
+                           max_wait_ms=500.0, seed=seed)
+        try:
+            served = [f.result(timeout=600) for f in
+                      [eng.submit(a) for a in audios]]
+            st = eng.stats()
+        finally:
+            eng.close()
+        torch.cuda.synchronize()
+        launches = counts()
+        nfe = eng.separate_fn.nfe
+        blen = eng.bucket_of(max(SERVE_PARITY_LENGTHS))
+        check(all(eng.bucket_of(L) == blen for L in SERVE_PARITY_LENGTHS),
+              "the parity requests share one bucket")
+        check((st["batches"], st["padded_rows"]) == (1, 1),
+              f"serving parity batches {st}")
+        want = CKPT_LAUNCHES_PER_FORWARD * nfe
+        check(nfe == 2 * n and launches["fir_down2d"] == want
+              and all(v == 0 for k, v in launches.items()
+                      if k != "fir_down2d"),
+              f"serving parity launches {launches}, want fir_down2d {want}")
+
+        mix = np.zeros((bs, 1, blen), np.float32)
+        lens = np.full((bs,), blen, np.int64)
+        for i, a in enumerate(audios):
+            mix[i, 0, :a.shape[-1]] = a
+            lens[i] = a.shape[-1]
+        trainer = eng.separate_fn.trainer
+        card = {}
+        for how in ("generator", "noise"):
+            kw = ({"generator": torch.Generator(device="cuda").manual_seed(
+                seed)} if how == "generator" else {
+                "noise": pc_generator_noise(torch.Generator(
+                    device="cuda").manual_seed(seed), (bs, 2, blen), n)})
+            est, _ = trainer.separate(
+                torch.from_numpy(mix).cuda(), N=n,
+                lengths=torch.from_numpy(lens).cuda(), **kw)
+            card[how] = est.float().cpu().numpy()
+        bits = all(np.array_equal(o, card["generator"][i, :, :o.shape[-1]])
+                   for i, o in enumerate(served))
+        check(bits, "served stems differ from the direct call's rows")
+        check(np.array_equal(card["noise"], card["generator"]),
+              "the replayed draws differ from the generator's")
+        noise = tuple(t.cpu() for t in pc_generator_noise(
+            torch.Generator(device="cuda").manual_seed(seed),
+            (bs, 2, blen), n))
+        cpu_tr = build_diffsep_trainer(parity_config(mask_padding=True),
+                                       device="cpu", params_npz=str(CKPT))
+        cpu, _ = cpu_tr.separate(torch.from_numpy(mix), N=n,
+                                 lengths=torch.from_numpy(lens), noise=noise)
+        cpu = cpu.numpy()
+    rel = float(np.abs(card["generator"] - cpu).max() / np.abs(cpu).max())
+    check(rel <= 1e-3, f"serving parity card vs CPU {rel} > 1e-3")
+    emit({"phase": "serving_parity",
+          "checkpoint": str(CKPT.relative_to(REPO)),
+          "config": "nf=32 ch_mult=(1,1,2,2) attn=(32,) mask_padding=on",
+          "lengths": list(SERVE_PARITY_LENGTHS), "bucket": blen,
+          "batch": bs, "padded_rows": st["padded_rows"], "N": n,
+          "tf32": False, "served_equals_direct_bits": bits,
+          "max_rel_err_card_vs_cpu": rel, "tolerance": 1e-3,
+          "launches": launches["fir_down2d"], "launches_want": want,
+          "card": ctx["card"]})
+
+
+def serve_level(eng, client, conc: int, waves: int, lengths, per_forward,
+                seed: int) -> dict:
+    """One offered-concurrency level through the HTTP API
+    (``scripts/serving_bench.run_level``): utt/s, wave latency, the
+    client's request latency p50 / p95, the engine's counters from
+    /v1/stats (this level's batches and occupancy, its cumulative p50 /
+    p95), peak GiB, and fir_down2d's launches against batches x NFE x
+    ``per_forward``; every stem finite, of its request's length."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.scripts import serving_bench as sb
+
+    audios = sb.utterances(conc, lengths, seed=seed)
+    before = client.get("/v1/stats")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    row = sb.run_level(client.submit, audios, waves)
+    torch.cuda.synchronize()
+    launches = counts()
+    outs = row.pop("outputs")
+    st = client.get("/v1/stats")
+    batches = st["batches"] - before["batches"]
+    items = st["batched_items"] - before["batched_items"]
+    nfe = eng.separate_fn.nfe
+    want = batches * nfe * per_forward
+    check(items == conc * waves, f"level {conc}: {items} items served")
+    check(launches["fir_down2d"] == want and all(
+        v == 0 for k, v in launches.items() if k != "fir_down2d"),
+        f"level {conc}: launches {launches}, want fir_down2d {want} "
+        f"({batches} batches x {nfe} NFE x {per_forward})")
+    for a, o in zip(audios, outs):
+        check(o.shape == (2, a.shape[-1]) and np.isfinite(o).all(),
+              f"level {conc}: stem shape {o.shape} / finiteness")
+    row.update({"batches": batches, "mean_batch_occupancy": items / batches,
+                "engine_latency_p50_ms": st["latency_p50_ms"],
+                "engine_latency_p95_ms": st["latency_p95_ms"],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "nfe": nfe, "launches": launches["fir_down2d"],
+                "launches_want": want})
+    return row
+
+
+@contextlib.contextmanager
+def api_server(eng):
+    """``eng`` behind SeparationAPIServer on 127.0.0.1 (a free port) with
+    an HTTP client; closes the client, the server and the engine."""
+    from ditsep_tpu_torch.scripts.serving_bench import HTTPClient
+    from ditsep_tpu_torch.serving import SeparationAPIServer
+
+    srv = client = None
+    try:
+        srv = SeparationAPIServer(eng, port=0).start()
+        client = HTTPClient(f"http://127.0.0.1:{srv.port}", fs=eng.fs,
+                            workers=SERVE_MAX_BATCH)
+        yield srv, client
+    finally:
+        if client is not None:
+            client.close()
+        if srv is not None:
+            srv.close()
+        eng.close()
+
+
+def warm_engine(eng, length: int, per_forward: int) -> dict:
+    """``eng.warmup`` at every batch size; its seconds and launches
+    (batch sizes x NFE x ``per_forward``)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.warmup([length])
+    torch.cuda.synchronize()
+    launches = counts()["fir_down2d"]
+    want = len(eng.batch_sizes) * eng.separate_fn.nfe * per_forward
+    check(launches == want, f"warmup launches {launches}, want {want}")
+    return {"batch_sizes": eng.batch_sizes, "seconds":
+            time.perf_counter() - t0, "launches": launches}
+
+
+def phase_serving(ctx):
+    """The flagship (diffsep_icassp, seeded weights, f32 with TF32 convs)
+    through cli.serve_api's build_engine behind SeparationAPIServer:
+    every batch size warmed, then concurrency 1, 4 and 8 over HTTP, two
+    waves each; one wave at 8 with pipeline_depth=1 and one with the int16
+    wire, each on an engine of its own; /metrics parsed once. Then the
+    serving_stream phase on the same engine."""
+    from ditsep_tpu_torch.cli.serve_api import build_engine
+    from ditsep_tpu_torch.configs import diffsep_icassp
+    from ditsep_tpu_torch.scripts import serving_bench as sb
+
+    lengths = sb.WAVEFORM_LENGTHS
+    launches = 0
+    eng = build_engine(diffsep_icassp(), device="cuda",
+                       max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                       seed=0)
+    with api_server(eng) as (srv, client):
+        bucket = eng.bucket_of(lengths[0])
+        check(eng.bucket_of(lengths[1]) == bucket == 65153,
+              f"serving lengths' bucket {bucket}")
+        warm = warm_engine(eng, lengths[1], LAUNCHES_PER_FORWARD)
+        launches += warm["launches"]
+        levels = {}
+        for conc in SERVE_LEVELS:
+            levels[conc] = serve_level(eng, client, conc, SERVE_WAVES,
+                                       lengths, LAUNCHES_PER_FORWARD,
+                                       seed=conc)
+            launches += levels[conc]["launches"]
+        metrics = dict(ln.rsplit(" ", 1) for ln in client.get(
+            "/metrics", raw=True).splitlines() if not ln.startswith("#"))
+        st = client.get("/v1/stats")
+        check(int(metrics["ditsep_requests_total"]) == st["requests"]
+              and int(metrics["ditsep_batches_total"]) == st["batches"],
+              f"/metrics {metrics} against /v1/stats {st}")
+        variants = {}
+        for name, kw in (("pipeline_depth_1", {"pipeline_depth": 1}),
+                         ("wire_int16", {"wire_int16": True})):
+            veng = build_engine(diffsep_icassp(), device="cuda",
+                                max_batch=SERVE_MAX_BATCH,
+                                max_wait_ms=SERVE_WAIT_MS, seed=0, **kw)
+            with api_server(veng) as (_, vclient):
+                variants[name] = serve_level(
+                    veng, vclient, SERVE_MAX_BATCH, 1, lengths,
+                    LAUNCHES_PER_FORWARD, seed=SERVE_MAX_BATCH)
+            launches += variants[name]["launches"]
+            del veng
+        ctx["serve_launches"] = {"serve_api": launches}
+        default = levels[SERVE_MAX_BATCH]
+        emit({"phase": "serving", "config": "diffsep_icassp (nf=128, "
+              "random weights seed 0)", "via": "HTTP POST /v1/separate",
+              "lengths": list(lengths), "bucket": bucket, "N": N_STEPS,
+              "max_batch": SERVE_MAX_BATCH, "max_wait_ms": SERVE_WAIT_MS,
+              "tf32_conv": True, "warmup": warm,
+              "levels": {str(k): v for k, v in levels.items()},
+              "variants_at_8": variants,
+              "wave_s_at_8": {"default": default["wave_latency_s_mean"],
+                              **{k: v["wave_latency_s_mean"]
+                                 for k, v in variants.items()}},
+              "direct_batch4_utt_per_s": ctx["flagship_batch4_utt_per_s"],
+              "metrics": metrics, "launches": launches,
+              "card": ctx["card"]})
+        phase_serving_stream(ctx, eng, client)
+    cli_separate_streaming(ctx)
+
+
+def stream_session(url: str, mix, out: dict, key: str) -> None:
+    """One /v1/stream session pushed in real time: block k of
+    STREAM_BLOCK_S is posted once it has 'arrived' (STREAM_BLOCK_S x (k +
+    1) after the start), or at once when the session lags. Records the
+    samples emitted, the stems, and the wall latency of the oldest sample
+    each response emits (its arrival to the response)."""
+    import base64
+
+    import numpy as np
+    from urllib.request import Request, urlopen
+
+    def post(path, data=b""):
+        with urlopen(Request(f"{url}{path}", data=data), timeout=600) as r:
+            return json.loads(r.read())
+
+    def stems(r):
+        return np.stack([np.frombuffer(base64.b64decode(b), "<f4")
+                         for b in r["stems"]])
+
+    block = int(STREAM_BLOCK_S * FS)
+    meta = post(f"/v1/stream/open?chunk_seconds={CHUNK_S}"
+                f"&overlap_seconds={OVERLAP_S}")
+    sid, pieces, lat, emitted = meta["id"], [], [], 0
+    t0 = time.perf_counter()
+    for s in range(0, mix.shape[-1], block):
+        arrival = t0 + (s + block) / FS
+        time.sleep(max(0.0, arrival - time.perf_counter()))
+        r = post(f"/v1/stream/{sid}/push", mix[s:s + block].tobytes())
+        if r["samples"]:
+            oldest = t0 + (emitted // block + 1) * block / FS
+            lat.append(time.perf_counter() - oldest)
+        emitted += r["samples"]
+        pieces.append(stems(r))
+    r = post(f"/v1/stream/{sid}/close")
+    pieces.append(stems(r))
+    out[key] = {"pushed": int(mix.shape[-1]), "emitted": emitted
+                + r["samples"], "est": np.concatenate(pieces, axis=-1),
+                "latency_bound_s": meta["latency_seconds"],
+                "emit_latency_s": lat}
+
+
+def phase_serving_stream(ctx, eng, client):
+    """Two concurrent /v1/stream sessions of STREAM_S on the serving
+    engine, pushed in real time in STREAM_BLOCK_S blocks, CHUNK_S windows
+    with OVERLAP_S overlap: emitted samples equal pushed ones per session,
+    the two streams' windows share batched calls, launches follow the
+    batches."""
+    import threading
+
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.data import SyntheticMixDataset
+
+    n = int(STREAM_S * FS)
+    ds = SyntheticMixDataset(n_items=STREAMS, min_len_s=STREAM_S,
+                             max_len_s=STREAM_S, seed=21)
+    mixes = [ds[i][0][0].astype(np.float32) for i in range(STREAMS)]
+    before = client.get("/v1/stats")
+    torch.cuda.synchronize()
+    reset_counts()
+    out = {}
+    threads = [threading.Thread(target=stream_session,
+                                args=(client.url, m, out, str(i)))
+               for i, m in enumerate(mixes)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = counts()
+    check(not any(t.is_alive() for t in threads) and len(out) == STREAMS,
+          "stream sessions did not finish")
+    st = client.get("/v1/stats")
+    batches = st["batches"] - before["batches"]
+    items = st["batched_items"] - before["batched_items"]
+    want = batches * eng.separate_fn.nfe * LAUNCHES_PER_FORWARD
+    sessions = {}
+    for k, v in out.items():
+        est = v.pop("est")
+        check(v["emitted"] == v["pushed"] == n and est.shape == (2, n)
+              and np.isfinite(est).all(), f"stream {k}: {v}")
+        lat = v.pop("emit_latency_s")
+        sessions[k] = {**v, "emit_latency_s_max": max(lat),
+                       "emit_latency_s_mean": float(np.mean(lat)),
+                       "responses_emitting": len(lat)}
+    windows = len(range(0, n - int(OVERLAP_S * FS), int((CHUNK_S
+                                                          - OVERLAP_S) * FS)))
+    check(items == STREAMS * windows, f"stream windows served {items}")
+    check(batches < items, f"the streams shared no call ({batches} "
+          f"batches for {items} windows)")
+    check(launches["fir_down2d"] == want, f"stream launches {launches}, "
+          f"want fir_down2d {want}")
+    ctx["serve_launches"]["serve_api_stream"] = launches["fir_down2d"]
+    emit({"phase": "serving_stream", "streams": STREAMS,
+          "stream_s": STREAM_S, "block_s": STREAM_BLOCK_S,
+          "chunk_s": CHUNK_S, "overlap_s": OVERLAP_S,
+          "windows_per_stream": windows, "bucket": eng.bucket_of(
+              int(CHUNK_S * FS)), "batches": batches,
+          "mean_batch_occupancy": items / batches, "wall_s": wall_s,
+          "sessions": sessions, "launches": launches["fir_down2d"],
+          "launches_want": want, "card": ctx["card"]})
+
+
+def cli_separate_streaming(ctx):
+    """cli.separate --chunk-seconds --overlap-seconds
+    --streaming-block-seconds at the flagship width on one STREAM_S file:
+    finite stems of its length, launches windows x NFE x 18."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.cli import separate as cli
+    from ditsep_tpu_torch.data import SyntheticMixDataset, read_wav, write_wav
+
+    mix, _ = SyntheticMixDataset(n_items=1, min_len_s=STREAM_S,
+                                 max_len_s=STREAM_S, seed=22)[0]
+    n = mix.shape[-1]
+    root = REPO / "build" / "chip_smoke_streaming"
+    shutil.rmtree(root, ignore_errors=True)
+    inp, outp = root / "in", root / "out"
+    inp.mkdir(parents=True)
+    write_wav(str(inp / "stream.wav"), mix[0], FS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    nfe = cli.main(["--config", "diffsep_icassp", "--input", str(inp),
+                    "--output", str(outp), "--sampler-N", str(N_STEPS),
+                    "--chunk-seconds", str(CHUNK_S), "--overlap-seconds",
+                    str(OVERLAP_S), "--streaming-block-seconds",
+                    str(STREAM_BLOCK_S), "--seed", "0"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = counts()
+    hop = int((CHUNK_S - OVERLAP_S) * FS)
+    # windows at every hop while one fits, and a zero-padded tail window
+    # when the last full one ends before the stream
+    full = (n - int(CHUNK_S * FS)) // hop + 1
+    windows = full + ((full - 1) * hop + int(CHUNK_S * FS) < n)
+    want = LAUNCHES_PER_FORWARD * nfe * windows
+    check(nfe == 2 * N_STEPS and launches["fir_down2d"] == want
+          and all(v == 0 for k, v in launches.items() if k != "fir_down2d"),
+          f"streaming CLI launches {launches}, want fir_down2d {want}")
+    for src in ("s0", "s1"):
+        data, fs = read_wav(str(outp / src / "stream.wav"))
+        check(fs == FS and data.shape == (n,) and np.isfinite(data).all(),
+              f"streaming CLI output {src}")
+    shutil.rmtree(root, ignore_errors=True)
+    ctx["serve_launches"]["cli_separate_streaming"] = launches["fir_down2d"]
+    emit({"phase": "serving_stream_cli", "samples": n, "chunk_s": CHUNK_S,
+          "overlap_s": OVERLAP_S, "block_s": STREAM_BLOCK_S,
+          "windows": windows, "N": N_STEPS, "seconds": wall_s,
+          "launches": launches["fir_down2d"], "launches_want": want,
+          "card": ctx["card"]})
+
+
+def phase_serving_latent(ctx):
+    """build_engine(latent=True) on latent_diffsep_ouve at full width,
+    seeded weights, behind the HTTP API: every batch size warmed at the
+    65,536-sample bucket, then concurrency 4 and 8, two waves each;
+    launches batches x NFE x 6."""
+    from ditsep_tpu_torch.cli.serve_api import build_engine
+    from ditsep_tpu_torch.configs import latent_diffsep_ouve
+    from ditsep_tpu_torch.scripts import serving_bench as sb
+
+    lengths = sb.LATENT_LENGTHS
+    eng = build_engine(latent_diffsep_ouve(), device="cuda", latent=True,
+                       max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                       seed=0)
+    with api_server(eng) as (_, client):
+        bucket = eng.bucket_of(lengths[0])
+        check(bucket == eng.bucket_of(lengths[1]) == LATENT_BUCKET,
+              f"latent serving bucket {bucket}")
+        warm = warm_engine(eng, lengths[1], LATENT_LAUNCHES_PER_FORWARD)
+        launches = warm["launches"]
+        levels = {}
+        for conc in LATENT_SERVE_LEVELS:
+            levels[conc] = serve_level(eng, client, conc, SERVE_WAVES,
+                                       lengths, LATENT_LAUNCHES_PER_FORWARD,
+                                       seed=100 + conc)
+            launches += levels[conc]["launches"]
+    ctx["serve_launches"]["serve_api_latent"] = launches
+    emit({"phase": "serving_latent", "config": "latent_diffsep_ouve (VAE "
+          "hop 2048, latent 64; U-Net nf=128; random weights seed 0)",
+          "via": "HTTP POST /v1/separate", "lengths": list(lengths),
+          "bucket": bucket, "latent_frames": bucket // 2048, "N": N_STEPS,
+          "max_batch": SERVE_MAX_BATCH, "tf32_conv": True, "warmup": warm,
+          "levels": {str(k): v for k, v in levels.items()},
+          "direct_batch4_utt_per_s": ctx["latent_batch4_utt_per_s"],
+          "launches": launches, "card": ctx["card"]})
+
+
 def main() -> int:
     try:
         import torch
@@ -2266,6 +2730,9 @@ def main() -> int:
     phase_latent_parity(ctx)
     phase_latent_flagship(ctx)
     phase_latent_train(ctx)
+    phase_serving_parity(ctx)
+    phase_serving(ctx)
+    phase_serving_latent(ctx)
 
     t = ctx["kernel_times"]["float32"]
     fba = ctx["fba"]["times"]["float32"]
@@ -2284,7 +2751,8 @@ def main() -> int:
             **{f"train_cli_{k}": v["fir_down2d"] for k, v
                in ctx["families_train_launches"].items()},
             **{k: v["fir_down2d"] if isinstance(v, dict) else v
-               for k, v in ctx["latent_launches"].items()}},
+               for k, v in ctx["latent_launches"].items()},
+            **ctx["serve_launches"]},
         "max_abs_err": ctx["kernel_err"][torch.float32],
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": "bytes",

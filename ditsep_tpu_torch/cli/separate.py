@@ -3,12 +3,15 @@ sampler (PC, the Schroedinger-bridge sampler for diffsep_sb, or --sampler
 ab2), write s0/ s1/ ... subfolders with the separated sources, scaled by
 mix projection. Runs on the CUDA card unless --cpu is given. With
 --chunk-seconds a file is separated in windows of that length, aligned and
-crossfaded (``inference.separate_longform``).
+crossfaded (``inference.separate_longform``); with --streaming-block-seconds
+as well, each file is pushed in blocks of that length through the
+bounded-latency ``serving.StreamingSeparator`` instead.
 
     python -m ditsep_tpu_torch.cli.separate --config diffsep_icassp \\
         --input DIR --output DIR [--params X.npz] [--sampler-N 30] \\
         [--sampler pc|ab2] [--seed 0] [--cpu] [--bf16] [--mask-padding] \\
-        [--chunk-seconds S [--overlap-seconds 1.0]] [--override a.b=v ...]
+        [--chunk-seconds S [--overlap-seconds 1.0]
+         [--streaming-block-seconds B]] [--override a.b=v ...]
 
 ``--config`` is any of diffsep, diffsep_icassp, diffsep_ouve, diffsep_sb
 and enhancement (16 kHz).
@@ -26,6 +29,7 @@ from ditsep_tpu_torch.cli.common import load_config
 from ditsep_tpu_torch.configs import build_diffsep_trainer
 from ditsep_tpu_torch.data import read_wav, write_wav
 from ditsep_tpu_torch.inference import separate_longform
+from ditsep_tpu_torch.serving import StreamingSeparator
 from ditsep_tpu_torch.utils.device import resolve_device
 
 
@@ -68,14 +72,17 @@ def main(argv=None) -> int:
                    help="window overlap for --chunk-seconds (alignment "
                         "and crossfade region)")
     p.add_argument("--streaming-block-seconds", type=float, default=None,
-                   help="streaming separation (not ported yet, ROADMAP "
-                        "A12)")
+                   help="with --chunk-seconds: feed each file through the "
+                        "bounded-latency StreamingSeparator in blocks of "
+                        "this many seconds (the real-time path, "
+                        "serving/streaming.py) instead of the offline "
+                        "stitcher")
     p.add_argument("--override", nargs="*", default=[],
                    help="config overrides a.b.c=value")
     args = p.parse_args(argv)
-    if args.streaming_block_seconds is not None:
-        raise NotImplementedError("--streaming-block-seconds is not ported "
-                                  "yet (ROADMAP A12)")
+    if args.streaming_block_seconds and not args.chunk_seconds:
+        p.error("--streaming-block-seconds requires --chunk-seconds "
+                "(the streaming path is windowed)")
     device = resolve_device("cpu" if args.cpu else "cuda")
     cfg = load_config(args.config, args.override)
     if args.bf16:
@@ -106,7 +113,19 @@ def main(argv=None) -> int:
     for f in files:
         mix, _ = read_wav(os.path.join(args.input, f))
         mix = np.atleast_2d(mix).reshape(1, 1, -1).astype(np.float32)
-        if args.chunk_seconds:
+        if args.chunk_seconds and args.streaming_block_seconds:
+            stream = StreamingSeparator(
+                sep, chunk_samples=int(args.chunk_seconds * fs),
+                overlap_samples=int(args.overlap_seconds * fs),
+                n_src=n_src, generator=generator,
+                pass_lengths=args.mask_padding, device=device)
+            block = max(1, int(args.streaming_block_seconds * fs))
+            flat = mix.reshape(-1)
+            pieces = [stream.push(flat[s:s + block])
+                      for s in range(0, flat.shape[-1], block)]
+            pieces.append(stream.flush())
+            est = np.concatenate(pieces, axis=-1)
+        elif args.chunk_seconds:
             est = separate_longform(
                 sep, mix.reshape(-1),
                 chunk_samples=int(args.chunk_seconds * fs),

@@ -25,6 +25,19 @@ def n_frames_prepadded(length, n_fft: int, hop_length: int):
     return (length + (n_fft - hop_length)) // hop_length + 1
 
 
+def frame_block_padded_len(length: int, n_fft: int, hop_length: int,
+                           block: int = 64) -> int:
+    """Largest sample count whose frame count (``n_frames_prepadded``)
+    stays inside the same ``block``-frame block as ``length``. The score
+    model zero-pads its frames to a multiple of ``block``, so padding a
+    waveform up to this length adds no quiet columns through the U-Net
+    (docs/pad_dilution_r03.md); the serving engine's buckets are these
+    lengths, as eval/evaluate.py's frame-block buckets are these blocks."""
+    frames = n_frames_prepadded(length, n_fft, hop_length)
+    blocks = -(-frames // block)
+    return hop_length * (block * blocks) - 1 - (n_fft - hop_length)
+
+
 def _window(n_fft: int, x: Tensor) -> Tensor:
     return torch.hann_window(n_fft, periodic=True, dtype=torch.float32,
                              device=x.device)

@@ -166,6 +166,23 @@ def pc_sample(
     return x_result, nfe
 
 
+def pc_generator_noise(generator: torch.Generator, shape, N: int,
+                       corrector_steps: int = 1):
+    """The draws ``pc_sample`` makes from ``generator`` for a state of
+    ``shape``, in its order (the prior, then each step's corrector draws
+    and its predictor draw), as its ``noise`` tuple on the generator's
+    device. A run given this noise equals a run given a generator in the
+    same state, so another device or package can be handed the same
+    numbers."""
+    draw = lambda: torch.randn(shape, generator=generator,  # noqa: E731
+                               device=generator.device)
+    prior, corr, pred = draw(), [], []
+    for _ in range(N):
+        corr.append(torch.stack([draw() for _ in range(corrector_steps)]))
+        pred.append(draw())
+    return prior, torch.stack(corr), torch.stack(pred)
+
+
 def ab2_sample(
     sde: BaseSDE,
     score_fn: ScoreFn,

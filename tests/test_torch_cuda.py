@@ -863,3 +863,67 @@ def test_oobleck_vae_on_card_matches_cpu(cuda_device):
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == torch.float32
         assert (a.cpu() - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_engine_serves_on_card_and_matches_cpu(cuda_device):
+    """cli.serve_api.build_engine on the card at nf=32 (the trained
+    checkpoint, masked, TF32 off) serves two concurrent requests in one
+    batch; fir_down2d launches batches x NFE x 9; the served stems match
+    the CPU given the engine's draws (replayed by pc_generator_noise)
+    within 1e-3 relative."""
+    import os
+    import threading
+
+    from ditsep_tpu_torch.cli.serve_api import build_engine
+    from ditsep_tpu_torch.configs import diffsep, override
+    from ditsep_tpu_torch.sdes.samplers import pc_generator_noise
+
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "examples", "checkpoints", "masked_synthetic_ema.npz")
+    cfg = override(diffsep(), {
+        "model.score_model.nf": 32, "model.score_model.ch_mult": (1, 1, 2, 2),
+        "model.score_model.attn_resolutions": (32,)})
+    n, seed, lengths = 3, 11, (6000, 5200)
+    rng = np.random.default_rng(6)
+    audios = [(0.1 * rng.standard_normal(L)).astype(np.float32)
+              for L in lengths]
+    served = [None, None]
+    with _full_f32():
+        eng = build_engine(cfg, device=cuda_device, params_npz=ckpt,
+                           sampler_N=n, mask_padding=True, max_batch=2,
+                           max_wait_ms=2000.0, seed=seed)
+        before = cuda_kernels.fir_down2d.launches
+        try:
+            def post(i):
+                served[i] = eng.separate(audios[i], timeout=120)
+
+            threads = [threading.Thread(target=post, args=(i,))
+                       for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            assert not any(t.is_alive() for t in threads)
+            st = eng.stats()
+        finally:
+            eng.close()
+        torch.cuda.synchronize()
+        launches = cuda_kernels.fir_down2d.launches - before
+        assert st["batches"] == 1 and st["batched_items"] == 2
+        assert eng.separate_fn.nfe == 2 * n
+        assert launches == st["batches"] * eng.separate_fn.nfe * 9
+        blen = eng.bucket_of(max(lengths))
+        mix = np.zeros((2, 1, blen), np.float32)
+        for i, a in enumerate(audios):
+            mix[i, 0, :a.shape[-1]] = a
+        noise = tuple(t.cpu() for t in pc_generator_noise(
+            torch.Generator(device=cuda_device).manual_seed(seed),
+            (2, 2, blen), n))
+        cpu = _masked_ckpt_trainer("cpu")
+        want, _ = cpu.separate(torch.from_numpy(mix), N=n, noise=noise,
+                               lengths=torch.tensor(lengths))
+    for i, got in enumerate(served):
+        ref = want[i, :, :lengths[i]].numpy()
+        assert got.shape == ref.shape and np.isfinite(got).all()
+        assert np.abs(got - ref).max() <= 1e-3 * np.abs(ref).max()

@@ -194,8 +194,77 @@ def test_cli_separate_chunked_on_cpu(tmp_path, mask_padding):
             assert np.isfinite(data).all()
 
 
-def test_cli_separate_streaming_raises(tmp_path):
+def _streaming_cli_case(tmp_path, mask_padding):
+    inp, out = tmp_path / "in", tmp_path / "out"
+    inp.mkdir()
+    rng = np.random.default_rng(5)
+    lengths = {"long.wav": 5000, "short.wav": 1500}  # 4 windows; a tail
+    for name, n in lengths.items():
+        write_wav(str(inp / name),
+                  0.3 * rng.standard_normal(n).astype(np.float32), 8000)
+    args = ["--config", "diffsep", "--input", str(inp), "--output",
+            str(out), "--sampler-N", "2", "--cpu", "--chunk-seconds",
+            "0.25", "--overlap-seconds", "0.1", "--streaming-block-seconds",
+            "0.0375", "--override", *TINY]
+    if mask_padding:
+        args.insert(0, "--mask-padding")
+    return inp, out, lengths, args
+
+
+@pytest.mark.parametrize("mask_padding", [False, True])
+def test_cli_separate_streaming_on_cpu(tmp_path, monkeypatch, mask_padding):
+    """cli.separate --chunk-seconds --streaming-block-seconds: stems of the
+    input's length, equal to StreamingSeparator driven directly with the
+    CLI's trainer, generator and blocks (bit for bit, before the WAV's
+    16-bit quantization)."""
+    from ditsep_tpu_torch.cli import separate as cli
+    from ditsep_tpu_torch.cli.common import load_config
+    from ditsep_tpu_torch.configs import build_diffsep_trainer
+    from ditsep_tpu_torch.serving import StreamingSeparator
+
+    inp, out, lengths, args = _streaming_cli_case(tmp_path, mask_padding)
+    written = {}
+    real_write = cli.write_wav
+
+    def capture(path, data, fs):
+        written[path] = np.array(data)
+        real_write(path, data, fs)
+
+    monkeypatch.setattr(cli, "write_wav", capture)
+    assert cli.main(args) == 4
+
+    cfg = load_config("diffsep", TINY)
+    cfg["model"]["score_model"]["mask_padding"] = mask_padding
+    trainer = build_diffsep_trainer(cfg, device="cpu", seed=0)
+    gen = _gen(0)
+
+    def sep(mix, lengths=None, generator=None):
+        return trainer.separate(mix, N=2, lengths=lengths,
+                                generator=generator)[0]
+
+    for name in sorted(lengths):
+        mix, _ = read_wav(str(inp / name))
+        stream = StreamingSeparator(sep, chunk_samples=2000,
+                                    overlap_samples=800, n_src=2,
+                                    generator=gen, device="cpu",
+                                    pass_lengths=mask_padding)
+        pieces = [stream.push(mix[s:s + 300])
+                  for s in range(0, mix.shape[-1], 300)]
+        pieces.append(stream.flush())
+        want = cli.scale_output(mix[None], np.concatenate(pieces, axis=-1))
+        for i, src in enumerate(("s0", "s1")):
+            got = written[str(out / src / name)]
+            assert got.shape == (lengths[name],)
+            assert np.isfinite(got).all()
+            np.testing.assert_array_equal(got, want[i])
+            data, fs = read_wav(str(out / src / name))
+            assert fs == 8000 and data.shape == (lengths[name],)
+
+
+def test_cli_separate_streaming_requires_chunk_seconds(tmp_path, capsys):
     from ditsep_tpu_torch.cli.separate import main
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(SystemExit) as e:
         main(["--input", str(tmp_path), "--output", str(tmp_path), "--cpu",
-              "--chunk-seconds", "1", "--streaming-block-seconds", "0.5"])
+              "--streaming-block-seconds", "0.5"])
+    assert e.value.code == 2
+    assert "requires --chunk-seconds" in capsys.readouterr().err

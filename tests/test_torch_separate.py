@@ -198,12 +198,16 @@ def test_cli_separate_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("what", ["latent_mesh", "mesh", "latent_demo",
-                                  "ldm_config", "save_figures"])
+                                  "ldm_config", "save_figures",
+                                  "serve_api_mesh", "serve_vae_config",
+                                  "serve_gradio"])
 def test_unported_options_raise(what, tmp_path):
-    """What is not ported yet raises: a mesh on either training CLI (A14),
-    the LDM config (A13), and the latent CLI's demo callbacks and
-    figures (A16)."""
+    """What is not ported yet raises: a mesh on either training CLI and on
+    serve_api (A14), the LDM config (A13), the latent CLI's demo callbacks
+    and figures, and the demo server's autoencoder tab and gradio shell
+    (A16)."""
     from ditsep_tpu_torch.cli import evaluate as eval_cli
+    from ditsep_tpu_torch.cli import serve, serve_api
     from ditsep_tpu_torch.cli import train_diffsep, train_diffsep_latent
     with pytest.raises(NotImplementedError):
         if what == "latent_mesh":
@@ -221,6 +225,12 @@ def test_unported_options_raise(what, tmp_path):
                                 "--workdir", str(tmp_path)])
         if what == "save_figures":
             eval_cli.main(["--save-figures", "1", "--cpu", "--synthetic"])
+        if what == "serve_api_mesh":
+            serve_api.main(["--mesh", "--cpu"])
+        if what == "serve_vae_config":
+            serve.main(["--vae-config", "vae.json", "--cpu"])
+        if what == "serve_gradio":
+            serve.main(["--gradio", "--cpu"])
 
 
 def test_cuda_requested_without_cuda_raises(monkeypatch):
@@ -255,7 +265,10 @@ def test_port_imports_no_jax_and_nothing_of_ditsep_tpu(root):
             "cli/separate", "cli/evaluate", "cli/train_diffsep",
             "models/oobleck", "models/weights", "models/score_models",
             "training/diffsep_latent", "data/latent_ds",
-            "cli/train_diffsep_latent", "cli/cache_latents")} <= names
+            "cli/train_diffsep_latent", "cli/cache_latents",
+            "serving/engine", "serving/streaming", "serving/api",
+            "serving/__init__", "interface/web", "interface/app",
+            "cli/serve_api", "cli/serve", "scripts/serving_bench")} <= names
     for path in paths:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
