@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, all at once) and runs twenty-two phases, each printing JSON
+nvcc per source, all at once) and runs twenty-four phases, each printing JSON
 lines; any failure raises and the exit code is non-zero:
 
 1. device   -- card name and power limit (nvidia-smi), kernel build time;
@@ -126,34 +126,55 @@ lines; any failure raises and the exit code is non-zero:
                of 5 s crops, 4 steps and one validation (steps/s, peak
                memory, launches), then ``cli.cache_latents`` on 2 items
                at N=30;
-19. serving_parity -- ``cli.serve_api.build_engine`` on the trained nf=32
+19. ldm_parity -- the small latent config of latent_parity with a
+               two-scale Encodec discriminator (filters 8), seeded weights,
+               on the card (TF32 off) against the CPU with the same inputs
+               and draws: the perceptual MRSTFT at the ldm config's 7
+               resolutions and its gradient, the discriminator's logits
+               and feature maps, gen -> disc -> gen ``LDMTrainer`` steps
+               and an ``AutoencoderTrainer`` gen + disc pair at the
+               train-step bars;
+20. ldm_train -- the decoder finetune at full width (the ldm config:
+               VAE hop 2048, 64 latent channels, 78.1 M decoder
+               parameters; the nf=128 latent U-Net): ``cli.cache_latents``
+               on 8 synthetic 5.12 s items at N=30 (fir_down2d's launches
+               = items x 60 x 6), ``cli.train_ldm --use-disc`` at batch 4
+               x 2 sources x 40,960 samples for 6 steps (gen and disc
+               steps timed apart, peak memory, no kernel launched), then
+               ``--resume`` to 8 steps; ``cli.validate_vae`` over the
+               seeded and the finetuned VAE; one gen step profiled (the
+               device's idle share); ``AutoencoderTrainer`` gen and disc
+               steps at the VAE's sample_size of 247,808 samples, batch 2
+               (halved on running out of memory, and why);
+21. serving_parity -- ``cli.serve_api.build_engine`` on the trained nf=32
                checkpoint, masked, TF32 off: three requests of different
                lengths in one bucket at max_batch 4 (a padded row); each
                served stem equals the same row of a direct
                ``trainer.separate`` on the padded batch bit for bit (the
                engine's generator seeded alike, and its draws replayed by
                ``pc_generator_noise``), and the card the CPU within 1e-3;
-20. serving -- the flagship behind ``SeparationAPIServer`` on 127.0.0.1
+22. serving -- the flagship behind ``SeparationAPIServer`` on 127.0.0.1
                (``scripts/serving_bench``'s lengths, one 65,153-sample
                bucket): every batch size warmed, then concurrency 1, 4 and
                8 over HTTP, two waves each (utt/s, wave latency, p50 / p95,
                occupancy from /v1/stats, batches, peak GiB, launches =
                batches x 60 x 18); one wave at 8 with pipeline_depth=1 and
                one with the int16 wire; /metrics parsed once;
-21. serving_stream -- two concurrent /v1/stream sessions of 10 s on the
+23. serving_stream -- two concurrent /v1/stream sessions of 10 s on the
                same engine, pushed in real time in 0.5 s blocks, 4 s
                windows with 1 s overlap: emitted = pushed, the windows
                sharing batches, each response's wait; then ``cli.separate
                --chunk-seconds 4 --overlap-seconds 1
                --streaming-block-seconds 0.5`` on one 10 s file;
-22. serving_latent -- ``build_engine(latent=True)`` on latent_diffsep_ouve
+24. serving_latent -- ``build_engine(latent=True)`` on latent_diffsep_ouve
                at full width behind the API: the 65,536-sample bucket,
                concurrency 4 and 8, launches = batches x 60 x 6.
 
 Every launch count is set to 0 just before each path (the fused bias-act
 op, the conv probe, the separation CLI, the training CLI, each evaluate
 run, the long-form CLI, each family's separation and training CLI, the
-latent evaluate, separate, training and caching paths, each serving
+latent evaluate, separate, training and caching paths, the LDM's caching
+and training CLIs, each serving
 warmup and level, the stream sessions and the streaming CLI) and read
 just after it. The script then prints
 the ``kernels`` JSON line (all six kernels), and as its last line
@@ -1028,24 +1049,52 @@ def train_steps_card_vs_cpu(cfg, batches, draws, latent=False) -> dict:
     return hist
 
 
-def adam_f64(p0: dict, grads: list, lr: float, clip: float) -> dict:
-    """optax's clip_by_global_norm + adam in float64 over a gradient
-    history: the parameters after its last step."""
+def adam_f64(p0: dict, grads: list, rates: list, clip: float,
+             b1: float = 0.9, b2: float = 0.999,
+             weight_decay: float = 0.0) -> dict:
+    """optax's clip_by_global_norm + adam (adamw with ``weight_decay``) in
+    float64 over a gradient history, step n at ``rates[n]``: the
+    parameters after its last step."""
     import numpy as np
     p = {k: v.astype(np.float64) for k, v in p0.items() if k in grads[0]}
     m = {k: 0.0 for k in p}
     v = {k: 0.0 for k in p}
-    for n, g in enumerate(grads, start=1):
+    for n, (g, lr) in enumerate(zip(grads, rates), start=1):
         norm = np.sqrt(sum((a.astype(np.float64) ** 2).sum()
                            for a in g.values()))
         scale = 1.0 if norm < clip else clip / norm
         for k in p:
             gk = g[k].astype(np.float64) * scale
-            m[k] = 0.9 * m[k] + 0.1 * gk
-            v[k] = 0.999 * v[k] + 0.001 * gk ** 2
-            p[k] = p[k] - lr * (m[k] / (1 - 0.9 ** n)) / (
-                np.sqrt(v[k] / (1 - 0.999 ** n)) + 1e-8)
+            m[k] = b1 * m[k] + (1 - b1) * gk
+            v[k] = b2 * v[k] + (1 - b2) * gk ** 2
+            upd = (m[k] / (1 - b1 ** n)) / (
+                np.sqrt(v[k] / (1 - b2 ** n)) + 1e-8)
+            p[k] = p[k] - lr * (upd + weight_decay * p[k])
     return p
+
+
+def grads_worst(ref: dict, got: dict, what: str, zero: tuple = (),
+                floor: float = 0.0) -> float:
+    """A step's gradient, the card's against the CPU's leaf by leaf,
+    checked: within 1e-3 of the CPU leaf's max (at least ``floor`` of the
+    largest leaf's max); a leaf whose name ends in one of ``zero`` (its
+    gradient is 0) within 1e-6 of the largest leaf's max. A parameter bar
+    that takes the part the gradients explain cannot hold a wrong
+    gradient to account: this check does. Returns the worst ratio."""
+    import numpy as np
+    top = max(np.abs(v).max() for v in ref.values())
+    worst = 0.0
+    for k, want in ref.items():
+        if k.endswith(zero):
+            ratio = max(np.abs(want).max(), np.abs(got[k]).max()) / (
+                1e-6 * top)
+        else:
+            diff = np.abs(got[k] - want).max()
+            bar = max(1e-3 * np.abs(want).max(), floor * top)
+            ratio = diff / bar if bar > 0 else (0.0 if diff == 0 else np.inf)
+        worst = max(worst, float(ratio))
+        check(ratio <= 1, f"{what} gradient of {k}: {ratio} of the bar")
+    return worst
 
 
 def train_parity_worst(hist, explain: bool) -> dict:
@@ -1074,23 +1123,17 @@ def train_parity_worst(hist, explain: bool) -> dict:
             worst[f"{key}_rel"] = max(worst[f"{key}_rel"], rel)
             check(rel <= 1e-4, f"train step {n} {key}: card {got[key]} CPU "
                                f"{ref[key]}")
-        top = max(np.abs(v).max() for v in ref["grads"].values())
-        for k, want in ref["grads"].items():
-            diff = np.abs(got["grads"][k] - want).max()
-            if k.endswith("NIN_1.b"):  # the attention's key bias: 0
-                ratio = max(np.abs(want).max(), np.abs(got["grads"][k]).max()
-                            ) / (1e-6 * top)
-            else:
-                ratio = diff / (1e-3 * np.abs(want).max())
-            worst["grad_over_bar"] = max(worst["grad_over_bar"], ratio)
-            check(ratio <= 1, f"train step {n} gradient of {k}: {ratio} of "
-                              f"the bar")
+        worst["grad_over_bar"] = max(worst["grad_over_bar"], grads_worst(
+            ref["grads"], got["grads"], f"train step {n}",
+            zero=("NIN_1.b",)))  # the attention's key bias: 0
         explained = {}
         if explain:
             a = adam_f64(hist["cpu"]["params0"],
-                         [h["grads"] for h in cpu[:n]], lr, cfg.grad_clip)
+                         [h["grads"] for h in cpu[:n]], [lr] * n,
+                         cfg.grad_clip)
             b = adam_f64(hist["cpu"]["params0"],
-                         [h["grads"] for h in card[:n]], lr, cfg.grad_clip)
+                         [h["grads"] for h in card[:n]], [lr] * n,
+                         cfg.grad_clip)
             explained = {k: 2 * np.abs(a[k] - b[k]) for k in a}
         for k, want in ref["params"].items():
             bar = np.full(want.shape, 1e-9)  # buffers do not move
@@ -2246,6 +2289,562 @@ def phase_latent_train(ctx):
           "card": ctx["card"]})
 
 
+# the LDM decoder finetune and the VAE-GAN: card vs CPU on the small latent
+# config with a two-scale discriminator (filters 8); then the CLI chain at
+# full width, cache_latents -> train_ldm --use-disc (batch 4 x 2 sources x
+# 40,960 samples) -> --resume -> validate_vae, and AutoencoderTrainer steps
+# at the VAE's sample_size
+LDM_PARITY_DISC = {"filters": 8, "n_ffts": (1024, 256),
+                   "hop_lengths": (256, 64)}
+LDM_PARITY_LR = 1.0   # the schedule's first rates are 1e-3 lr: above ulps
+LDM_PARITY_SAMPLES = 8192  # 128 latent frames at hop 64
+LDM_CACHE_ITEMS, LDM_LEN_S, LDM_BATCH = 8, 5.12, 4  # 40,960 samples
+LDM_STEPS, LDM_RESUME_STEPS = 6, 8  # gen on even steps, disc on odd
+LDM_TIMED_STEPS, LDM_PROFILED_STEPS = 10, 3  # of each kind, after warm-up
+AE_SAMPLES, AE_BATCH = 247808, 2  # oobleck_finetune sample_size
+AE_TIMED_STEPS = 10  # of each kind, after a warm gen + disc pair
+
+
+def group_worst(cpu: dict, card: dict, rate, clip: float,
+                decay=None) -> dict:
+    """One parameter group's steps, the card's against the CPU's after
+    each: the train-step bars at the applied rates (the sum over the
+    steps of 1e-3 * rate where the CPU gradient is significant, 2 * rate
+    elsewhere) plus twice the part the two devices' gradients explain
+    through float64 clip + AdamW (b1 0.8, b2 0.99, wd 1e-3); the EMA the
+    same times (1 - decay) plus 2 ulps. Returns the worst ratios (<= 1
+    passes). The gradients themselves are held by ``grads_worst``."""
+    import numpy as np
+    worst = {"param_over_bar": 0.0, "ema_over_bar": 0.0}
+    for n in range(1, len(cpu["steps"]) + 1):
+        h_cpu = [s["grads"] for s in cpu["steps"][:n]]
+        h_card = [s["grads"] for s in card["steps"][:n]]
+        rates = [rate(i) for i in range(n)]
+        a, b = (adam_f64(cpu["p0"], h, rates, clip, b1=0.8, b2=0.99,
+                         weight_decay=1e-3) for h in (h_cpu, h_card))
+        ref, got = cpu["steps"][n - 1], card["steps"][n - 1]
+        for k, want in ref["params"].items():
+            sig = np.ones(want.shape, bool)
+            for g in h_cpu:
+                top = max(np.abs(x).max() for x in g.values())
+                x = np.abs(g[k])
+                sig &= (x >= 1e-3 * x.max()) & (x.max() >= 1e-6 * top)
+            bar = (np.where(sig, 1e-3 * sum(rates), 2 * sum(rates))
+                   + 2 * np.abs(a[k] - b[k]))
+            worst["param_over_bar"] = max(worst["param_over_bar"], float(
+                (np.abs(got["params"][k] - want) / bar).max()))
+            if decay is not None:
+                e = ref["ema"][k]
+                e_bar = bar * (1 - decay) + 2 * np.spacing(np.abs(e))
+                worst["ema_over_bar"] = max(worst["ema_over_bar"], float(
+                    (np.abs(got["ema"][k] - e) / e_bar).max()))
+    return worst
+
+
+def snapshot(module) -> dict:
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in module.state_dict().items()}
+
+
+def grads_of(loss, module) -> dict:
+    """d loss / d each parameter of ``module`` (zeros where unused)."""
+    import numpy as np
+    import torch
+    named = dict(module.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()),
+                                allow_unused=True)
+    return {k: (np.zeros(tuple(p.shape), np.float32) if g is None
+                else g.cpu().numpy()) for (k, p), g in zip(named.items(),
+                                                           grads)}
+
+
+def ldm_step_grads(ldm, n: int, lt, rt) -> dict:
+    """The gradient LDM step ``n`` takes at ``ldm``'s current parameters:
+    the discriminator's on a disc step, else the decoder's."""
+    from ditsep_tpu_torch.models.discriminators import (
+        encodec_discriminator_loss,
+    )
+    if ldm.use_disc_this_step(n):
+        decoded = ldm.latent_trainer.decode(lt, rt.shape[-1])
+        return grads_of(encodec_discriminator_loss(ldm.disc, rt, decoded)[0],
+                        ldm.disc)
+    return grads_of(ldm.gen_loss(lt, rt, True)[0], ldm.vae.decoder)
+
+
+def ae_step_grads(ae, n: int, r, draws: list) -> dict:
+    """The gradient AutoencoderTrainer step ``n`` takes at ``ae``'s current
+    parameters, with step n's draws."""
+    import torch
+    from ditsep_tpu_torch.models.discriminators import discriminator_loss
+    if ae.use_disc_this_step(n):
+        with torch.no_grad():
+            dec, rt, _, _ = ae._roundtrip(r, None, draws[n])
+        return grads_of(discriminator_loss(ae.disc, rt, dec)[0], ae.disc)
+    return grads_of(ae.gen_loss(r, True, draws=draws[n])[0], ae.vae)
+
+
+def ldm_parity_steps(ldm, batches, device) -> dict:
+    """gen -> disc -> gen LDM steps on ``batches``: per group (decoder,
+    disc) the initial parameters and, per step, its gradient and the
+    parameters (and EMA) after it; before each step both groups'
+    parameters, and each step's gradient in step order; the steps'
+    losses."""
+    import torch
+    state = ldm.init_state()
+    groups = {"decoder": {"p0": snapshot(state.decoder), "steps": []},
+              "disc": {"p0": snapshot(state.disc), "steps": []}}
+    losses, pre, step_grads = [], [], []
+    for n, (lat, reals) in enumerate(batches):
+        lt = torch.from_numpy(lat).to(device)
+        rt = torch.from_numpy(reals).to(device)
+        pre.append({"decoder": snapshot(state.decoder),
+                    "disc": snapshot(state.disc)})
+        grads = ldm_step_grads(ldm, n, lt, rt)
+        step_grads.append(grads)
+        if ldm.use_disc_this_step(n):
+            state, met = ldm.disc_step(state, lt, rt)
+            losses.append(met["train/discriminator_loss"].item())
+            groups["disc"]["steps"].append(
+                {"grads": grads, "params": snapshot(state.disc)})
+        else:
+            state, met = ldm.gen_step(state, lt, rt)
+            losses.append(met["train/loss"].item())
+            groups["decoder"]["steps"].append(
+                {"grads": grads, "params": snapshot(state.decoder),
+                 "ema": snapshot(state.ema_decoder)})
+    return {"groups": groups, "losses": losses, "pre": pre,
+            "grads": step_grads}
+
+
+def ae_parity_steps(ae, reals, draws, device) -> dict:
+    """A gen step and a disc step of the AutoencoderTrainer with explicit
+    draws, as ``ldm_parity_steps``."""
+    import torch
+    state = ae.init_state()
+    groups = {"vae": {"p0": snapshot(state.vae), "steps": []},
+              "disc": {"p0": snapshot(state.disc), "steps": []}}
+    r = torch.from_numpy(reals).to(device)
+    losses, pre, step_grads = [], [], []
+    for n in range(2):
+        pre.append({"vae": snapshot(state.vae), "disc": snapshot(state.disc)})
+        grads = ae_step_grads(ae, n, r, draws)
+        step_grads.append(grads)
+        if ae.use_disc_this_step(n):
+            state, met = ae.disc_step(state, r, draws=draws[n])
+            losses.append(met["train/discriminator_loss"].item())
+            groups["disc"]["steps"].append({"grads": grads,
+                                            "params": snapshot(state.disc)})
+        else:
+            state, met = ae.gen_step(state, r, draws=draws[n])
+            losses.append(met["train/loss"].item())
+            groups["vae"]["steps"].append({"grads": grads,
+                                           "params": snapshot(state.vae),
+                                           "ema": snapshot(state.ema_vae)})
+    return {"groups": groups, "losses": losses, "pre": pre,
+            "grads": step_grads}
+
+
+def replay_grads(modules: dict, pre: list, step_grads) -> list:
+    """Each step's gradient at the parameters another run had before it:
+    ``pre[n]`` loaded into ``modules`` (by group), then ``step_grads(n)``.
+    So the card's gradients are held against the CPU's at the same
+    point, not along two trajectories that Adam parts."""
+    import torch
+    out = []
+    for n, snaps in enumerate(pre):
+        for group, sd in snaps.items():
+            modules[group].load_state_dict(
+                {k: torch.from_numpy(v) for k, v in sd.items()})
+        out.append(step_grads(n))
+    return out
+
+
+def seeded_disc(in_channels: int, device: str, **kw):
+    import torch
+    from ditsep_tpu_torch.models.discriminators import (
+        MultiScaleSTFTDiscriminator,
+    )
+    disc = MultiScaleSTFTDiscriminator(in_channels=in_channels, **kw)
+    disc.reset_parameters(torch.Generator().manual_seed(in_channels))
+    return disc.to(device)
+
+
+def phase_ldm_parity(ctx):
+    """The small latent config (latent_parity's, hop 64) with a two-scale
+    discriminator (filters 8), seeded weights, on the card (TF32 off)
+    against the CPU with the same inputs and draws: the perceptual MRSTFT
+    at the ldm config's 7 resolutions and its gradient, the
+    discriminator's logits and feature maps, gen -> disc -> gen LDM steps
+    and one AutoencoderTrainer gen + disc pair (the latent mask on): each
+    step's gradient against the CPU's at the card's parameters before it,
+    the parameters at the train-step bars, at lr 1 (the schedule's first
+    rates are 1e-3 lr: the steps stand above float32's resolution)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.configs import latent_diffsep_ouve, override
+    from ditsep_tpu_torch.training import auraloss
+    from ditsep_tpu_torch.training.autoencoder import AutoencoderTrainer
+    from ditsep_tpu_torch.training.ldm import LDMTrainer
+    from ditsep_tpu_torch.training.schedules import inverse_lr_schedule
+
+    cfg = override(latent_diffsep_ouve(), LATENT_PARITY_OVERRIDES)
+    rng = np.random.default_rng(41)
+    b, t, d = 2, LDM_PARITY_SAMPLES, 16
+    tl = t // 64
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    y = f32(0.3 * rng.standard_normal((b, 2, t)))
+    x = f32(y + 0.1 * rng.standard_normal((b, 2, t)))
+    batches = [(f32(rng.standard_normal((b, 2, d, tl))),
+                f32(0.3 * rng.standard_normal((b, 2, t)))) for _ in range(3)]
+    ae_reals = f32(0.3 * rng.standard_normal((b, 1, t)))
+    ae_draws = [{"enc_z": f32(rng.standard_normal((b, d, tl))),
+                 "mask_u": f32(rng.random((b, d, tl)))} for _ in range(2)]
+    mr = {"sample_rate": FS, "perceptual_weighting": True}
+    out = {}
+    with full_f32():
+        for device in ("cpu", "cuda"):
+            res = {}
+            for dt in ((torch.float32, torch.float64) if device == "cpu"
+                       else (torch.float32,)):
+                xt = torch.from_numpy(x).to(device, dt).requires_grad_(True)
+                loss = auraloss.multi_resolution_stft_loss(
+                    xt, torch.from_numpy(y).to(device, dt), **mr)
+                (g,) = torch.autograd.grad(loss, [xt])
+                res[str(dt)] = (loss.item(), g.double().cpu().numpy())
+            disc = seeded_disc(2, device, **LDM_PARITY_DISC)
+            with torch.no_grad():
+                logits, fmaps = disc(torch.from_numpy(x).to(device))
+            res["disc"] = [a.cpu().numpy() for a in logits
+                           + [f for fm in fmaps for f in fm]]
+            tr = latent_trainer(cfg, device)
+            ae_vae = copy.deepcopy(tr.vae)  # the finetune moves tr's
+            ldm = LDMTrainer(latent_trainer=tr, disc=disc, lr=LDM_PARITY_LR)
+            res["ldm"] = ldm_parity_steps(ldm, batches, device)
+            ae = AutoencoderTrainer(
+                vae=ae_vae, disc=seeded_disc(1, device, **LDM_PARITY_DISC),
+                lr=LDM_PARITY_LR, disc_lr=2 * LDM_PARITY_LR,
+                latent_mask_ratio=0.3)
+            res["ae"] = ae_parity_steps(ae, ae_reals, ae_draws, device)
+            out[device] = res
+            if device == "cpu":
+                cpu_ldm, cpu_ae = ldm, ae
+            del tr, ae_vae, ldm, ae, disc
+        # the CPU's gradients at the card's parameters before each step
+        tn = torch.from_numpy
+        replay = {
+            "ldm": replay_grads(
+                {"decoder": cpu_ldm.vae.decoder, "disc": cpu_ldm.disc},
+                out["cuda"]["ldm"]["pre"], lambda n: ldm_step_grads(
+                    cpu_ldm, n, tn(batches[n][0]), tn(batches[n][1]))),
+            "ae": replay_grads(
+                {"vae": cpu_ae.vae, "disc": cpu_ae.disc},
+                out["cuda"]["ae"]["pre"], lambda n: ae_step_grads(
+                    cpu_ae, n, tn(ae_reals), ae_draws))}
+    cpu, card = out["cpu"], out["cuda"]
+    f32k, f64k = str(torch.float32), str(torch.float64)
+    (l_cpu, g_cpu), (l_card, g_card) = cpu[f32k], card[f32k]
+    g64 = cpu[f64k][1]
+    mrstft = {"loss_rel": abs(l_card - l_cpu) / abs(l_cpu),
+              "grad_err_of_max": float(np.abs(g_card - g_cpu).max()
+                                       / np.abs(g_cpu).max()),
+              "cpu_f32_vs_f64_of_max": float(np.abs(g_cpu - g64).max()
+                                             / np.abs(g_cpu).max())}
+    check(mrstft["loss_rel"] <= 1e-5, f"MRSTFT card vs CPU {mrstft}")
+    check(np.abs(g_card - g_cpu).max() <= 1e-5 * np.abs(g_cpu).max()
+          + 2 * np.abs(g_cpu - g64).max(), f"MRSTFT gradient {mrstft}")
+    disc_rel = max(float(np.abs(a - c).max() / np.abs(c).max())
+                   for a, c in zip(card["disc"], cpu["disc"]))
+    check(disc_rel <= 1e-5, f"discriminator card vs CPU {disc_rel}")
+    steps = {}
+    for what, trainer in (("ldm", cpu_ldm), ("ae", cpu_ae)):
+        # the hinge's gradient: conv_post's bias exactly 0 with every
+        # hinge active, its gain a near-cancelled sum (as the CPU tests,
+        # at least 1e-4 of the largest leaf's max)
+        worst = {"gen": 0.0, "disc": 0.0}
+        for n, (want, got) in enumerate(zip(replay[what],
+                                            card[what]["grads"])):
+            kind = "disc" if trainer.use_disc_this_step(n) else "gen"
+            worst[kind] = max(worst[kind], grads_worst(
+                want, got, f"{what} step {n} at the card's parameters",
+                floor=1e-4 if kind == "disc" else 0.0))
+        steps[what] = {"grad_over_bar": worst}
+    for what, lr_of in (("ldm", {"decoder": LDM_PARITY_LR,
+                                 "disc": 2 * LDM_PARITY_LR}),
+                        ("ae", {"vae": LDM_PARITY_LR,
+                                "disc": 2 * LDM_PARITY_LR})):
+        loss_rel = max(abs(a - c) / abs(c) for a, c in zip(
+            card[what]["losses"], cpu[what]["losses"]))
+        check(loss_rel <= 1e-4, f"{what} losses card vs CPU {loss_rel}")
+        steps[what]["loss_rel"] = loss_rel
+        for group, lr in lr_of.items():
+            clip = 1.0 if what == "ldm" else np.inf  # the VAE-GAN's: none
+            worst = group_worst(
+                cpu[what]["groups"][group], card[what]["groups"][group],
+                inverse_lr_schedule(lr), clip,
+                decay=0.9999 if group in ("decoder", "vae") else None)
+            check(worst["param_over_bar"] <= 1 and worst["ema_over_bar"] <= 1,
+                  f"{what} {group} steps card vs CPU: {worst}")
+            steps[what][group] = worst
+    emit({"phase": "ldm_parity", "config": "latent_parity's (VAE channels "
+          "32, hop 64, latent 16), seeded weights; discriminator filters 8, "
+          "n_ffts (1024, 256); MRSTFT: the ldm config's 7 resolutions, "
+          "perceptual", "samples": t, "batch": b, "tf32": False,
+          "lr": LDM_PARITY_LR, "mrstft": mrstft,
+          "disc_max_rel_err": disc_rel, "steps": steps,
+          "losses_card": {k: card[k]["losses"] for k in ("ldm", "ae")},
+          "tolerance": "MRSTFT 1e-5 relative, its gradient 1e-5 of max "
+          "plus twice the CPU's own float32 error against float64; the "
+          "discriminator 1e-5 of max; losses 1e-4 relative; each step's "
+          "gradient leaf by leaf 1e-3 of the CPU leaf's max, the CPU's "
+          "taken at the card's parameters before the step (the "
+          "discriminator's at least 1e-4 of its largest leaf's max); "
+          "parameters the train-step bars at the applied rates plus the part "
+          "float64 AdamW explains, the EMA the same times (1 - decay) "
+          "plus 2 ulps (over_bar <= 1 passes)", "card": ctx["card"]})
+
+
+def phase_ldm_train(ctx):
+    """The decoder finetune at full width through its CLIs: cli.
+    cache_latents on 8 synthetic 5.12 s items at N = 30 (fir_down2d's
+    launches), cli.train_ldm --use-disc at batch 4 for 6 steps (peak
+    memory), then --resume to 8; cli.validate_vae over the seeded and the
+    finetuned VAE; the steady rates from 10 gen and 10 disc steps after a
+    warm pair, alternating, each timed alone, then 3 gen steps under the
+    profiler; then AutoencoderTrainer gen and disc steps at the VAE's
+    sample_size of 247,808 samples, batch 2, timed the same way."""
+    import gc
+
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.cli import cache_latents, train_ldm, validate_vae
+    from ditsep_tpu_torch.configs import (
+        build_latent_trainer, build_oobleck_vae, ldm,
+    )
+    from ditsep_tpu_torch.data import LatentDataset, SyntheticMixDataset
+    from ditsep_tpu_torch.models.weights import save_params_npz
+    from ditsep_tpu_torch.training.autoencoder import AutoencoderTrainer
+    from ditsep_tpu_torch.training.ldm import LDMTrainer
+
+    cfg = ldm()
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = Path(tmp, "cache")
+        reset_counts()
+        t0 = time.perf_counter()
+        n = cache_latents.main([
+            "--config", "ldm", "--synthetic", "--synthetic-items",
+            str(LDM_CACHE_ITEMS), "--synthetic-len-s", str(LDM_LEN_S),
+            "--sampler-N", str(N_STEPS), "--out-dir", str(cache),
+            "--seed", "0"])
+        torch.cuda.synchronize()
+        cache_launches = counts()
+        want = LATENT_LAUNCHES_PER_FORWARD * 2 * N_STEPS * n
+        check(n == LDM_CACHE_ITEMS and cache_launches["fir_down2d"] == want
+              and all(v == 0 for k, v in cache_launches.items()
+                      if k != "fir_down2d"),
+              f"cache_latents: {n} items, launches {cache_launches}, want "
+              f"fir_down2d {want}")
+        ctx["ldm_cache_launches"] = cache_launches["fir_down2d"]
+        result["cache_latents"] = {"items": n, "N": N_STEPS,
+                                   "seconds": time.perf_counter() - t0,
+                                   "fir_down2d_launches": want}
+
+        spans, metrics = {"gen": [], "disc": []}, []
+        real = {"gen": LDMTrainer.gen_step, "disc": LDMTrainer.disc_step}
+
+        def timed(kind):
+            def step(self, state, *args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = real[kind](self, state, *args, **kw)
+                vals = {k: v.item() for k, v in met.items()}  # syncs
+                spans[kind].append(time.perf_counter() - t0)
+                metrics.append({"step": state.step, **vals})
+                return state, met
+            return step
+
+        work = Path(tmp, "run")
+        args = ["--latent-cache", str(cache), "--use-disc", "--workdir",
+                str(work), "--synthetic", "--seed", "0"]
+        LDMTrainer.gen_step, LDMTrainer.disc_step = timed("gen"), timed("disc")
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            state = train_ldm.main(args + ["--max-steps", str(LDM_STEPS)])
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            launches = counts()
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            trainable = sum(p.numel() for p in state.decoder.parameters()
+                            if p.requires_grad)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            resumed = train_ldm.main(
+                args + ["--max-steps", str(LDM_RESUME_STEPS), "--resume"])
+        finally:
+            LDMTrainer.gen_step, LDMTrainer.disc_step = (real["gen"],
+                                                         real["disc"])
+        check(len(spans["gen"]) == len(spans["disc"]) == LDM_RESUME_STEPS // 2
+              and resumed.step == LDM_RESUME_STEPS
+              and [m["step"] for m in metrics]
+              == list(range(1, LDM_RESUME_STEPS + 1)),
+              f"train_ldm steps {[m['step'] for m in metrics]}, resumed at "
+              f"{resumed.step}")
+        check(all(math.isfinite(v) for m in metrics for v in m.values()),
+              f"train_ldm metrics {metrics}")
+        check(all(v == 0 for v in launches.values()),
+              f"train_ldm launched kernels {launches}")
+        index = json.loads((work / "checkpoints" / "index.json").read_text())
+        check(len(index) == 4, f"train_ldm checkpoints {index}")
+        result["train_ldm"] = {
+            "batch": LDM_BATCH, "samples": int(LDM_LEN_S * FS),
+            "trainable_params": trainable, "cli_gen_step_s": spans["gen"],
+            "cli_disc_step_s": spans["disc"],
+            "total_s": total_s, "peak_gib": peak_gib, "metrics": metrics,
+            "launches": launches, "checkpoints": len(index),
+            "resumed_to": resumed.step}
+
+        # validate_vae over the seeded VAE and the finetuned one
+        params_dir = Path(tmp, "vaes")
+        params_dir.mkdir()
+        vae = build_oobleck_vae(cfg["model"]["vae"], device="cpu", seed=0)
+        save_params_npz(str(params_dir / "seeded.npz"), vae)
+        vae.decoder.load_state_dict({k: v.cpu() for k, v in
+                                     resumed.decoder.state_dict().items()})
+        save_params_npz(str(params_dir / "finetuned.npz"), vae)
+        del resumed, vae
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows = validate_vae.main(["--params-dir", str(params_dir),
+                                  "--n-items", "4", "--synthetic"])
+        check(len(rows) == 2 and all(math.isfinite(r["si_sdr"])
+                                     and math.isfinite(r["mrstft"])
+                                     for r in rows), f"validate_vae {rows}")
+        result["validate_vae"] = rows
+
+        # the steady rates: after a warm gen + disc pair (cuDNN's set-up),
+        # 10 steps of each kind, alternating as train_ldm does; then 3 gen
+        # steps under the profiler
+        trainer = train_ldm.build_ldm_trainer(
+            cfg, build_latent_trainer(cfg, device="cuda", seed=0),
+            disc_channels=2)
+        ds = LatentDataset(str(cache))
+        items = [ds[i] for i in range(LDM_BATCH)]
+        reals = torch.from_numpy(np.stack([t for t, _ in items])).cuda()
+        lat = torch.from_numpy(np.stack([la for _, la in items])).cuda()
+        state, spans = alternate_steps(
+            trainer.gen_step, trainer.disc_step, trainer.init_state(),
+            1 + LDM_TIMED_STEPS, lat, reals)
+        result["train_ldm"].update(steady_rates(spans))
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(LDM_PROFILED_STEPS):
+                state, _ = trainer.gen_step(state, lat, reals)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        result["gen_step_profile"] = {"steps": LDM_PROFILED_STEPS,
+                                      **profile_summary(prof, wall_ms)}
+        check(result["gen_step_profile"]["device_busy_ms"] > 0,
+              "the profiler saw no device time")
+        del trainer, state, reals, lat
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the VAE-GAN at the VAE's sample_size
+    vcfg = cfg["model"]["vae"]
+    dc = cfg["training"]["loss"]["discriminator"]
+    batch, why = AE_BATCH, None
+    while True:
+        try:
+            result["autoencoder"] = autoencoder_steps(
+                vcfg, dc, batch, AutoencoderTrainer, build_oobleck_vae,
+                SyntheticMixDataset)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            gc.collect()
+            torch.cuda.empty_cache()
+            if batch == 1:
+                raise
+            why = f"batch {batch}: {str(e).splitlines()[0]}"
+            batch //= 2
+    result["autoencoder"]["halved_because"] = why
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "ldm_train", "config": "ldm (latent_diffsep_ouve's VAE: "
+          "channels 128, c_mults (1,2,4,8,16), strides (2,4,4,8,8), latent "
+          "64; the nf=128 latent NCSN++; discriminator filters 64, n_ffts "
+          "2048-128), seeded weights, TF32 convs", **result,
+          "timing": "host clock around each step, synchronized before and "
+                    "after", "card": ctx["card"]})
+
+
+def alternate_steps(gen, disc, state, n: int, *args, **kw):
+    """``n`` gen and ``n`` disc steps, alternating, from ``state``: the
+    state after them and each kind's seconds a step on the host clock,
+    synchronized before and after (its metrics read, all finite)."""
+    import torch
+    spans = {"gen": [], "disc": []}
+    for kind, step in (("gen", gen), ("disc", disc)) * n:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, *args, **kw)
+        vals = [v.item() for v in met.values()]  # syncs
+        spans[kind].append(time.perf_counter() - t0)
+        check(all(math.isfinite(v) for v in vals), f"{kind} step: {met}")
+    return state, spans
+
+
+def steady_rates(spans: dict) -> dict:
+    """Each kind's steps after its first (cuDNN's set-up): their seconds,
+    total and rate."""
+    out = {"warm_s": {k: v[0] for k, v in spans.items()}}
+    for kind, v in spans.items():
+        v = v[1:]
+        out.update({f"{kind}_steps_timed": len(v), f"{kind}_step_s": v,
+                    f"{kind}_s_total": sum(v),
+                    f"{kind}_steps_per_s": len(v) / sum(v)})
+    return out
+
+
+def autoencoder_steps(vcfg, dc, batch, trainer_cls, build_vae, dataset_cls):
+    """AutoencoderTrainer gen and disc steps, alternating, at ``batch``
+    synthetic mixtures of the VAE's sample_size: a warm pair, then
+    ``AE_TIMED_STEPS`` of each kind (``steady_rates``), and peak
+    memory."""
+    import numpy as np
+    import torch
+    vae = build_vae(vcfg, device="cuda", seed=0)
+    disc = seeded_disc(1, "cuda", filters=dc["filters"],
+                       n_ffts=tuple(dc["n_ffts"]),
+                       hop_lengths=tuple(dc["hop_lengths"]))
+    ae = trainer_cls(vae=vae, disc=disc)
+    state = ae.init_state()
+    ds = dataset_cls(n_items=batch, min_len_s=AE_SAMPLES / FS,
+                     max_len_s=AE_SAMPLES / FS, seed=13)
+    reals = torch.from_numpy(np.stack([ds[i][0] for i in range(batch)])
+                             ).cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    check(tuple(reals.shape) == (batch, 1, AE_SAMPLES)
+          and not ae.use_disc_this_step(0) and ae.use_disc_this_step(1),
+          f"autoencoder batch {tuple(reals.shape)}")
+    state, spans = alternate_steps(ae.gen_step, ae.disc_step, state,
+                                   1 + AE_TIMED_STEPS, reals, generator=g)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del ae, state, vae, disc, reals
+    return {"batch": batch, "samples": AE_SAMPLES, **steady_rates(spans),
+            "peak_gib": peak}
+
+
 # the serving phases: the nf=32 checkpoint's parity through the engine; the
 # flagship behind the HTTP API at concurrency 1, 4 and 8 (two waves each,
 # every batch size warmed first) and two /v1/stream sessions on the same
@@ -2730,6 +3329,8 @@ def main() -> int:
     phase_latent_parity(ctx)
     phase_latent_flagship(ctx)
     phase_latent_train(ctx)
+    phase_ldm_parity(ctx)
+    phase_ldm_train(ctx)
     phase_serving_parity(ctx)
     phase_serving(ctx)
     phase_serving_latent(ctx)
@@ -2752,6 +3353,7 @@ def main() -> int:
                in ctx["families_train_launches"].items()},
             **{k: v["fir_down2d"] if isinstance(v, dict) else v
                for k, v in ctx["latent_launches"].items()},
+            "ldm_cache_latents": ctx["ldm_cache_launches"],
             **ctx["serve_launches"]},
         "max_abs_err": ctx["kernel_err"][torch.float32],
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],

@@ -7,9 +7,7 @@ import argparse
 import ast
 from typing import Dict, Optional
 
-from ditsep_tpu_torch.configs import (
-    CONFIG_FAMILIES, UNPORTED_FAMILIES, override,
-)
+from ditsep_tpu_torch.configs import CONFIG_FAMILIES, override
 
 
 def parse_overrides(pairs) -> Dict[str, object]:
@@ -25,9 +23,6 @@ def parse_overrides(pairs) -> Dict[str, object]:
 
 
 def load_config(name: str, overrides=None):
-    if name in UNPORTED_FAMILIES:
-        raise NotImplementedError(f"config {name!r} is not ported yet: "
-                                  f"{UNPORTED_FAMILIES[name]}")
     if name not in CONFIG_FAMILIES:
         raise SystemExit(f"unknown config {name!r}; choose from "
                          f"{sorted(CONFIG_FAMILIES)}")

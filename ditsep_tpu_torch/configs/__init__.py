@@ -3,8 +3,8 @@ ditsep_tpu/configs/__init__.py: ``diffsep`` and ``diffsep_icassp``
 (MixSDE), ``diffsep_ouve`` (OUVESDE), ``diffsep_sb`` (SBVESDE with EDM
 preconditioning) and ``enhancement`` (PriorMixSDE at 16 kHz on
 VCTK-DEMAND), ``latent_diffsep_ouve`` (OUVESDE in the OobleckVAE's latent
-space); and ``override`` for dotted-path overrides. The LDM decoder
-finetune family is not ported yet (``UNPORTED_FAMILIES``)."""
+space), ``ldm`` (the decoder finetune on that model's latents); and
+``override`` for dotted-path overrides."""
 from __future__ import annotations
 
 import copy
@@ -194,6 +194,44 @@ _OOBLECK_FINETUNE = {
 }
 
 
+def ldm() -> Dict[str, Any]:
+    """The decoder finetune (reference: src/config/ldm/): the
+    latent_diffsep_ouve model, AdamW at 1.5e-4 with the global-norm clip
+    1.0, the perceptual 7-resolution MRSTFT and, off by default, the
+    Encodec discriminator (filters 64, n_ffts 2048 ... 128)."""
+    base = latent_diffsep_ouve()
+    return {
+        "name": "ldm",
+        "model": base["model"],
+        "training": {
+            "lr": 1.5e-4,
+            "clip_grad_norm": 1.0,
+            "use_ema": True,
+            "warmup_steps": 0,
+            "warmup_mode": "full",
+            "loss": {
+                "spectral": {
+                    "weights": {"mrstft": 1.0},
+                    "decay": 1.0,
+                    "fft_sizes": (2048, 1024, 512, 256, 128, 64, 32),
+                    "hop_sizes": (512, 256, 128, 64, 32, 16, 8),
+                    "perceptual_weighting": True,
+                },
+                "time": {"weights": {"l1": 0.0}},
+                "discriminator": {
+                    "enabled": False,
+                    "filters": 64,
+                    "n_ffts": (2048, 1024, 512, 256, 128),
+                    "hop_lengths": (512, 256, 128, 64, 32),
+                    "weights": {"adversarial": 0.1,
+                                "feature_matching": 5.0},
+                },
+            },
+        },
+        "datamodule": base["datamodule"],
+    }
+
+
 CONFIG_FAMILIES = {
     "diffsep": diffsep,
     "diffsep_icassp": diffsep_icassp,
@@ -201,9 +239,5 @@ CONFIG_FAMILIES = {
     "diffsep_sb": diffsep_sb,
     "enhancement": enhancement,
     "latent_diffsep_ouve": latent_diffsep_ouve,
-}
-
-# the JAX package's other families, and the ROADMAP item that ports each
-UNPORTED_FAMILIES = {
-    "ldm": "ROADMAP A13 (the LDM decoder finetune)",
+    "ldm": ldm,
 }

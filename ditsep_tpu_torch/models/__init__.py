@@ -5,6 +5,6 @@ from ditsep_tpu_torch.models.score_models import (  # noqa: F401
     LatentScoreModelNCSNpp, ScoreModelNCSNpp,
 )
 from ditsep_tpu_torch.models.weights import (  # noqa: F401
-    load_params_npz, oobleck_params_from_jax, oobleck_params_to_jax,
+    disc_params_from_jax, disc_params_to_jax, load_params_npz, oobleck_params_from_jax, oobleck_params_to_jax,
     params_from_jax, params_to_jax, save_params_npz,
 )

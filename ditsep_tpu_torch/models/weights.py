@@ -21,6 +21,12 @@ against the reference's ``nn.Sequential`` keys, ``v`` WIO (k, in, out) <->
 (out, in, k) (a transposed conv's (k, out, in) <-> (in, out, k)) and ``g``
 (n,) <-> (n, 1, 1). ``load_params_npz`` and ``save_params_npz`` take it for
 an OobleckVAE.
+
+The Encodec discriminator's bridge (``disc_params_{from,to}_jax``) maps
+the flax tree ``disc_{i}/conv_{j}/{v,g,bias}`` (``conv_post`` the last)
+to ``discs.{i}.convs.{j}.weight_v`` / ``weight_g`` / ``bias``
+(``discs.{i}.conv_post...``): ``v`` HWIO <-> OIHW, ``g`` (n,) <-> (n, 1,
+1, 1).
 """
 from __future__ import annotations
 
@@ -272,5 +278,53 @@ def oobleck_params_to_jax(vae: nn.Module) -> Dict[str, np.ndarray]:
         elif key.endswith("weight_g"):
             a = a.reshape(-1)
         out[oobleck_torch_key_to_flax_path(key, n_blocks)] = (
+            np.ascontiguousarray(a))
+    return out
+
+
+# ------------------------------------------- MultiScaleSTFTDiscriminator --
+_DISC_LEAVES = {"v": "weight_v", "g": "weight_g", "bias": "bias"}
+
+
+def _disc_torch_key(path: str) -> str:
+    """``disc_i/conv_j/leaf`` (or ``conv_post``) -> ``discs.i.convs.j.
+    weight_v`` (``discs.i.conv_post...``)."""
+    disc, conv, leaf = path.split("/")
+    if not disc.startswith("disc_") or leaf not in _DISC_LEAVES:
+        raise KeyError(f"{path!r} is not a discriminator parameter")
+    mod = "conv_post" if conv == "conv_post" else f"convs.{int(conv[5:])}"
+    return f"discs.{int(disc[5:])}.{mod}.{_DISC_LEAVES[leaf]}"
+
+
+def disc_params_from_jax(flat: Mapping[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+    """The JAX package's MultiScaleSTFTDiscriminator tree (flat, with or
+    without ``params/``) -> the port's state_dict: ``v`` HWIO -> OIHW,
+    ``g`` (out,) -> (out, 1, 1, 1)."""
+    out = {}
+    for key, arr in flat.items():
+        key = key[len("params/"):] if key.startswith("params/") else key
+        a = np.asarray(arr)
+        if key.endswith("/v"):
+            a = a.transpose(3, 2, 0, 1)
+        elif key.endswith("/g"):
+            a = a.reshape(-1, 1, 1, 1)
+        out[_disc_torch_key(key)] = torch.from_numpy(np.array(a))
+    return out
+
+
+def disc_params_to_jax(disc: nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of ``disc_params_from_jax``: the flat JAX tree."""
+    leaves = {v: k for k, v in _DISC_LEAVES.items()}
+    out = {}
+    for key, t in disc.state_dict().items():
+        parts = key.split(".")  # discs.i.convs.j.leaf / discs.i.conv_post.leaf
+        conv = "conv_post" if parts[2] == "conv_post" else f"conv_{parts[3]}"
+        a = t.detach().float().cpu().numpy()
+        if parts[-1] == "weight_v":
+            a = a.transpose(2, 3, 1, 0)
+        elif parts[-1] == "weight_g":
+            a = a.reshape(-1)
+        out[f"disc_{parts[1]}/{conv}/{leaves[parts[-1]]}"] = (
             np.ascontiguousarray(a))
     return out

@@ -12,8 +12,10 @@ used as it is.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -38,20 +40,48 @@ def frame_block_padded_len(length: int, n_fft: int, hop_length: int,
     return hop_length * (block * blocks) - 1 - (n_fft - hop_length)
 
 
+def _real_dtype(x: Tensor) -> torch.dtype:
+    """float64 stays float64 (float64 reference runs); all else computes
+    in float32."""
+    return torch.float64 if x.dtype in (torch.float64,
+                                        torch.complex128) else torch.float32
+
+
 def _window(n_fft: int, x: Tensor) -> Tensor:
-    return torch.hann_window(n_fft, periodic=True, dtype=torch.float32,
+    return torch.hann_window(n_fft, periodic=True, dtype=_real_dtype(x),
                              device=x.device)
 
 
 def stft(x: Tensor, n_fft: int = 510, hop_length: int = 128,
-         center: bool = True) -> Tensor:
-    """(..., T) real -> (..., F, n_frames) complex64, F = n_fft//2 + 1."""
+         center: bool = True, normalized: bool = False) -> Tensor:
+    """(..., T) real -> (..., F, n_frames) complex64 (complex128 for
+    float64), F = n_fft//2 + 1.
+
+    ``normalized`` divides by sqrt(sum(win^2)) (sqrt(3 n_fft / 8) for the
+    periodic Hann), as the JAX op does; ``torch.stft(normalized=True)``
+    divides by sqrt(n_fft) instead, so it is not used. Without ``center``
+    a signal shorter than ``n_fft`` raises, as the JAX op's framing does."""
+    if not center and x.shape[-1] < n_fft:
+        raise ValueError(
+            f"signal length {x.shape[-1]} < n_fft {n_fft}: pad the input "
+            "or use center=True")
     lead = x.shape[:-1]
+    win = _window(n_fft, x)
     spec = torch.stft(
-        x.reshape(-1, x.shape[-1]).float(), n_fft, hop_length, n_fft,
-        _window(n_fft, x), center=center, pad_mode="constant",
+        x.reshape(-1, x.shape[-1]).to(win.dtype), n_fft, hop_length, n_fft,
+        win, center=center, pad_mode="constant",
         normalized=False, onesided=True, return_complex=True)
+    if normalized:
+        spec = spec / _window_norm(n_fft)
     return spec.reshape(lead + spec.shape[-2:])
+
+
+@functools.lru_cache(maxsize=None)
+def _window_norm(n_fft: int) -> float:
+    """sqrt(sum(win^2)) of the periodic Hann, summed in float64 and
+    rounded to float32 (the JAX op divides by it in float32)."""
+    win = torch.hann_window(n_fft, periodic=True, dtype=torch.float32)
+    return float(np.float32(np.sqrt((win.double() ** 2).sum().item())))
 
 
 def istft(spec: Tensor, n_fft: int = 510, hop_length: int = 128,

@@ -1,0 +1,147 @@
+"""Spectral losses: the STFT and multi-resolution STFT losses with the
+perceptual A-weighting prefilter, and the PIT wrapper (port of
+ditsep_tpu/training/auraloss.py:25-140, 192-197; reference: the vendored
+auraloss subset, src/stable_audio_tools/training/losses/auraloss.py and
+losses/losses.py:111-154).
+
+The STFT is ``ops.stft`` (``torch.stft``, the periodic Hann, zero padding
+at center); every loss takes (B, C, T) waveforms and returns a scalar.
+The mel and sum-and-difference losses go with the stable-audio factory
+(ROADMAP A16): nothing on the LDM or VAE-GAN path calls them.
+"""
+from __future__ import annotations
+
+import functools
+import itertools
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ditsep_tpu_torch.ops.stft import stft as stft_fn
+
+Tensor = torch.Tensor
+
+
+@functools.lru_cache(maxsize=8)
+def a_weighting_fir(fs: int, ntaps: int = 101) -> np.ndarray:
+    """Least-squares FIR fit of the IEC 1672 A-weighting response, float32
+    taps (scipy's bilinear transform, freqz and firls, as the JAX
+    package's)."""
+    import scipy.signal
+
+    f1, f2, f3, f4 = 20.598997, 107.65265, 737.86223, 12194.217
+    a1000 = 1.9997
+    nums = [(2 * np.pi * f4) ** 2 * (10 ** (a1000 / 20)), 0, 0, 0, 0]
+    dens = np.polymul(
+        [1, 4 * np.pi * f4, (2 * np.pi * f4) ** 2],
+        [1, 4 * np.pi * f1, (2 * np.pi * f1) ** 2])
+    dens = np.polymul(np.polymul(dens, [1, 2 * np.pi * f3]),
+                      [1, 2 * np.pi * f2])
+    b, a = scipy.signal.bilinear(nums, dens, fs=fs)
+    w_iir, h_iir = scipy.signal.freqz(b, a, worN=512, fs=fs)
+    taps = scipy.signal.firls(ntaps, w_iir, abs(h_iir), fs=fs)
+    return taps.astype(np.float32)
+
+
+def fir_prefilter(x: Tensor, taps: np.ndarray) -> Tensor:
+    """Convolve the last axis with ``taps`` (a true convolution: the taps
+    reversed under ``F.conv1d``'s correlation), 'same' padding k // 2; the
+    leading axes fold into the batch.
+
+    The convolution runs in float64 and rounds once to ``x``'s dtype: the
+    A-weighting leaves the low bins of its output tiny, and the log
+    magnitude's 1/|X| turns the accumulation's round-off there (and the
+    10-bit mantissa of TF32, on by default for convs on the card) into
+    gradient error. The perceptual MRSTFT's float32 gradient lies 6.5e-4
+    to 1.7e-3 of its max off float64 so, 9.1e-4 to 2.0e-3 with a float32
+    convolution (tests/test_torch_auraloss.py run as a script)."""
+    k = len(taps)
+    w = torch.as_tensor(np.ascontiguousarray(taps[::-1]),
+                        dtype=torch.float64, device=x.device).view(1, 1, k)
+    y = F.conv1d(x.reshape(-1, 1, x.shape[-1]).double(), w, padding=k // 2)
+    return y.to(x.dtype).reshape(x.shape[:-1] + y.shape[-1:])
+
+
+def _magnitude(x: Tensor, fft_size: int, hop_size: int,
+               eps: float = 1e-8) -> Tensor:
+    """|STFT| as sqrt(clip(power, eps)), window length = fft_size."""
+    spec = stft_fn(x, n_fft=fft_size, hop_length=hop_size)
+    power = spec.real ** 2 + spec.imag ** 2
+    return torch.sqrt(torch.clamp(power, min=eps))
+
+
+def stft_loss(x: Tensor, y: Tensor, *, fft_size: int = 1024,
+              hop_size: int = 256, w_sc: float = 1.0, w_log_mag: float = 1.0,
+              w_lin_mag: float = 0.0, sample_rate: Optional[int] = None,
+              perceptual_weighting: bool = False,
+              scale_invariance: bool = False, eps: float = 1e-8) -> Tensor:
+    """Single-resolution STFT loss of the estimate ``x`` against the
+    target ``y``: spectral convergence (the norm per (B, C) item, then
+    averaged; not auraloss's batch norm) + log-magnitude L1 (+ linear
+    magnitude L1)."""
+    if perceptual_weighting:
+        assert sample_rate is not None
+        taps = a_weighting_fir(sample_rate)
+        x = fir_prefilter(x, taps)
+        y = fir_prefilter(y, taps)
+    x_mag = _magnitude(x, fft_size, hop_size, eps)
+    y_mag = _magnitude(y, fft_size, hop_size, eps)
+    if scale_invariance:
+        alpha = ((x_mag * y_mag).sum(dim=(-2, -1), keepdim=True)
+                 / torch.clamp((y_mag ** 2).sum(dim=(-2, -1), keepdim=True),
+                               min=eps))
+        y_mag = y_mag * alpha
+    loss = 0.0
+    if w_sc:
+        num = torch.linalg.vector_norm((y_mag - x_mag).flatten(-2), dim=-1)
+        den = torch.linalg.vector_norm(y_mag.flatten(-2), dim=-1)
+        loss = loss + w_sc * (num / torch.clamp(den, min=eps)).mean()
+    if w_log_mag:
+        loss = loss + w_log_mag * (
+            torch.log(torch.clamp(x_mag, min=eps))
+            - torch.log(torch.clamp(y_mag, min=eps))).abs().mean()
+    if w_lin_mag:
+        loss = loss + w_lin_mag * (x_mag - y_mag).abs().mean()
+    return loss
+
+
+def multi_resolution_stft_loss(
+        x: Tensor, y: Tensor, *,
+        fft_sizes: Sequence[int] = (2048, 1024, 512, 256, 128, 64, 32),
+        hop_sizes: Sequence[int] = (512, 256, 128, 64, 32, 16, 8),
+        sample_rate: Optional[int] = None, perceptual_weighting: bool = False,
+        w_sc: float = 1.0, w_log_mag: float = 1.0,
+        w_lin_mag: float = 0.0) -> Tensor:
+    """Mean of the per-resolution STFT losses; the prefilter runs once,
+    before every resolution, and only with a ``sample_rate`` (defaults: the
+    oobleck_finetune 'mrstft' config)."""
+    assert len(fft_sizes) == len(hop_sizes)
+    if perceptual_weighting and sample_rate is not None:
+        taps = a_weighting_fir(sample_rate)
+        x = fir_prefilter(x, taps)
+        y = fir_prefilter(y, taps)
+    total = 0.0
+    for n_fft, hop in zip(fft_sizes, hop_sizes):
+        total = total + stft_loss(x, y, fft_size=n_fft, hop_size=hop,
+                                  w_sc=w_sc, w_log_mag=w_log_mag,
+                                  w_lin_mag=w_lin_mag)
+    return total / len(fft_sizes)
+
+
+def pit_min(loss_fn: Callable[[Tensor, Tensor], Tensor], est: Tensor,
+            ref: Tensor) -> Tensor:
+    """``loss_fn(est[:, p], ref)`` for every source permutation p, then the
+    minimum: of the batch-aggregated loss, as the reference's PITLoss."""
+    n = est.shape[1]
+    return torch.stack([loss_fn(est[:, list(p)], ref)
+                        for p in itertools.permutations(range(n))]).min()
+
+
+def l1_loss(x: Tensor, y: Tensor) -> Tensor:
+    return (x - y).abs().mean()
+
+
+def mse_loss(x: Tensor, y: Tensor) -> Tensor:
+    return ((x - y) ** 2).mean()

@@ -171,10 +171,7 @@ class ClipAdam:
             for a in self.acc:
                 a.zero_()
             self.mini_step = 0
-        norm = global_norm(grads)
-        scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
-                            self.grad_clip / norm)
-        torch._foreach_mul_(grads, scale)
+        clip_by_global_norm_(grads, self.grad_clip)
         for p, g in zip(self.params, grads):
             p.grad = g
         self.adam.step()
@@ -200,6 +197,24 @@ def global_norm(tensors: Sequence[Tensor]) -> Tensor:
     """sqrt(sum of squares) over every element of every tensor."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
         list(tensors))))
+
+
+def clip_by_global_norm_(grads: List[Tensor], clip: float) -> None:
+    """optax's clip_by_global_norm in place: scale by clip / norm when the
+    global norm is at least ``clip`` (no epsilon)."""
+    norm = global_norm(grads)
+    scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
+    torch._foreach_mul_(grads, scale)
+
+
+@torch.no_grad()
+def ema_update_(ema: nn.Module, model: nn.Module, decay: float) -> None:
+    """ema <- decay * ema + (1 - decay) * model, over the floating-point
+    parameters and buffers, as the JAX package's tree map."""
+    e = [t for t in ema.state_dict().values() if t.is_floating_point()]
+    cur = [t for t in model.state_dict().values() if t.is_floating_point()]
+    torch._foreach_mul_(e, decay)
+    torch._foreach_add_(e, torch._foreach_mul(cur, 1.0 - decay))
 
 
 @dataclasses.dataclass
@@ -508,13 +523,7 @@ class DiffSepTrainer:
         with torch.no_grad():
             grad_norm = global_norm(grads)
             state.optimizer.step(grads)
-            d = self.cfg.ema_decay
-            ema = [t for t in state.ema.state_dict().values()
-                   if t.is_floating_point()]
-            cur = [t for t in model.state_dict().values()
-                   if t.is_floating_point()]
-            torch._foreach_mul_(ema, d)
-            torch._foreach_add_(ema, torch._foreach_mul(cur, 1.0 - d))
+            ema_update_(state.ema, model, self.cfg.ema_decay)
         state.step += 1
         return state, {"train/score_loss": loss.detach(),
                        "train/grad_norm": grad_norm}

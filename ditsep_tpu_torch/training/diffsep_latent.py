@@ -82,7 +82,14 @@ class LatentDiffSepTrainer(DiffSepTrainer):
     def decode(self, est: Tensor, target_dim: Optional[int] = None
                ) -> Tensor:
         """(B, n_src, D, Tl) -> (B, n_src, T) waveforms, cropped to
-        ``target_dim`` samples."""
+        ``target_dim`` samples, without gradients (separation)."""
+        return self.decode_grad(est, target_dim)
+
+    def decode_grad(self, est: Tensor, target_dim: Optional[int] = None
+                    ) -> Tensor:
+        """``decode`` with gradients through the VAE's decoder where its
+        parameters take them (the LDM decoder finetune, training/ldm.py;
+        ditsep_tpu/training/diffsep_latent.py:69-83 is differentiable)."""
         b, n, d, tl = est.shape
         dec = self.vae.decode(est.reshape(b * n, d, tl))
         assert dec.shape[1] == 1, (

@@ -2,9 +2,10 @@
 a best-model link and an index (the port's ditsep_tpu/utils/checkpoint.py
 :30-170 on ``torch.save``; orbax is not ported).
 
-A checkpoint is a directory holding ``state.pt`` (``TrainState.
-state_dict()``: step, model, optimizer, EMA) beside ``metrics.json``
-(top-k) or ``step.json`` (latest).
+A checkpoint is a directory holding ``state.pt`` (the state's
+``state_dict()``: a TrainState's step, model, optimizer and EMA, or the
+LDM's and VAE-GAN's states) beside ``metrics.json`` (top-k) or
+``step.json`` (latest).
 """
 from __future__ import annotations
 
@@ -18,15 +19,19 @@ from typing import Dict, Optional
 import torch
 
 STATE_FILE = "state.pt"
-MONITOR = "val/si_sdr"  # ranked highest first
-SAVE_TOP_K = 20
 
 
 class CheckpointManager:
-    """Top-k checkpoint manager keyed by ``MONITOR``, the highest first;
-    NaN or missing metrics rank worst."""
+    """Top-k checkpoint manager keyed by the metric ``monitor``, the
+    highest first (``mode`` 'max') or the lowest ('min'); NaN or missing
+    metrics rank worst. The states saved and restored are any objects
+    with ``state_dict`` / ``load_state_dict``."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, monitor: str = "val/si_sdr",
+                 mode: str = "max", save_top_k: int = 20):
+        if mode not in ("max", "min"):
+            raise ValueError(f"mode must be 'max' or 'min', not {mode!r}")
+        self.monitor, self.mode, self.save_top_k = monitor, mode, save_top_k
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self._index_path = self.dir / "index.json"
@@ -35,18 +40,20 @@ class CheckpointManager:
             self._index = json.loads(self._index_path.read_text())
 
     def _ranked(self):
+        """(name, metric) pairs, the best first."""
+        sign = 1.0 if self.mode == "max" else -1.0
         return sorted(self._index.items(),
-                      key=lambda kv: -math.inf if math.isnan(kv[1]) else kv[1],
+                      key=lambda kv: (-math.inf if math.isnan(kv[1])
+                                      else sign * kv[1]),
                       reverse=True)
 
     def _ckpt_name(self, step: int, metric: float) -> str:
-        key = MONITOR.replace("/", "_")
+        key = self.monitor.replace("/", "_")
         return f"step-{step:08d}_{key}-{metric:.3f}"
 
     def save(self, state, step: int, metrics: Dict[str, float]) -> str:
-        """Save ``state`` (a TrainState); prune to top-k; refresh the best
-        link."""
-        metric = float(metrics.get(MONITOR, float("nan")))
+        """Save ``state``; prune to top-k; refresh the best link."""
+        metric = float(metrics.get(self.monitor, float("nan")))
         name = self._ckpt_name(step, metric)
         path = self.dir / name
         path.mkdir(parents=True, exist_ok=True)
@@ -54,7 +61,7 @@ class CheckpointManager:
         (path / "metrics.json").write_text(json.dumps(
             {k: float(v) for k, v in metrics.items()}, indent=1))
         self._index[name] = metric
-        for old, _ in self._ranked()[SAVE_TOP_K:]:
+        for old, _ in self._ranked()[self.save_top_k:]:
             if (self.dir / old).exists():
                 shutil.rmtree(self.dir / old)
             self._index.pop(old, None)
@@ -99,9 +106,10 @@ class CheckpointManager:
 
     def restore(self, state, path: Optional[str] = None,
                 prefer: str = "latest"):
-        """Load a checkpoint into ``state`` (a TrainState, on its device)
-        and return it. ``prefer='latest'`` resumes where training stopped,
-        'best' takes the top-metric checkpoint."""
+        """Load a checkpoint into ``state`` (its tensors stay on their
+        devices: the file is read to the CPU and copied in) and return
+        it. ``prefer='latest'`` resumes where training stopped, 'best'
+        takes the top-metric checkpoint."""
         if path is None:
             first, second = ((self.latest_path, self.best_path)
                              if prefer == "latest"
@@ -109,7 +117,6 @@ class CheckpointManager:
             path = first() or second()
         if path is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
-        device = next(state.model.parameters()).device
         state.load_state_dict(torch.load(Path(path) / STATE_FILE,
-                                         map_location=device))
+                                         map_location="cpu"))
         return state

@@ -17,7 +17,7 @@ from ditsep_tpu.data import NoisyDataset as JaxNoisy
 from ditsep_tpu_torch.cli import evaluate as eval_cli
 from ditsep_tpu_torch.cli import separate as sep_cli
 from ditsep_tpu_torch.cli import train_diffsep
-from ditsep_tpu_torch.configs import CONFIG_FAMILIES, UNPORTED_FAMILIES
+from ditsep_tpu_torch.configs import CONFIG_FAMILIES
 from ditsep_tpu_torch.data import NoisyDataset, read_wav, write_wav
 
 FS = 16000
@@ -104,7 +104,7 @@ def test_noisy_dataset_splits():
 @pytest.mark.parametrize("name", sorted(CONFIG_FAMILIES))
 def test_configs_match_jax(name):
     assert CONFIG_FAMILIES[name]() == JAX_FAMILIES[name]()
-    assert set(JAX_FAMILIES) == set(CONFIG_FAMILIES) | set(UNPORTED_FAMILIES)
+    assert set(JAX_FAMILIES) == set(CONFIG_FAMILIES)
 
 
 def test_cli_train_enhancement_on_cpu(tmp_path):

@@ -165,7 +165,7 @@ def test_cli_evaluate_on_cpu(tmp_path, mode):
 
 
 @pytest.mark.parametrize("flag", [["--latent", "--mesh"], ["--mesh"],
-                                  ["--config", "ldm"],
+                                  ["--config", "ldm", "--mesh"],
                                   ["--save-figures", "1"]])
 def test_unported_evaluate_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -203,11 +203,11 @@ def test_cli_separate_on_cpu(tmp_path):
                                   "serve_gradio"])
 def test_unported_options_raise(what, tmp_path):
     """What is not ported yet raises: a mesh on either training CLI and on
-    serve_api (A14), the LDM config (A13), the latent CLI's demo callbacks
-    and figures, and the demo server's autoencoder tab and gradio shell
-    (A16)."""
+    serve_api (A14), the demo decodes of the ldm config's CLI
+    (train_ldm), the latent CLI's demo callbacks and figures, and the
+    demo server's autoencoder tab and gradio shell (A16)."""
     from ditsep_tpu_torch.cli import evaluate as eval_cli
-    from ditsep_tpu_torch.cli import serve, serve_api
+    from ditsep_tpu_torch.cli import serve, serve_api, train_ldm
     from ditsep_tpu_torch.cli import train_diffsep, train_diffsep_latent
     with pytest.raises(NotImplementedError):
         if what == "latent_mesh":
@@ -221,8 +221,9 @@ def test_unported_options_raise(what, tmp_path):
                                        "--synthetic", "--workdir",
                                        str(tmp_path)])
         if what == "ldm_config":
-            train_diffsep.main(["--config", "ldm", "--cpu", "--synthetic",
-                                "--workdir", str(tmp_path)])
+            train_ldm.main(["--config", "ldm", "--demo-every", "2", "--cpu",
+                            "--latent-cache", str(tmp_path), "--workdir",
+                            str(tmp_path)])
         if what == "save_figures":
             eval_cli.main(["--save-figures", "1", "--cpu", "--synthetic"])
         if what == "serve_api_mesh":
@@ -268,7 +269,11 @@ def test_port_imports_no_jax_and_nothing_of_ditsep_tpu(root):
             "cli/train_diffsep_latent", "cli/cache_latents",
             "serving/engine", "serving/streaming", "serving/api",
             "serving/__init__", "interface/web", "interface/app",
-            "cli/serve_api", "cli/serve", "scripts/serving_bench")} <= names
+            "cli/serve_api", "cli/serve", "scripts/serving_bench",
+            "ops/stft", "training/auraloss", "training/schedules",
+            "models/discriminators", "training/ldm",
+            "training/autoencoder", "utils/checkpoint", "cli/train_ldm",
+            "cli/validate_vae")} <= names
     for path in paths:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
