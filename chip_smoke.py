@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (ditsep_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--group 1|2] [--phase NAME ...]
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, all at once) and runs twenty-four phases, each printing JSON
-lines; any failure raises and the exit code is non-zero:
+nvcc per source, all at once) and runs twenty-five phases, each printing
+JSON lines and, after it, ``{"phase": NAME, "phase_s": seconds}``; any
+failure raises and the exit code is non-zero. ``--group 1`` runs phases
+2-15 and ``--group 2`` phases 16-25 (``GROUPS``: each group fits one
+900 s chip call); ``--phase`` runs the named phases alone:
 
 1. device   -- card name and power limit (nvidia-smi), kernel build time;
 2. kernel   -- fir_down2d against its plain PyTorch version at the 12
@@ -168,16 +171,30 @@ lines; any failure raises and the exit code is non-zero:
                --streaming-block-seconds 0.5`` on one 10 s file;
 24. serving_latent -- ``build_engine(latent=True)`` on latent_diffsep_ouve
                at full width behind the API: the 65,536-sample bucket,
-               concurrency 4 and 8, launches = batches x 60 x 6.
+               concurrency 4 and 8, launches = batches x 60 x 6;
+25. mesh    -- data parallelism (``ditsep_tpu_torch.parallel``) in child
+               processes on 127.0.0.1, each under a hard timeout, TF32
+               off and deterministic cuDNN: ``cli.train_diffsep`` at the
+               flagship width (batch 6 x 40,960, 3 steps, a validation)
+               under ``python -m torch.distributed.run --nproc-per-node
+               1 ... --mesh`` (NCCL, world size 1) against the same run
+               without --mesh, losses, validation and EMA export bit
+               for bit, the step times and peak memory of both; then
+               ``cli.evaluate --mesh`` on 4 items; then two gloo ranks
+               sharing cuda:0: two train steps of the nf=32 checkpoint
+               on a batch of 4 split 2 + 2 against one process at the
+               train-step bars, and ``evaluate_dataset`` on 5 items
+               against one process.
 
 Every launch count is set to 0 just before each path (the fused bias-act
 op, the conv probe, the separation CLI, the training CLI, each evaluate
 run, the long-form CLI, each family's separation and training CLI, the
 latent evaluate, separate, training and caching paths, the LDM's caching
 and training CLIs, each serving
-warmup and level, the stream sessions and the streaming CLI) and read
-just after it. The script then prints
-the ``kernels`` JSON line (all six kernels), and as its last line
+warmup and level, the stream sessions and the streaming CLI; the mesh
+phase's children count their own) and read just after it. The script
+then prints the ``kernels`` JSON line (all six kernels; a group run, the
+launches of the paths it ran), and as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
 """
@@ -219,6 +236,22 @@ LONGFORM_S, CHUNK_S, OVERLAP_S = 14.0, 4.0, 1.0
 # shuffled score loss); its backward takes fir_up2d for the 12 down-block
 # downsamples of each (h and the skip x; the input pyramid acts on data)
 UP_LAUNCHES_PER_BACKWARD = 12
+# the phases in their order, in two groups that each run under the 900 s
+# of one chip call (balanced from the phase_s of full runs, PERF.md);
+# every phase that main runs is in exactly one (tests/
+# test_torch_chip_smoke_groups.py). A phase stays in the group of the
+# phase whose results it reads: families reads flagship's.
+GROUPS = {
+    1: ("phase_kernel", "phase_fused_bias_act", "phase_conv3x3",
+        "phase_parity", "phase_flagship", "phase_train_kernel",
+        "phase_train_parity", "phase_train_path", "phase_masked_parity",
+        "phase_evaluate_trained", "phase_evaluate", "phase_longform",
+        "phase_upsample", "phase_families", "phase_families_train"),
+    2: ("phase_latent_kernel", "phase_latent_parity", "phase_latent_flagship",
+        "phase_latent_train", "phase_ldm_parity", "phase_ldm_train",
+        "phase_serving_parity", "phase_serving", "phase_serving_latent",
+        "phase_mesh"),
+}
 
 
 def emit(obj) -> None:
@@ -1003,50 +1036,64 @@ def synthetic_batch(n: int, len_s: float, seed: int = 0):
 
 def train_steps_card_vs_cpu(cfg, batches, draws, latent=False) -> dict:
     """Train steps of ``cfg`` on the CPU and on the card (TF32 off), over
-    the same batches and draws: from the trained nf=32 checkpoint's
-    weights, or with ``latent`` from ``latent_trainer``'s seeded ones
-    through ``train_step_latent``. Per device: the initial parameters and,
-    per step, the loss, the grad norm, the step's gradient, and the
-    parameters and EMA after it."""
+    the same batches and draws (``checkpoint_steps``), and the trainer's
+    config."""
+    hist = {}
+    for device in ("cpu", "cuda"):
+        hist[device], hist["cfg"] = checkpoint_steps(cfg, device, batches,
+                                                     draws, latent=latent)
+    return hist
+
+
+def checkpoint_steps(cfg, device, batches, draws, latent=False,
+                     mesh=None):
+    """Train steps of ``cfg`` on ``device``, TF32 off: from the trained
+    nf=32 checkpoint's weights, or with ``latent`` from
+    ``latent_trainer``'s seeded ones through ``train_step_latent``. With
+    ``mesh`` this rank's rows of each global batch, the step and its
+    gradient the global batch's (averaged over the ranks). Returns the
+    initial parameters and, per step, the loss, the grad norm, the step's
+    gradient, and the parameters and EMA after it; and the trainer's
+    config."""
     import torch
+    from ditsep_tpu_torch import parallel
     from ditsep_tpu_torch.configs import build_diffsep_trainer
     from ditsep_tpu_torch.utils.separate import normalize_batch
 
-    hist = {}
     with full_f32():
-        for device in ("cpu", "cuda"):
-            if latent:
-                trainer = latent_trainer(cfg, device)
-                loss_fn, step_fn = (trainer.training_loss_latent,
-                                    trainer.train_step_latent)
-            else:
-                trainer = build_diffsep_trainer(cfg, device=device,
-                                                params_npz=str(CKPT))
-                loss_fn, step_fn = trainer.training_loss, trainer.train_step
-            state = trainer.init_state()
-            names = [k for k, _ in trainer.model.named_parameters()]
-            params = [p for _, p in trainer.model.named_parameters()]
-            snap = lambda sd: {k: v.detach().cpu().numpy().copy()  # noqa
-                               for k, v in sd.items()}
-            out = {"params0": snap(state.model.state_dict()), "steps": []}
-            for (mix, tgt), d in zip(batches, draws):
+        if latent:
+            trainer = latent_trainer(cfg, device)
+            loss_fn, step_fn = (trainer.training_loss_latent,
+                                trainer.train_step_latent)
+        else:
+            trainer = build_diffsep_trainer(cfg, device=device,
+                                            params_npz=str(CKPT))
+            loss_fn, step_fn = trainer.training_loss, trainer.train_step
+        state = trainer.init_state()
+        names = [k for k, _ in trainer.model.named_parameters()]
+        params = [p for _, p in trainer.model.named_parameters()]
+        snap = lambda sd: {k: v.detach().cpu().numpy().copy()  # noqa
+                           for k, v in sd.items()}
+        out = {"params0": snap(state.model.state_dict()), "steps": []}
+        for (mix, tgt), d in zip(batches, draws):
+            if mesh is None:
                 batch = (torch.from_numpy(mix).to(device),
                          torch.from_numpy(tgt).to(device))
-                m, tg = batch if latent else normalize_batch(batch)[0]
+            else:
+                batch = parallel.shard_batch(mesh, (mix, tgt))
+            m, tg = batch if latent else normalize_batch(batch)[0]
+            with parallel.sharded(mesh):
                 loss = loss_fn(trainer.model, m, tg, draws=d)
-                grads = {k: v.cpu().numpy() for k, v in zip(
-                    names, torch.autograd.grad(loss, params))}
-                state, met = step_fn(state, batch, draws=d)
-                out["steps"].append({
-                    "loss": met["train/score_loss"].item(),
-                    "grad_norm": met["train/grad_norm"].item(),
-                    "grads": grads,
-                    "params": snap(state.model.state_dict()),
-                    "ema": snap(state.ema.state_dict())})
-            hist[device] = out
-            hist["cfg"] = trainer.cfg
-            del trainer, state, params
-    return hist
+            grads = list(torch.autograd.grad(loss, params))
+            parallel.all_reduce_grads_(grads, mesh)
+            state, met = step_fn(state, batch, draws=d, mesh=mesh)
+            out["steps"].append({
+                "loss": met["train/score_loss"].item(),
+                "grad_norm": met["train/grad_norm"].item(),
+                "grads": {k: g.cpu().numpy() for k, g in zip(names, grads)},
+                "params": snap(state.model.state_dict()),
+                "ema": snap(state.ema.state_dict())})
+    return out, trainer.cfg
 
 
 def adam_f64(p0: dict, grads: list, rates: list, clip: float,
@@ -1166,7 +1213,7 @@ def train_parity_draws(b: int, n_steps: int, seed: int):
         mix, tgt = synthetic_batch(b, 1.0, seed=20 + step)
         t = mix.shape[-1]
         batches.append((mix, tgt))
-        draws.append({"mask_u": f32([0.05, 0.5]),
+        draws.append({"mask_u": f32(np.resize([0.05, 0.5], b)),
                       "pit_z": f32(rng.standard_normal((b, 2, t))),
                       "shuffle_u": f32(rng.random((b, 2))),
                       "time_u": f32(rng.random(b)),
@@ -2051,7 +2098,7 @@ def phase_latent_parity(ctx):
         mixb, tgt = synthetic_batch(b, 1.0, seed=40 + step)
         tl = -(-mixb.shape[-1] // 64)
         batches.append((mixb, tgt))
-        draws.append({"mask_u": f32([0.05, 0.5]),
+        draws.append({"mask_u": f32(np.resize([0.05, 0.5], b)),
                       "pit_z": f32(rng.standard_normal((b, 2, 16, tl))),
                       "shuffle_u": f32(rng.random((b, 2))),
                       "time_u": f32(rng.random(b)),
@@ -3083,7 +3130,8 @@ def phase_serving(ctx):
               "wave_s_at_8": {"default": default["wave_latency_s_mean"],
                               **{k: v["wave_latency_s_mean"]
                                  for k, v in variants.items()}},
-              "direct_batch4_utt_per_s": ctx["flagship_batch4_utt_per_s"],
+              "direct_batch4_utt_per_s": ctx.get(
+                  "flagship_batch4_utt_per_s"),
               "metrics": metrics, "launches": launches,
               "card": ctx["card"]})
         phase_serving_stream(ctx, eng, client)
@@ -3279,11 +3327,421 @@ def phase_serving_latent(ctx):
           "bucket": bucket, "latent_frames": bucket // 2048, "N": N_STEPS,
           "max_batch": SERVE_MAX_BATCH, "tf32_conv": True, "warmup": warm,
           "levels": {str(k): v for k, v in levels.items()},
-          "direct_batch4_utt_per_s": ctx["latent_batch4_utt_per_s"],
+          "direct_batch4_utt_per_s": ctx.get("latent_batch4_utt_per_s"),
           "launches": launches, "card": ctx["card"]})
 
 
-def main() -> int:
+# -- the mesh phase: data parallelism over torch.distributed ------------------
+MESH_STEPS, MESH_ITEMS = 3, 18     # one epoch of 3 steps at batch 6
+MESH_VAL_N = 5                     # the validation's PC steps in both runs
+MESH_EVAL_ITEMS, MESH_GLOO_ITEMS = 4, 5
+MESH_CHILD_TIMEOUT_S = 240
+MESH_EVAL_TOL = 1e-3  # abs, every number of the gloo JSONs but runtime
+# a child's hook: TF32 off and deterministic cuDNN, each train step and
+# its gradient all-reduce timed (synchronized), and at exit its kernels'
+# launch counts, those times, the losses and the peak memory, in a file
+# of the hook's directory
+MESH_HOOK = """
+import atexit, json, os, sys, time
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+from ditsep_tpu_torch import parallel
+from ditsep_tpu_torch.training.diffsep import DiffSepTrainer
+_rec = {"step_s": [], "losses": [], "all_reduce_s": []}
+_step, _all_reduce = DiffSepTrainer.train_step, parallel.all_reduce_grads_
+
+
+def _timed(self, state, batch, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, met = _step(self, state, batch, **kw)
+    _rec["losses"].append(met["train/score_loss"].item())
+    _rec["step_s"].append(time.perf_counter() - t0)
+    return state, met
+
+
+def _timed_all_reduce(grads, mesh):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _all_reduce(grads, mesh)
+    torch.cuda.synchronize()
+    _rec["all_reduce_s"].append(time.perf_counter() - t0)
+
+
+DiffSepTrainer.train_step = _timed
+parallel.all_reduce_grads_ = _timed_all_reduce
+
+
+def _dump():
+    ck = sys.modules.get("ditsep_tpu_torch.ops.cuda_kernels")
+    if ck is None:  # torch.distributed.run's own process
+        return
+    _rec["launches"] = {n: getattr(ck, w).launches for n, w in (
+        ("fir_down2d", "fir_down2d"), ("fir_up2d", "fir_up2d"),
+        ("fba_fwd", "fused_bias_act_fwd"), ("fba_bwd", "fused_bias_act_bwd"),
+        ("conv3x3_9tap", "conv3x3_9tap"),
+        ("conv3x3_async_halo", "conv3x3_async_halo"))}
+    _rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    _rec["rank"] = int(os.environ.get("RANK", "-1"))
+    path = os.path.join(os.environ["CHIP_SMOKE_HOOK_OUT"],
+                        f"{os.getpid()}.json")
+    with open(path, "w") as f:
+        json.dump(_rec, f)
+
+
+atexit.register(_dump)
+"""
+
+
+def run_child(cmd: list, hook_dir: Path, out_dir: Path) -> dict:
+    """Run ``cmd`` (a python command line) from the repository with the
+    hook, under a hard timeout; returns its hook records (one a process
+    that loaded the kernels) and wall seconds. A non-zero exit fails."""
+    import os
+    import subprocess
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": f"{hook_dir}:{REPO}",
+           "CHIP_SMOKE_HOOK_OUT": str(out_dir),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *cmd], cwd=str(REPO), env=env,
+                          capture_output=True, text=True,
+                          timeout=MESH_CHILD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{' '.join(cmd[:6])}... exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    recs = [json.loads(p.read_text()) for p in sorted(out_dir.glob("*.json"))]
+    # the processes that launched kernels (not torch.distributed.run's)
+    return {"wall_s": wall,
+            "recs": [r for r in recs if sum(r["launches"].values())]}
+
+
+def torchrun(nproc: int, module: str) -> list:
+    from ditsep_tpu_torch.parallel import free_port
+    return ["-m", "torch.distributed.run", "--nnodes", "1",
+            "--nproc-per-node", str(nproc), "--master-addr", "127.0.0.1",
+            "--master-port", str(free_port()), "-m", module]
+
+
+def sum_launches(recs) -> dict:
+    out = {}
+    for r in recs:
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def gloo_evaluate(mesh, out_dir) -> dict:
+    """``evaluate_dataset`` of the checkpoint's PC sampler (N=5) over 5
+    items of 1 s at batch 2, TF32 off."""
+    import torch
+    from ditsep_tpu_torch.configs import build_diffsep_trainer
+    from ditsep_tpu_torch.data import SyntheticMixDataset
+    from ditsep_tpu_torch.eval import evaluate_dataset
+
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    with full_f32():
+        trainer = build_diffsep_trainer(parity_config(), device=dev,
+                                        params_npz=str(CKPT))
+
+        def sep(mix, lengths=None, generator=None):
+            return trainer.separate(mix, N=5, generator=generator)[0]
+
+        ds = SyntheticMixDataset(n_items=MESH_GLOO_ITEMS, min_len_s=1.0,
+                                 max_len_s=1.0, seed=7)
+        res = evaluate_dataset(sep, ds, fs=FS, batch_size=2, nfe=10,
+                               warmup=False, device=dev, mesh=mesh,
+                               out_dir=out_dir)
+    return {k: res[k] for k in ("results", "summary", "chunks", "calls")}
+
+
+def gloo_child(mesh, out: str, batches, draws) -> None:
+    """Rank ``mesh.rank`` of the two gloo ranks on cuda:0."""
+    import pickle
+    reset_counts()
+    steps, _ = checkpoint_steps(parity_config(), mesh.device, batches, draws,
+                                mesh=mesh)
+    ev = gloo_evaluate(mesh, f"{out}.json" if mesh.rank == 0 else None)
+    with open(f"{out}.{mesh.rank}", "wb") as f:
+        pickle.dump({"steps": steps, "eval": ev, "launches": counts()}, f)
+
+
+def max_json_diff(a, b, path="") -> float:
+    """The largest |a - b| over the numbers of two JSON trees, runtime
+    aside; any other difference fails."""
+    if isinstance(a, dict):
+        check(set(a) == set(b), f"keys differ at {path}")
+        return max([max_json_diff(a[k], b[k], f"{path}/{k}") for k in a
+                    if k != "runtime"] + [0.0])
+    if isinstance(a, list):
+        check(len(a) == len(b), f"lengths differ at {path}")
+        return max([max_json_diff(x, y, path) for x, y in zip(a, b)]
+                   + [0.0])
+    if isinstance(a, float) and isinstance(b, float):
+        return abs(a - b)
+    check(a == b, f"{path}: {a} != {b}")
+    return 0.0
+
+
+def phase_mesh(ctx):
+    """Data parallelism (``ditsep_tpu_torch.parallel``) on the card.
+    (a) ``cli.train_diffsep`` at the flagship width under
+    ``torch.distributed.run`` with --mesh (NCCL, world size 1) against the
+    same run without it: the losses, the validation and the EMA export
+    bit-equal, the step times apart (the all-reduce's cost), then
+    ``cli.evaluate --mesh``. (b) Two gloo ranks sharing cuda:0: two train
+    steps of the trained nf=32 checkpoint on a batch of 4 split 2 + 2
+    against one process at the train-step bars, and ``evaluate_dataset``
+    on 5 items against one process."""
+    import pickle
+
+    import numpy as np
+    from ditsep_tpu_torch import parallel
+
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        tmp = Path(tmp)
+        hook = tmp / "hook"
+        hook.mkdir()
+        (hook / "sitecustomize.py").write_text(MESH_HOOK)
+        train = ["--config", "diffsep_icassp", "--synthetic",
+                 "--synthetic-items", str(MESH_ITEMS), "--synthetic-len-s",
+                 str(TRAIN_LEN_S), "--batch-size", str(TRAIN_BATCH),
+                 "--max-steps", str(MESH_STEPS), "--override",
+                 f"model.sampler.N={MESH_VAL_N}", "--workdir"]
+        runs = {}
+        for name, cmd in (
+                ("plain", ["-m", "ditsep_tpu_torch.cli.train_diffsep"]),
+                ("mesh", torchrun(1, "ditsep_tpu_torch.cli.train_diffsep")
+                 + ["--mesh"])):
+            runs[name] = run_child(cmd + train + [str(tmp / name)], hook,
+                                   tmp / f"hook_{name}")
+            check(len(runs[name]["recs"]) == 1, f"{name}: records "
+                  f"{runs[name]['recs']}")
+        plain, mesh = (runs[k]["recs"][0] for k in ("plain", "mesh"))
+        check(mesh["rank"] == 0 and len(mesh["step_s"]) == MESH_STEPS,
+              f"mesh run record {mesh}")
+        check(plain["losses"] == mesh["losses"],
+              f"train losses {plain['losses']} vs {mesh['losses']}")
+        vals = {k: [{m: v for m, v in json.loads(ln).items() if m != "time"}
+                    for ln in open(tmp / k / "metrics.jsonl")]
+                for k in runs}
+        check(vals["plain"] == vals["mesh"] and len(vals["mesh"]) == 1,
+              f"validations {vals}")
+        ema = {k: np.load(tmp / k / "ema.npz") for k in runs}
+        check(sorted(ema["plain"].files) == sorted(ema["mesh"].files)
+              and all(np.array_equal(ema["plain"][f], ema["mesh"][f])
+                      for f in ema["plain"].files), "EMA exports differ")
+        check(mesh["launches"] == plain["launches"]
+              and mesh["launches"]["fir_up2d"] == (
+                  MESH_STEPS * 2 * UP_LAUNCHES_PER_BACKWARD),
+              f"launches {mesh['launches']} vs {plain['launches']}")
+        launches["mesh_train_nccl"] = mesh["launches"]
+        step = {k: sum(r["step_s"][1:]) / (MESH_STEPS - 1)
+                for k, r in (("plain", plain), ("mesh", mesh))}
+        emit({"phase": "mesh_train", "what": "cli.train_diffsep "
+              "diffsep_icassp (nf=128, seeded weights), batch 6 x 40,960, "
+              f"{MESH_STEPS} steps and a validation (PC N={MESH_VAL_N}), "
+              "TF32 off, deterministic cuDNN: plain vs python -m "
+              "torch.distributed.run --nproc-per-node 1 ... --mesh (NCCL, "
+              "world size 1: the all-reduce a copy)", "bit_equal": True,
+              "losses": mesh["losses"], "validation": vals["mesh"],
+              "step_s_plain": plain["step_s"], "step_s_mesh": mesh["step_s"],
+              "step_s_2_3": step,
+              "all_reduce_s": mesh["all_reduce_s"],
+              "all_reduce_share_2_3": sum(mesh["all_reduce_s"][1:])
+              / sum(mesh["step_s"][1:]),
+              "peak_gib": {"plain": plain["peak_gib"],
+                           "mesh": mesh["peak_gib"]},
+              "wall_s": {k: runs[k]["wall_s"] for k in runs},
+              "launches": mesh["launches"], "card": ctx["card"]})
+
+        ev = run_child(torchrun(1, "ditsep_tpu_torch.cli.evaluate") + [
+            "--mesh", "--config", "diffsep_icassp", "--synthetic",
+            "--synthetic-items", str(MESH_EVAL_ITEMS), "--synthetic-len-s",
+            "2.0", "--eval-batch-size", "2", "--sampler-N", "5",
+            "--no-warmup", "--out-dir", str(tmp / "eval")], hook,
+            tmp / "hook_eval")
+        summary = json.loads(
+            (tmp / "eval" / "librimix_test_summary.json").read_text())
+        results = json.loads((tmp / "eval" / "librimix_test.json").read_text())
+        check(summary["number"] == MESH_EVAL_ITEMS == len(results)
+              and all(math.isfinite(summary[k]) for k in
+                      ("si_sdr", "pesq", "stoi")), f"evaluate {summary}")
+        launches["mesh_evaluate_nccl"] = sum_launches(ev["recs"])
+        check(launches["mesh_evaluate_nccl"]["fir_down2d"] == (
+            -(-MESH_EVAL_ITEMS // 2) * 10 * LAUNCHES_PER_FORWARD),
+            f"evaluate launches {launches['mesh_evaluate_nccl']}")
+        emit({"phase": "mesh_evaluate", "what": "python -m torch.distributed"
+              ".run --nproc-per-node 1 -m ditsep_tpu_torch.cli.evaluate "
+              f"--mesh, diffsep_icassp seeded, {MESH_EVAL_ITEMS} items of 2 s,"
+              " batch 2, N=5", "summary": summary, "wall_s": ev["wall_s"],
+              "peak_gib": [r["peak_gib"] for r in ev["recs"]],
+              "launches": launches["mesh_evaluate_nccl"],
+              "card": ctx["card"]})
+
+        # (b) two gloo ranks sharing cuda:0
+        batches, draws = train_parity_draws(4, 2, seed=13)
+        t0 = time.perf_counter()
+        parallel.launch(gloo_child, 2, str(tmp / "gloo"), batches, draws,
+                        device="cuda:0", backend="gloo",
+                        timeout_s=MESH_CHILD_TIMEOUT_S)
+        gloo_s = time.perf_counter() - t0
+        ranks = [pickle.loads((tmp / f"gloo.{r}").read_bytes())
+                 for r in range(2)]
+        one_steps, cfg = checkpoint_steps(parity_config(), "cuda", batches,
+                                          draws)
+        worst = train_parity_worst({"cpu": one_steps, "cuda":
+                                    ranks[0]["steps"], "cfg": cfg},
+                                   explain=False)
+        check(worst["param_over_bar"] <= 1 and worst["ema_over_bar"] <= 1,
+              f"two gloo ranks vs one process: {worst}")
+        one_eval = gloo_evaluate(None, str(tmp / "gloo_one"))
+        check(ranks[0]["eval"]["chunks"] == one_eval["chunks"],
+              f"chunks {ranks[0]['eval']['chunks']} {one_eval['chunks']}")
+        diff = max(max_json_diff(
+            json.loads((tmp / "gloo.json" / f"test{suffix}.json")
+                       .read_text()),
+            json.loads((tmp / "gloo_one" / f"test{suffix}.json")
+                       .read_text())) for suffix in ("", "_summary"))
+        check(diff <= MESH_EVAL_TOL, f"gloo evaluate JSONs differ by {diff}")
+        launches["mesh_gloo"] = sum_launches(ranks)
+        emit({"phase": "mesh_gloo", "what": "two gloo ranks on cuda:0 "
+              "(torch.distributed, TF32 off): two train steps of "
+              f"{CKPT.name} (nf=32) on a batch of 4 x 1 s split 2 + 2, and "
+              f"evaluate_dataset on {MESH_GLOO_ITEMS} items of 1 s at batch "
+              "2 (N=5), each against one process on the card",
+              **{k: float(v) for k, v in worst.items()},
+              "tolerance": TRAIN_PARITY_TOLERANCE + f"; the evaluate JSONs "
+              f"{MESH_EVAL_TOL} abs on every number but runtime",
+              "eval_json_max_abs_diff": diff,
+              "eval_chunks": ranks[0]["eval"]["chunks"],
+              "losses": [h["loss"] for h in ranks[0]["steps"]["steps"]],
+              "wall_s": gloo_s, "launches": launches["mesh_gloo"],
+              "card": ctx["card"]})
+    ctx["mesh_launches"] = launches
+    emit({"phase": "mesh", "phase_total_s": time.perf_counter() - t_phase})
+
+
+def kernels_line(ctx, torch) -> list:
+    """The ``kernels`` line: every kernel of the port with its numbers
+    from the phases that measured it (None where none ran) and its
+    launches by path over the paths that ran. ``launches`` is the main
+    path's (the separation CLI's; the training CLI's for fir_up2d), or the
+    sum over the paths that ran when that path did not."""
+    def by_path(kernel: str) -> dict:
+        paths = {}
+        if "main_path_launches" in ctx and kernel == "fir_down2d":
+            paths["separate_cli"] = ctx["main_path_launches"]
+        if "train_launches" in ctx and kernel == "fir_up2d":
+            paths["train_cli_diffsep_icassp"] = ctx["train_launches"][kernel]
+        if kernel == "fir_down2d":
+            paths.update({f"evaluate_{k}": v for k, v
+                          in ctx.get("eval_launches", {}).items()})
+            if "longform_launches" in ctx:
+                paths["longform_cli"] = ctx["longform_launches"]
+            paths.update(ctx.get("families_launches", {}))
+        paths.update({f"train_cli_{k}": v[kernel] for k, v
+                      in ctx.get("families_train_launches", {}).items()})
+        for k, v in ctx.get("latent_launches", {}).items():
+            if isinstance(v, dict):
+                paths[k] = v[kernel]
+            elif kernel == "fir_down2d":
+                paths[k] = v
+        if kernel == "fir_down2d":
+            if "ldm_cache_launches" in ctx:
+                paths["ldm_cache_latents"] = ctx["ldm_cache_launches"]
+            paths.update(ctx.get("serve_launches", {}))
+        paths.update({k: v[kernel] for k, v
+                      in ctx.get("mesh_launches", {}).items()})
+        return paths
+
+    def main_count(paths: dict, key: str) -> int:
+        return paths[key] if key in paths else sum(paths.values())
+
+    def numbers(t, err, ms="kernel_ms", prefix=""):
+        """A byte-bound kernel's numbers from its phase's times ``t``."""
+        if t is None:
+            return {"max_abs_err": None, "ms": None, "plain_ms": None,
+                    "bound_ms": None, "bound_by": "bytes",
+                    "library_ms": None}
+        return {"max_abs_err": err, "ms": t[ms],
+                "plain_ms": t[f"{prefix}plain_ms"],
+                "bound_ms": t[f"{prefix}bound_ms"], "bound_by": "bytes",
+                "library_ms": t.get("library_ms")}
+
+    kernels = []
+    paths = by_path("fir_down2d")
+    kernels.append({
+        "name": "fir_down2d", "route": "cuda",
+        "source": "ditsep_tpu_torch/csrc/fir_down2d.cu",
+        "replaces": "ditsep_tpu/ops/pallas_kernels.py:148",
+        "launches": main_count(paths, "separate_cli"),
+        "launches_by_path": paths,
+        **numbers(ctx["kernel_times"]["float32"] if "kernel_times" in ctx
+                  else None, ctx.get("kernel_err", {}).get(torch.float32))})
+    paths = by_path("fir_up2d")
+    kernels.append({
+        "name": "fir_up2d", "route": "cuda",
+        "source": "ditsep_tpu_torch/csrc/fir_up2d.cu",
+        # no TPU kernel: the JAX package differentiates this with XLA
+        "replaces": "ditsep_tpu/ops/fir.py:45",
+        "launches": main_count(paths, "train_cli_diffsep_icassp"),
+        "launches_by_path": paths,
+        **numbers(ctx["up"]["level0"]["float32"] if "up" in ctx else None,
+                  ctx["up"]["err"][torch.float32] if "up" in ctx else None)})
+    fba = ctx.get("fba")
+    for name, line, key in (("fba_fwd", 82, "fwd"), ("fba_bwd", 109, "bwd")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ditsep_tpu_torch/csrc/fused_bias_act.cu",
+            "replaces": f"ditsep_tpu/ops/pallas_kernels.py:{line}",
+            "launches": fba["launches"][name] if fba else 0,
+            **numbers(fba and fba["times"]["float32"],
+                      fba and fba["err"][torch.float32], f"{key}_ms",
+                      f"{key}_"),
+            "library_ms": None})
+    conv = ctx.get("conv")
+    for name, line, row in (("conv3x3_9tap", 95, "cuda_9tap"),
+                            ("conv3x3_async_halo", 208, "cuda_async_halo")):
+        r = conv["rows"][row] if conv else None
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ditsep_tpu_torch/csrc/conv3x3.cu",
+            "replaces": f"scripts/pallas_conv_probe.py:{line}",
+            "launches": conv["launches"][name] if conv else 0,
+            "max_abs_err": conv["err"] if conv else None,
+            "ms": r and r["ms_per_conv"],
+            "plain_ms": conv["plain"][row] if conv else None,
+            "bound_ms": r and r["bound_ms"],
+            "bound_by": r["bound_by"] if r else "operations",
+            "library_ms": (conv["rows"]["cudnn_native"]["ms_per_conv"]
+                           if conv else None)})
+    return kernels
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--group", type=int, choices=sorted(GROUPS),
+                    help="run one group of phases (each under 900 s on the "
+                         "card); the default runs every phase")
+    ap.add_argument("--phase", action="append", default=[],
+                    choices=[n[len("phase_"):] for g in GROUPS.values()
+                             for n in g],
+                    help="run this phase (repeatable; a phase that reads "
+                         "another's results needs it too)")
+    args = ap.parse_args(argv)
+    if args.phase:
+        phases = [f"phase_{n}" for n in args.phase]
+    elif args.group:
+        phases = list(GROUPS[args.group])
+    else:
+        phases = [n for g in sorted(GROUPS) for n in GROUPS[g]]
     try:
         import torch
     except ImportError:
@@ -3310,95 +3768,12 @@ def main() -> int:
           "kernel_build_s": build.pop("build_s"), "ptxas": build,
           "bandwidth_bytes_per_s": ctx["bandwidth"]})
 
-    phase_kernel(ctx)
-    phase_fused_bias_act(ctx)
-    phase_conv3x3(ctx)
-    phase_parity(ctx)
-    phase_flagship(ctx)
-    phase_train_kernel(ctx)
-    phase_train_parity(ctx)
-    phase_train_path(ctx)
-    phase_masked_parity(ctx)
-    phase_evaluate_trained(ctx)
-    phase_evaluate(ctx)
-    phase_longform(ctx)
-    phase_upsample(ctx)
-    phase_families(ctx)
-    phase_families_train(ctx)
-    phase_latent_kernel(ctx)
-    phase_latent_parity(ctx)
-    phase_latent_flagship(ctx)
-    phase_latent_train(ctx)
-    phase_ldm_parity(ctx)
-    phase_ldm_train(ctx)
-    phase_serving_parity(ctx)
-    phase_serving(ctx)
-    phase_serving_latent(ctx)
-
-    t = ctx["kernel_times"]["float32"]
-    fba = ctx["fba"]["times"]["float32"]
-    conv = ctx["conv"]
-    lib_ms = conv["rows"]["cudnn_native"]["ms_per_conv"]
-    kernels = [{
-        "name": "fir_down2d", "route": "cuda",
-        "source": "ditsep_tpu_torch/csrc/fir_down2d.cu",
-        "replaces": "ditsep_tpu/ops/pallas_kernels.py:148",
-        "launches": ctx["main_path_launches"],
-        "launches_by_path": {
-            "separate_cli": ctx["main_path_launches"],
-            **{f"evaluate_{k}": v for k, v in ctx["eval_launches"].items()},
-            "longform_cli": ctx["longform_launches"],
-            **ctx["families_launches"],
-            **{f"train_cli_{k}": v["fir_down2d"] for k, v
-               in ctx["families_train_launches"].items()},
-            **{k: v["fir_down2d"] if isinstance(v, dict) else v
-               for k, v in ctx["latent_launches"].items()},
-            "ldm_cache_latents": ctx["ldm_cache_launches"],
-            **ctx["serve_launches"]},
-        "max_abs_err": ctx["kernel_err"][torch.float32],
-        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": "bytes",
-        "library_ms": t["library_ms"]}]
-    up = ctx["up"]["level0"]["float32"]
-    kernels.append({
-        "name": "fir_up2d", "route": "cuda",
-        "source": "ditsep_tpu_torch/csrc/fir_up2d.cu",
-        # no TPU kernel: the JAX package differentiates this with XLA
-        "replaces": "ditsep_tpu/ops/fir.py:45",
-        "launches": ctx["train_launches"]["fir_up2d"],
-        "launches_by_path": {
-            "train_cli_diffsep_icassp": ctx["train_launches"]["fir_up2d"],
-            **{f"train_cli_{k}": v["fir_up2d"] for k, v
-               in ctx["families_train_launches"].items()},
-            "train_cli_latent_diffsep_ouve": ctx["latent_launches"][
-                "train_cli_latent_diffsep_ouve"]["fir_up2d"]},
-        "max_abs_err": ctx["up"]["err"][torch.float32],
-        "ms": up["kernel_ms"], "plain_ms": up["plain_ms"],
-        "bound_ms": up["bound_ms"], "bound_by": "bytes",
-        "library_ms": up["library_ms"]})
-    for name, line, key in (("fba_fwd", 82, "fwd"), ("fba_bwd", 109, "bwd")):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "ditsep_tpu_torch/csrc/fused_bias_act.cu",
-            "replaces": f"ditsep_tpu/ops/pallas_kernels.py:{line}",
-            "launches": ctx["fba"]["launches"][name],
-            "max_abs_err": ctx["fba"]["err"][torch.float32],
-            "ms": fba[f"{key}_ms"], "plain_ms": fba[f"{key}_plain_ms"],
-            "bound_ms": fba[f"{key}_bound_ms"], "bound_by": "bytes",
-            "library_ms": None})
-    for name, line, row in (("conv3x3_9tap", 95, "cuda_9tap"),
-                            ("conv3x3_async_halo", 208, "cuda_async_halo")):
-        r = conv["rows"][row]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "ditsep_tpu_torch/csrc/conv3x3.cu",
-            "replaces": f"scripts/pallas_conv_probe.py:{line}",
-            "launches": conv["launches"][name],
-            "max_abs_err": conv["err"],
-            "ms": r["ms_per_conv"], "plain_ms": conv["plain"][row],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": lib_ms})
-    emit({"kernels": kernels})
+    for name in phases:
+        t0 = time.perf_counter()
+        globals()[name](ctx)
+        emit({"phase": name[len("phase_"):],
+              "phase_s": time.perf_counter() - t0})
+    emit({"kernels": kernels_line(ctx, torch)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

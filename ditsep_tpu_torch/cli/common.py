@@ -78,7 +78,9 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--max-epochs", type=int, default=None)
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--mesh", action="store_true",
-                   help="shard the batch over all devices (not ported yet)")
+                   help="shard the batch over the devices: the ranks of "
+                        "python -m torch.distributed.run (NCCL; gloo with "
+                        "--cpu), or serve_api's local cards")
     p.add_argument("--override", nargs="*", default=[],
                    help="config overrides a.b.c=value")
     return p

@@ -7,6 +7,12 @@ unless --cpu is given.
         [--params X.npz] [--data-path DIR | --synthetic] \\
         [--sampler pc|ab2] [--mask-padding] [--out-dir DIR] [--cpu]
 
+Data-parallel over N cards (each rank separates its rows of every batch,
+rank 0 scores and writes; ``--cpu``: N gloo processes):
+
+    python -m torch.distributed.run --nproc-per-node N \\
+        -m ditsep_tpu_torch.cli.evaluate --mesh ...
+
 ``--latent`` evaluates the latent pipeline (``--config
 latent_diffsep_ouve``, the VAE's weights from ``--vae-params``): encode,
 PC with the ald corrector in the latent space, decode; sample-domain
@@ -23,6 +29,9 @@ from ditsep_tpu_torch.configs import (
     build_diffsep_trainer, build_latent_trainer,
 )
 from ditsep_tpu_torch.eval import evaluate_dataset
+from ditsep_tpu_torch.parallel import (
+    initialize_multihost, make_mesh, shutdown,
+)
 from ditsep_tpu_torch.utils.device import resolve_device
 
 
@@ -78,12 +87,15 @@ def main(argv=None) -> dict:
         raise SystemExit("--sampler ab2 is not wired for the latent path "
                          "(separate_latent follows the reference 'ald' PC "
                          "config)")
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP A14)")
     if args.save_figures:
         raise NotImplementedError(
             "--save-figures is not ported yet (ROADMAP A16, viz.py)")
     device = resolve_device("cpu" if args.cpu else "cuda")
+    mesh = None
+    if args.mesh:
+        initialize_multihost(device=device)
+        mesh = make_mesh(device=device)
+        device = mesh.device
     cfg = load_config(args.config, args.override)
     sm = cfg["model"]["score_model"]
     if args.bf16:
@@ -98,7 +110,8 @@ def main(argv=None) -> dict:
                   bucket_multiple=args.bucket_multiple,
                   max_buckets=args.max_buckets, out_dir=args.out_dir,
                   split_name=cfg["datamodule"]["test"]["split"],
-                  limit=args.limit, seed=args.seed, device=device)
+                  limit=args.limit, seed=args.seed, device=device,
+                  mesh=mesh)
 
     if args.no_proc:
         # the mixture baseline: the unprocessed mix for every source, nfe 0
@@ -153,3 +166,4 @@ def main(argv=None) -> dict:
 
 if __name__ == "__main__":
     main()
+    shutdown()  # leave the process group of a --mesh run

@@ -8,18 +8,23 @@ requests are batched into single sampler calls on the card.
 
     python -m ditsep_tpu_torch.cli.serve_api --config diffsep_icassp \\
         [--params X.npz] [--mask-padding] [--port 8000] [--max-batch 8] \\
-        [--warmup-seconds 4 8] [--bf16] [--cpu]
+        [--warmup-seconds 4 8] [--bf16] [--cpu] [--mesh]
     python -m ditsep_tpu_torch.cli.serve_api --latent \\
         --config latent_diffsep_ouve [--params X.npz] [--vae-params V.npz]
 """
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
+
+import torch
 
 from ditsep_tpu_torch.cli.common import add_common_args, load_config
 from ditsep_tpu_torch.configs import (
     build_diffsep_trainer, build_latent_trainer,
 )
+from ditsep_tpu_torch.parallel import initialize_multihost, make_mesh
 from ditsep_tpu_torch.serving import BatchingEngine, SeparationAPIServer
 
 
@@ -32,6 +37,17 @@ class TrainerSeparator:
         self.trainer, self.latent = trainer, latent
         self.N, self.sampler = N, sampler
         self.nfe = 0
+
+    def replicate(self, device) -> "TrainerSeparator":
+        """A copy whose trainer's modules (the score model, the VAE) live
+        on ``device``: the engine's replica on another card."""
+        fields = {f.name: getattr(self.trainer, f.name)
+                  for f in dataclasses.fields(self.trainer)}
+        moved = {k: copy.deepcopy(v).to(device) for k, v in fields.items()
+                 if isinstance(v, torch.nn.Module)}
+        return TrainerSeparator(dataclasses.replace(self.trainer, **moved),
+                                latent=self.latent, N=self.N,
+                                sampler=self.sampler)
 
     def __call__(self, mix, lengths=None, generator=None):
         if self.latent:
@@ -49,8 +65,9 @@ def build_engine(cfg, *, device="cuda", params_npz=None, max_batch=8,
                  max_wait_ms=50.0, sampler_N=30, sampler="pc",
                  mask_padding=False, max_seconds=60.0, latent=False,
                  vae_params_npz=None, seed=0, wire_int16=False,
-                 pipeline_depth=2) -> BatchingEngine:
-    """A BatchingEngine around the config's separation call on ``device``.
+                 pipeline_depth=2, mesh=None) -> BatchingEngine:
+    """A BatchingEngine around the config's separation call on ``device``
+    (with ``mesh``, its first card, and a replica on each other card).
 
     ``latent=True`` serves the latent pipeline (VAE encode -> latent PC
     sampling -> VAE decode) with sample-domain buckets of 16 VAE hops; the
@@ -62,9 +79,11 @@ def build_engine(cfg, *, device="cuda", params_npz=None, max_batch=8,
     if mask_padding:
         cfg["model"]["score_model"]["mask_padding"] = True
     fs = cfg["datamodule"].get("fs", 8000)
+    if mesh is not None:
+        device = mesh.device
     common = dict(fs=fs, max_batch=max_batch, max_wait_ms=max_wait_ms,
                   max_seconds=max_seconds, seed=seed, wire_int16=wire_int16,
-                  pipeline_depth=pipeline_depth, device=device)
+                  pipeline_depth=pipeline_depth, device=device, mesh=mesh)
 
     if latent:
         trainer = build_latent_trainer(cfg, device=device, seed=seed,
@@ -134,14 +153,17 @@ def main(argv=None):
                    help="run every batch size at these utterance lengths "
                         "before accepting traffic")
     args = p.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP A14)")
     cfg = load_config(args.config, args.override)
     if args.bf16:
         cfg["model"]["score_model"]["dtype"] = "bf16"
+    device = "cpu" if args.cpu else "cuda"
+    mesh = None
+    if args.mesh:
+        initialize_multihost(device=device)
+        mesh = make_mesh(device=device)
 
     engine = build_engine(
-        cfg, device="cpu" if args.cpu else "cuda", params_npz=args.params,
+        cfg, device=device, params_npz=args.params, mesh=mesh,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
         sampler_N=args.sampler_N, sampler=args.sampler,
         mask_padding=args.mask_padding, max_seconds=args.max_seconds,

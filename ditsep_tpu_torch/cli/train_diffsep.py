@@ -13,6 +13,13 @@ Writes DIR/metrics.jsonl, DIR/hparams.json, DIR/checkpoints/ (top-k on
 val/si_sdr, latest, best-model, index.json) and DIR/ema.npz (the EMA
 weights in the JAX package's flat layout, loadable by both packages'
 separate CLIs with --params).
+
+Data-parallel over N cards (the global --batch-size split over the ranks,
+the gradient averaged before the clip; rank 0 writes; ``--cpu``: N gloo
+processes):
+
+    python -m torch.distributed.run --nproc-per-node N \\
+        -m ditsep_tpu_torch.cli.train_diffsep --mesh ...
 """
 from __future__ import annotations
 
@@ -22,6 +29,9 @@ from ditsep_tpu_torch.cli.common import (
     add_common_args, add_train_args, load_config, make_dataset,
 )
 from ditsep_tpu_torch.configs import build_diffsep_trainer
+from ditsep_tpu_torch.parallel import (
+    initialize_multihost, make_mesh, shutdown,
+)
 from ditsep_tpu_torch.training.loop import fit
 from ditsep_tpu_torch.utils.device import resolve_device
 
@@ -31,11 +41,14 @@ def main(argv=None):
     p = add_train_args(add_common_args(
         argparse.ArgumentParser(description=__doc__.split("\n\n")[0])))
     args = p.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet")
     if args.demo_every:
         raise NotImplementedError("--demo-every is not ported yet")
     device = resolve_device("cpu" if args.cpu else "cuda")
+    mesh = None
+    if args.mesh:
+        initialize_multihost(device=device)
+        mesh = make_mesh(device=device)
+        device = mesh.device
     cfg = load_config(args.config, args.override)
     trainer = build_diffsep_trainer(cfg, device=device, seed=args.seed)
     train_ds = make_dataset(cfg, "train", args.data_path, args.synthetic,
@@ -51,8 +64,9 @@ def main(argv=None):
                batch_size=batch_size, seed=args.seed,
                valid_max_sep_batches=cfg["model"].get(
                    "valid_max_sep_batches", 2),
-               max_steps=args.max_steps, resume=args.resume)
+               max_steps=args.max_steps, resume=args.resume, mesh=mesh)
 
 
 if __name__ == "__main__":
     main()
+    shutdown()  # leave the process group of a --mesh run

@@ -11,7 +11,9 @@ export, the file its CLI takes); without it they are seeded random
 weights (smoke runs only). The VAE stays frozen. Writes what
 cli.train_diffsep writes: DIR/metrics.jsonl, DIR/hparams.json,
 DIR/checkpoints/ and DIR/ema.npz (the score model's EMA weights in the
-JAX package's flat layout).
+JAX package's flat layout). ``--mesh`` under ``python -m
+torch.distributed.run --nproc-per-node N`` trains data-parallel, as
+cli.train_diffsep does.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ from ditsep_tpu_torch.cli.common import (
     add_common_args, add_train_args, load_config, make_dataset,
 )
 from ditsep_tpu_torch.configs import build_latent_trainer
+from ditsep_tpu_torch.parallel import (
+    initialize_multihost, make_mesh, shutdown,
+)
 from ditsep_tpu_torch.training.loop import fit
 from ditsep_tpu_torch.utils.device import resolve_device
 
@@ -68,12 +73,15 @@ def main(argv=None):
                    help="npz with the OobleckVAE's parameters (the JAX "
                         "package's export)")
     args = p.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP A14)")
     if args.demo_every:
         raise NotImplementedError("--demo-every is not ported yet "
                                   "(ROADMAP A16)")
     device = resolve_device("cpu" if args.cpu else "cuda")
+    mesh = None
+    if args.mesh:
+        initialize_multihost(device=device)
+        mesh = make_mesh(device=device)
+        device = mesh.device
     cfg = load_config(args.config, args.override)
     trainer = build_latent_trainer(cfg, device=device, seed=args.seed,
                                    vae_params_npz=args.vae_params)
@@ -89,8 +97,9 @@ def main(argv=None):
                batch_size=batch_size, seed=args.seed,
                valid_max_sep_batches=cfg["model"].get(
                    "valid_max_sep_batches", 2),
-               max_steps=args.max_steps, resume=args.resume)
+               max_steps=args.max_steps, resume=args.resume, mesh=mesh)
 
 
 if __name__ == "__main__":
     main()
+    shutdown()  # leave the process group of a --mesh run

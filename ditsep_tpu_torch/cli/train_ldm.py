@@ -83,7 +83,11 @@ def main(argv=None):
                    help="demo decodes every N steps (not ported yet)")
     args = p.parse_args(argv)
     if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP A14)")
+        raise NotImplementedError(
+            "--mesh: this CLI trains on one device, as the JAX package's "
+            "does (it parses --mesh and ignores it); the LDM and VAE-GAN "
+            "trainers run data-parallel through the API, gen_step / "
+            "disc_step(..., mesh=) (scripts/dryrun_multichip.py legs 3-4)")
     if args.demo_every:
         raise NotImplementedError("--demo-every is not ported yet "
                                   "(ROADMAP A16)")

@@ -3,8 +3,8 @@ ditsep_tpu/eval/evaluate.py).
 
 Utterances are bucketed by length into fixed-shape batches, each batch
 rides one ``separate_fn`` call on the model's device, and the metrics run
-on host threads while the card samples the next batch. The JAX package's
-mesh sharding is not ported (ROADMAP A14): one device.
+on host threads while the card samples the next batch. Over a mesh each
+rank separates its rows of every batch and rank 0 scores them.
 
 Output schema matches the reference artifacts exactly
 (results/<...>/librimix_test.json and _summary.json), key for key and in
@@ -25,6 +25,10 @@ import torch
 from ditsep_tpu_torch.data.wsj0_mix import max_collator
 from ditsep_tpu_torch.eval.metrics import compute_metrics
 from ditsep_tpu_torch.ops.stft import n_frames_prepadded
+from ditsep_tpu_torch.parallel import (
+    all_gather_rows, broadcast_object, check_one_device_a_rank, shard_batch,
+    sharded,
+)
 from ditsep_tpu_torch.utils.device import resolve_device
 
 METRIC_WORKERS = 4  # host threads scoring one batch while the next samples
@@ -131,6 +135,7 @@ def evaluate_dataset(
     warmup: bool = True,
     pass_lengths: bool = False,
     device="cuda",
+    mesh=None,
 ) -> Dict:
     """Evaluate ``separate_fn(mix, lengths=None, generator=g) -> est`` over
     a dataset of (mix, target) numpy items.
@@ -155,11 +160,21 @@ def evaluate_dataset(
 
     Returns {"results": per-utterance dict, "summary": mean dict} and,
     beside them, "buckets" ({padded length: items}), "calls" (the
-    separate_fn calls, warmups included) and "metrics_s" (the metric
+    separate_fn calls, warmups included), "chunks" ((padded length,
+    real items, items) of each batch, in order) and "metrics_s" (the metric
     threads' summed seconds, and the seconds the run waited for them
     after its last call); writes ``<split>.json`` and
-    ``<split>_summary.json`` into ``out_dir`` when given."""
+    ``<split>_summary.json`` into ``out_dir`` when given.
+
+    With ``mesh`` (a process group's, ``parallel.make_mesh``) every batch
+    is ``ceil(batch_size / n) * n`` items for n devices, filled up with
+    its last item (ditsep_tpu/eval/evaluate.py:208-260); each rank
+    separates its rows with the whole batch's draws (``parallel.
+    sharded``), rank 0 gathers the estimates, scores the real items,
+    writes the files, and sends every rank the results. ``runtime`` is
+    the call and the gather over the batch's real items."""
     device = resolve_device(device)
+    check_one_device_a_rank(mesh, "evaluation")
     n_items = len(dataset) if limit is None else min(limit, len(dataset))
     get_len = getattr(dataset, "item_length", None)
     lengths = ([get_len(i) for i in range(n_items)] if get_len
@@ -174,42 +189,60 @@ def evaluate_dataset(
     for i in range(n_items):
         buckets.setdefault(assigned[i], []).append(i)
 
+    n_dev = 1 if mesh is None else mesh.devices.size
+    # every batch splits evenly over the data axis: round the batch up to
+    # a device-count multiple
+    eff_batch = -(-batch_size // n_dev) * n_dev
+    rank_zero = mesh is None or mesh.rank == 0
     results: Dict[str, Dict] = {}
     futures = {}
     generator = torch.Generator(device=device).manual_seed(seed)
     calls = 0
+    chunks = []
+
+    def run(mix_t, kw):
+        with sharded(mesh):
+            est = separate_fn(mix_t, **kw)
+        _host_fence(device)
+        if mesh is not None:
+            est = all_gather_rows(_to_numpy(est), mesh)
+        return est
 
     with ThreadPoolExecutor(METRIC_WORKERS) as pool:
         for blen, idxs in sorted(buckets.items()):
             warmed = not warmup
-            for start in range(0, len(idxs), batch_size):
-                chunk = idxs[start:start + batch_size]
+            for start in range(0, len(idxs), eff_batch):
+                chunk = idxs[start:start + eff_batch]
                 items = [dataset[i] for i in chunk]
                 n_real = len(items)
-                while len(items) < batch_size:
+                while len(items) < eff_batch:
                     items.append(items[-1])
+                chunks.append((blen, n_real, eff_batch))
                 # left-aligned: the padding is trailing quiet, as the model's
                 # own %64 frame pad
                 mix_b, tgt_b = max_collator(items, pad_to=blen, align="left")
-                mix_t = torch.from_numpy(mix_b).to(device)
+                lens = np.array([it[0].shape[-1] for it in items], np.int64)
+                if mesh is None:
+                    mix_t = torch.from_numpy(mix_b).to(device)
+                    lens_t = torch.from_numpy(lens).to(device)
+                else:
+                    mix_t, lens_t = shard_batch(mesh, (mix_b, lens))
                 kw = {"generator": generator}
                 if pass_lengths:
-                    kw["lengths"] = torch.tensor(
-                        [it[0].shape[-1] for it in items], dtype=torch.int64,
-                        device=device)
+                    kw["lengths"] = lens_t
                 if not warmed:  # the timed call then draws the same noise
                     state = generator.get_state()
-                    separate_fn(mix_t, **kw)
-                    _host_fence(device)
+                    run(mix_t, kw)
                     generator.set_state(state)
                     calls += 1
                     warmed = True
                 t0 = time.perf_counter()
-                est = separate_fn(mix_t, **kw)
-                _host_fence(device)
+                est = run(mix_t, kw)
                 runtime = (time.perf_counter() - t0) / n_real
                 calls += 1
                 est = _to_numpy(est)
+                if not rank_zero:
+                    continue
                 for bi in range(n_real):
                     i = chunk[bi]
                     sl = slice(0, lengths[i])  # left-aligned collation
@@ -234,7 +267,8 @@ def evaluate_dataset(
     if merged_idx:
         summary["merged_indices"] = sorted(int(i) for i in merged_idx
                                            if i < n_items)
-    if out_dir is not None:
+    results, summary = broadcast_object((results, summary), mesh)
+    if out_dir is not None and rank_zero:
         out = Path(out_dir)
         out.mkdir(parents=True, exist_ok=True)
         with open(out / f"{split_name}.json", "w") as f:
@@ -243,7 +277,7 @@ def evaluate_dataset(
             json.dump(summary, f, indent=2)
     return {"results": results, "summary": summary,
             "buckets": {b: len(v) for b, v in sorted(buckets.items())},
-            "calls": calls,
+            "chunks": chunks, "calls": calls,
             "metrics_s": {"threads": metric_s, "wait_after_last_call":
                           wait_s}}
 

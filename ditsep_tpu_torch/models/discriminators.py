@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ditsep_tpu_torch import parallel
 from ditsep_tpu_torch.ops.stft import stft as stft_fn
 
 Tensor = torch.Tensor
@@ -167,6 +168,12 @@ def encodec_discriminator_loss(disc: MultiScaleSTFTDiscriminator,
         terms = [(a - b).abs().mean() for a, b in zip(feats_true[i],
                                                        feats_fake[i])]
         if normalize_losses:
+            # the denominator is a whole-batch mean: a shard's would
+            # differ from the global batch's
+            if parallel.couples_batch("normalize_losses") is not None:
+                raise NotImplementedError(
+                    "normalize_losses=True divides by a whole-batch mean; "
+                    "it is not run data-parallel")
             terms = [t / (a.abs().mean() + 1e-3)
                      for t, a in zip(terms, feats_true[i])]
         fm = fm + sum(terms) / len(terms)

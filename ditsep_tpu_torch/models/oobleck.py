@@ -29,6 +29,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ditsep_tpu_torch import parallel
+
 Tensor = torch.Tensor
 Padding = Union[int, Tuple[int, int], None]
 
@@ -336,8 +338,8 @@ class OobleckVAE(nn.Module):
             latents, kl = mean, torch.zeros((), device=mean.device)
         else:
             if noise is None:
-                noise = torch.randn(mean.shape, generator=generator,
-                                    device=mean.device)
+                noise = parallel.draw_rows(lambda s: torch.randn(
+                    s, generator=generator, device=mean.device), mean.shape)
             latents, kl = vae_sample(mean, scale, noise)
         if return_info:
             return latents, {"kl": kl, "mean": mean, "scale": scale}

@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ditsep_tpu_torch import parallel
 from ditsep_tpu_torch.utils.registry import Registry
 
 SDERegistry = Registry("SDE")
@@ -192,8 +193,9 @@ class MixSDE(BaseSDE):
     def prior_sampling(self, generator: Optional[torch.Generator],
                        shape: Tuple[int, ...], mix: Tensor) -> Tensor:
         """x_T ~ N(broadcast(mix / n), Sigma(T)); ``mix`` is (B, 1, T)."""
-        z = torch.randn(shape, generator=generator, device=mix.device,
-                        dtype=mix.dtype)
+        z = parallel.draw_rows(lambda s: torch.randn(
+            s, generator=generator, device=mix.device, dtype=mix.dtype),
+            shape)
         return self.prior_from_noise(z, shape, mix)
 
     def prior_from_noise(self, z: Tensor, shape: Tuple[int, ...],
@@ -332,8 +334,8 @@ class OUVESDE(BaseSDE):
 
     def prior_sampling(self, generator: Optional[torch.Generator],
                        shape: Tuple[int, ...], y: Tensor) -> Tensor:
-        z = torch.randn(shape, generator=generator, device=y.device,
-                        dtype=y.dtype)
+        z = parallel.draw_rows(lambda s: torch.randn(
+            s, generator=generator, device=y.device, dtype=y.dtype), shape)
         return self.prior_from_noise(z, shape, y)
 
     def prior_from_noise(self, z: Tensor, shape: Tuple[int, ...],

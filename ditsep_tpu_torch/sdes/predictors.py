@@ -9,6 +9,7 @@ from typing import Optional
 
 import torch
 
+from ditsep_tpu_torch import parallel
 from ditsep_tpu_torch.sdes.core import BaseSDE, bcast_right
 from ditsep_tpu_torch.utils.registry import Registry
 
@@ -16,8 +17,10 @@ PredictorRegistry = Registry("Predictor")
 
 
 def _normal_like(x: torch.Tensor, generator: Optional[torch.Generator]):
-    return torch.randn(x.shape, generator=generator, device=x.device,
-                       dtype=x.dtype)
+    """Standard normals of x's shape (in a shard of a global batch, its
+    rows of the global batch's draw)."""
+    return parallel.draw_rows(lambda s: torch.randn(
+        s, generator=generator, device=x.device, dtype=x.dtype), x.shape)
 
 
 @PredictorRegistry.register("euler_maruyama")

@@ -7,8 +7,10 @@ Design:
   model's 64-frame STFT blocks (the frame-block buckets of
   ``eval/evaluate.py:_bucket_lengths_frames``, docs/pad_dilution_r03.md),
   or multiples of ``bucket_multiple`` samples (the latent path), and batch
-  sizes are powers of two up to ``max_batch``. cuDNN meets a bounded set
-  of shapes, each of which ``warmup`` can visit before traffic.
+  sizes are powers of two up to ``max_batch`` (on a mesh of n cards, n
+  times powers of two, the cap rounded up to a multiple of n). cuDNN
+  meets a bounded set of shapes, each of which ``warmup`` can visit
+  before traffic.
 - One dispatch thread owns the device and the engine's
   ``torch.Generator``: requests are host objects until their batch is
   uploaded, and every batch draws its noise from the one generator, in
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -30,7 +32,10 @@ import numpy as np
 import torch
 
 from ditsep_tpu_torch.ops.stft import frame_block_padded_len as _padded_len
+from ditsep_tpu_torch.parallel import sharded
 from ditsep_tpu_torch.utils.device import resolve_device
+
+Tensor = torch.Tensor
 
 
 def frame_block_padded_len(length: int, frame_spec: Tuple[int, int, int]
@@ -70,7 +75,12 @@ class BatchingEngine:
         buckets, or None to bucket by ``bucket_multiple`` samples (the
         latent path).
     mesh:
-        sharded serving; not ported yet (ROADMAP A14), raises.
+        ``parallel.make_mesh()`` of this process's cards: each batch is
+        split over them, a replica of the separator on each
+        (``separate_fn.replicate(device)``, as ``TrainerSeparator``
+        has), each replica drawing its rows of the whole batch's draws,
+        and the stems are concatenated. A mesh of one card is the plain
+        engine, bit for bit.
     seed:
         seeds the engine's generator on ``device``.
     wire_int16:
@@ -102,10 +112,18 @@ class BatchingEngine:
                  wire_int16: bool = False,
                  pipeline_depth: int = 2,
                  device="cuda"):
+        n_dev = 1
+        self._replicas = None
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (serving sharded over several cards) is not ported "
-                "yet (ROADMAP A14)")
+            if mesh.world_size > 1:
+                raise ValueError("the engine splits batches over the cards "
+                                 "of one process; got a mesh of "
+                                 f"{mesh.world_size} processes")
+            device, n_dev = mesh.device, mesh.devices.size
+            if n_dev > 1:
+                self._replicas = [separate_fn] + [
+                    separate_fn.replicate(d) for d in mesh.local[1:n_dev]]
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.separate_fn = separate_fn
         self.wire_int16 = bool(wire_int16)
@@ -115,17 +133,25 @@ class BatchingEngine:
         self.bucket_multiple = int(bucket_multiple)
         self.max_len = int(max_seconds * fs)
         self.pass_lengths = bool(pass_lengths)
-        # allowed batch sizes: powers of two below max_batch, and max_batch
-        sizes, b = [], 1
+        # allowed batch sizes: the device count times powers of two below
+        # max_batch, and the cap rounded up to a multiple of the device
+        # count (every batch splits over the cards)
+        sizes, b = [], n_dev
         while b < max_batch:
             sizes.append(b)
             b *= 2
-        sizes.append(max(max_batch, 1))
+        sizes.append(-(-max(max_batch, n_dev) // n_dev) * n_dev)
         self.batch_sizes = sorted(set(sizes))
         self.max_batch = self.batch_sizes[-1]
 
         self._generator = torch.Generator(device=self.device).manual_seed(
             int(seed))
+        self._pool = None
+        if self._replicas is not None:
+            self._replica_generators = [torch.Generator(device=d)
+                                        for d in mesh.local[:n_dev]]
+            self._pool = ThreadPoolExecutor(n_dev,
+                                            thread_name_prefix="ditsep-rep")
         # one sampler call at a time: warmup() runs on the caller's thread
         self._device_lock = threading.Lock()
         self._pending: Dict[int, List[_Request]] = {}
@@ -246,6 +272,8 @@ class BatchingEngine:
                     if not r.future.done():
                         r.future.set_exception(RuntimeError("engine closed"))
             self._pending.clear()
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
 
     def __enter__(self):
         return self
@@ -316,11 +344,14 @@ class BatchingEngine:
             x = torch.from_numpy(mix).to(self.device)
             if self.wire_int16:
                 x = x.float() / 32768.0
-            kw = {"generator": self._generator}
-            if self.pass_lengths:
-                kw["lengths"] = torch.from_numpy(
-                    lengths.astype(np.int64)).to(self.device)
-            est = self.separate_fn(x, **kw)
+            lens = torch.from_numpy(lengths.astype(np.int64))
+            if self._replicas is not None:
+                est = self._split_over_cards(x, lens)
+            else:
+                kw = {"generator": self._generator}
+                if self.pass_lengths:
+                    kw["lengths"] = lens.to(self.device)
+                est = self.separate_fn(x, **kw)
             if self.wire_int16:
                 est = torch.as_tensor(est, device=self.device).float()
                 est = torch.round(torch.clamp(est, -1.0, 1.0)
@@ -328,6 +359,32 @@ class BatchingEngine:
             elif isinstance(est, torch.Tensor):
                 est = est.float()
         return est
+
+    def _split_over_cards(self, x: Tensor, lens: Tensor) -> Tensor:
+        """Each replica separates its rows of the batch on its card, in
+        its own thread, drawing its rows of the whole batch's draws from
+        a copy of the engine's generator; the engine's generator then
+        moves on as one call on the whole batch moves it."""
+        n = len(self._replicas)
+        per = x.shape[0] // n
+        start = self._generator.get_state()
+
+        def replica(k: int):
+            dev = self.mesh.local[k]
+            g = self._replica_generators[k]
+            g.set_state(start)
+            rows = slice(k * per, (k + 1) * per)
+            kw = {"generator": g}
+            if self.pass_lengths:
+                kw["lengths"] = lens[rows].to(dev)
+            with torch.inference_mode(), sharded(self.mesh, index=k,
+                                                 count=n):
+                est = self._replicas[k](x[rows].to(dev), **kw)
+                return torch.as_tensor(est).to(self.device)
+
+        outs = list(self._pool.map(replica, range(n)))
+        self._generator.set_state(self._replica_generators[0].get_state())
+        return torch.cat(outs)
 
     def _finalize(self, est) -> np.ndarray:
         est = (est.cpu().numpy() if isinstance(est, torch.Tensor)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ditsep_tpu_torch import parallel
 from ditsep_tpu_torch.ops.stft import stft as stft_fn
 
 Tensor = torch.Tensor
@@ -133,10 +134,21 @@ def multi_resolution_stft_loss(
 def pit_min(loss_fn: Callable[[Tensor, Tensor], Tensor], est: Tensor,
             ref: Tensor) -> Tensor:
     """``loss_fn(est[:, p], ref)`` for every source permutation p, then the
-    minimum: of the batch-aggregated loss, as the reference's PITLoss."""
+    minimum: of the batch-aggregated loss, as the reference's PITLoss.
+
+    The minimum couples the batch: in a rank's shard of a global batch
+    (``parallel.sharded``) the permutation is the one of least global
+    loss (each permutation's loss averaged over the ranks), and the
+    shard's own loss under it is returned, so that the ranks' gradients
+    average to the global batch's."""
     n = est.shape[1]
-    return torch.stack([loss_fn(est[:, list(p)], ref)
-                        for p in itertools.permutations(range(n))]).min()
+    losses = torch.stack([loss_fn(est[:, list(p)], ref)
+                          for p in itertools.permutations(range(n))])
+    shard = parallel.couples_batch("pit_min")
+    if shard is None:
+        return losses.min()
+    total = parallel.all_reduce_mean_(losses.detach().clone(), shard.mesh)
+    return losses[torch.argmin(total)]
 
 
 def l1_loss(x: Tensor, y: Tensor) -> Tensor:

@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ditsep_tpu_torch import parallel
 from ditsep_tpu_torch.models.discriminators import discriminator_loss
 from ditsep_tpu_torch.models.oobleck import OobleckVAE, vae_sample
 from ditsep_tpu_torch.training import auraloss
@@ -195,35 +196,44 @@ class AutoencoderTrainer:
 
     def gen_step(self, state: AutoencoderState, reals: Tensor,
                  warmed_up: bool = True, *, generator=None,
-                 draws: Draws = None) -> Tuple[AutoencoderState, Dict]:
+                 draws: Draws = None, mesh=None
+                 ) -> Tuple[AutoencoderState, Dict]:
         """One VAE update and its EMA; a parameter without a gradient (the
-        frozen encoder's) takes a zero one."""
+        frozen encoder's) takes a zero one. With ``mesh``, ``reals`` is
+        this rank's rows and the step the global batch's (the draws the
+        global batch's, the gradient averaged over the ranks before the
+        clip, the metrics averaged)."""
         params = list(state.vae.parameters())
-        with torch.enable_grad():
+        with torch.enable_grad(), parallel.sharded(mesh):
             loss, aux = self.gen_loss(reals, warmed_up, generator=generator,
                                       draws=draws)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        parallel.all_reduce_grads_(grads, mesh)
         state.vae_optimizer.step(grads)
         ema_update_(state.ema_vae, state.vae, self.ema_decay)
         state.step += 1
-        return state, {"train/loss": loss.detach(), **{
+        metrics = {"train/loss": loss.detach(), **{
             f"train/{k}": v.detach() for k, v in aux.items()}}
+        return state, parallel.all_reduce_metrics(metrics, mesh)
 
     def disc_step(self, state: AutoencoderState, reals: Tensor, *,
-                  generator=None, draws: Draws = None
+                  generator=None, draws: Draws = None, mesh=None
                   ) -> Tuple[AutoencoderState, Dict]:
-        """One discriminator update on a round trip of the current VAE."""
-        with torch.no_grad():
+        """One discriminator update on a round trip of the current VAE;
+        ``mesh`` as ``gen_step``'s."""
+        with torch.no_grad(), parallel.sharded(mesh):
             decoded, reals_t, _, _ = self._roundtrip(reals, generator, draws)
         params = list(state.disc.parameters())
-        with torch.enable_grad():
+        with torch.enable_grad(), parallel.sharded(mesh):
             loss, _, _ = discriminator_loss(state.disc, reals_t, decoded)
-            grads = torch.autograd.grad(loss, params)
+            grads = list(torch.autograd.grad(loss, params))
+        parallel.all_reduce_grads_(grads, mesh)
         state.disc_optimizer.step(grads)
         state.step += 1
-        return state, {"train/discriminator_loss": loss.detach()}
+        return state, parallel.all_reduce_metrics(
+            {"train/discriminator_loss": loss.detach()}, mesh)
 
     def use_disc_this_step(self, step: int) -> bool:
         if self.disc is None:

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ditsep_tpu_torch import parallel
 from ditsep_tpu_torch.sdes import (
     BaseSDE, MixSDE, SBVESDE, ab2_sample, bcast_right, pc_sample, sb_sample,
 )
@@ -88,25 +89,30 @@ def _perms(n: int) -> List[Tuple[int, ...]]:
 
 def _draw(draws: Draws, name: str, shape: Sequence[int], kind: str,
           generator: Optional[torch.Generator], device) -> Tensor:
-    """The raw draw ``name``: from ``draws`` when given (every name a loss
-    needs must be there), else a ``kind`` ("uniform" or "normal") draw
-    from ``generator`` on ``device``."""
+    """The raw draw ``name`` of batch-leading ``shape``: from ``draws`` when
+    given (every name a loss needs must be there), else a ``kind``
+    ("uniform" or "normal") draw from ``generator`` on ``device``. In a
+    shard of a global batch (``parallel.sharded``) both are the global
+    batch's draws, of which the shard keeps its rows."""
     if draws is not None:
         if name not in draws:
             raise KeyError(f"draws has no {name!r} (has {sorted(draws)})")
         a = draws[name]
         if not isinstance(a, torch.Tensor):
             a = torch.tensor(np.asarray(a))
-        a = a.to(device)
-        if tuple(a.shape) != tuple(shape):
+        want = (parallel.global_rows(shape[0]),) + tuple(shape[1:])
+        if tuple(a.shape) != want:
             raise ValueError(f"draws[{name!r}] has shape {tuple(a.shape)}, "
-                             f"want {tuple(shape)}")
-        return a
+                             f"want {want}")
+        return parallel.take_rows(a).to(device)
     if kind == "uniform":
-        return torch.rand(shape, generator=generator, device=device)
-    if kind == "normal":
-        return torch.randn(shape, generator=generator, device=device)
-    raise ValueError(f"no generator draw of kind {kind!r} for {name!r}")
+        fn = torch.rand
+    elif kind == "normal":
+        fn = torch.randn
+    else:
+        raise ValueError(f"no generator draw of kind {kind!r} for {name!r}")
+    return parallel.draw_rows(
+        lambda s: fn(s, generator=generator, device=device), shape)
 
 
 @contextlib.contextmanager
@@ -315,12 +321,20 @@ class DiffSepTrainer:
             return torch.clamp(u * (self.sde.T - cfg.t_eps) + cfg.t_eps,
                                min=cfg.t_eps)
         if cfg.time_sampling_strategy == "varprop":
-            m = VARPROP_OVERSAMPLE * n
-            u = _draw(draws, "time_u", (m,), "uniform", generator, device)
-            acc = _draw(draws, "time_accept_u", (m,), "uniform", generator,
-                        device)
-            return self.sde.sample_time_varprop(generator, n, cfg.t_eps,
-                                                u=u, accept_u=acc)
+            # the rejection sampler's proposals are not items: the global
+            # batch's times are drawn, then the shard's rows kept
+            shard = parallel.current_shard()
+            n_all = parallel.global_rows(n)
+            with parallel.unsharded():
+                m = VARPROP_OVERSAMPLE * n_all
+                u = _draw(draws, "time_u", (m,), "uniform", generator,
+                          device)
+                acc = _draw(draws, "time_accept_u", (m,), "uniform",
+                            generator, device)
+                t = self.sde.sample_time_varprop(generator, n_all,
+                                                 cfg.t_eps, u=u,
+                                                 accept_u=acc)
+            return parallel.take_rows(t, shard)
         raise NotImplementedError(cfg.time_sampling_strategy)
 
     # -- losses (per-item (B,) values) --------------------------------------
@@ -391,8 +405,8 @@ class DiffSepTrainer:
         if draws is not None:
             sel = _draw(draws, "sel", (b,), "int", generator, dev).long()
         else:
-            sel = torch.randint(0, len(perms), (b,), generator=generator,
-                                device=dev)
+            sel = parallel.draw_rows(lambda s: torch.randint(
+                0, len(perms), s, generator=generator, device=dev), (b,))
         mean_sel = means[torch.arange(b, device=dev), sel]
         x_t = mean_sel + lz
         err = means - mean_sel[:, None]
@@ -499,44 +513,56 @@ class DiffSepTrainer:
 
     def train_step(self, state: TrainState, batch: Tuple[Tensor, Tensor], *,
                    generator: Optional[torch.Generator] = None,
-                   draws: Draws = None) -> Tuple[TrainState, Dict]:
+                   draws: Draws = None, mesh=None) -> Tuple[TrainState, Dict]:
         """One step: normalize -> loss -> grad -> clip -> Adam -> EMA. The
         parameters and the EMA are updated in place; the metrics are
-        tensors on the device (reading them syncs)."""
+        tensors on the device (reading them syncs). With ``mesh``
+        (``parallel.make_mesh``), ``batch`` is this rank's rows of the
+        global batch, the draws are the global batch's, and the step is
+        the global batch's (the gradient averaged over the ranks before
+        the clip; the metrics averaged too)."""
         (mix, target), _, _ = sep_utils.normalize_batch(batch)
         return self._apply_step(state, mix, target, generator=generator,
-                                draws=draws)
+                                draws=draws, mesh=mesh)
 
     def _apply_step(self, state: TrainState, mix: Tensor, target: Tensor, *,
-                    generator=None, draws: Draws = None
+                    generator=None, draws: Draws = None, mesh=None
                     ) -> Tuple[TrainState, Dict]:
-        """loss -> grad -> clip -> Adam -> EMA on a prepared batch."""
+        """loss -> grad -> [all-reduce] -> clip -> Adam -> EMA on a
+        prepared batch. Every loss is a mean of per-item values, so the
+        mean of the ranks' equal shards is the global batch's."""
         model = state.model
         self._check_trainable(model)
         params = list(model.parameters())
-        with _mode(model, True), torch.enable_grad():
+        with _mode(model, True), torch.enable_grad(), \
+                parallel.sharded(mesh):
             loss = self.training_loss(model, mix, target, generator=generator,
                                       draws=draws)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        loss = parallel.all_reduce_mean_(loss.detach(), mesh)
+        parallel.all_reduce_grads_(grads, mesh)
         with torch.no_grad():
             grad_norm = global_norm(grads)
             state.optimizer.step(grads)
             ema_update_(state.ema, model, self.cfg.ema_decay)
         state.step += 1
-        return state, {"train/score_loss": loss.detach(),
+        return state, {"train/score_loss": loss,
                        "train/grad_norm": grad_norm}
 
     # -- validation / inference ---------------------------------------------
     @torch.no_grad()
     def val_score_loss(self, model, batch, *, generator=None,
-                       draws: Draws = None) -> Tensor:
+                       draws: Draws = None, mesh=None) -> Tensor:
+        """The training loss in eval mode; with ``mesh`` the global
+        batch's (this rank holds its rows)."""
         (mix, target), _, _ = sep_utils.normalize_batch(batch)
         model = self.model if model is None else model
-        with _mode(model, False):
-            return self.training_loss(model, mix, target, generator=generator,
-                                      draws=draws)
+        with _mode(model, False), parallel.sharded(mesh):
+            loss = self.training_loss(model, mix, target,
+                                      generator=generator, draws=draws)
+        return parallel.all_reduce_mean_(loss, mesh)
 
     @torch.no_grad()
     def separate(self, mix: Tensor, *, N: Optional[int] = None,
@@ -611,11 +637,13 @@ class DiffSepTrainer:
             outs.append(est[:n_real])
         return torch.cat(outs), nfe
 
-    def val_separation_metrics(self, model, batch, *,
-                               generator=None) -> Dict[str, Tensor]:
-        """Separation + SI-SDR for validation monitoring (:496-508)."""
+    def val_separation_metrics(self, model, batch, *, generator=None,
+                               mesh=None) -> Dict[str, Tensor]:
+        """Separation + SI-SDR for validation monitoring (:496-508); with
+        ``mesh`` the global batch's (this rank holds its rows)."""
         mix, target = batch
-        est, _ = self.separate(mix, generator=generator, model=model)
-        return {"val/si_sdr": loss_lib.si_sdr_loss(est, target,
-                                                   zero_mean=True,
-                                                   clamp_db=30.0)}
+        with parallel.sharded(mesh):
+            est, _ = self.separate(mix, generator=generator, model=model)
+        si_sdr = loss_lib.si_sdr_loss(est, target, zero_mean=True,
+                                      clamp_db=30.0)
+        return {"val/si_sdr": parallel.all_reduce_mean_(si_sdr, mesh)}

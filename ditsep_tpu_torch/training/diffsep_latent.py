@@ -27,6 +27,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ditsep_tpu_torch import parallel
 from ditsep_tpu_torch.models.oobleck import vae_sample
 from ditsep_tpu_torch.sdes import ab2_sample, pc_sample
 from ditsep_tpu_torch.training import losses as loss_lib
@@ -110,21 +111,27 @@ class LatentDiffSepTrainer(DiffSepTrainer):
 
     def train_step_latent(self, state: TrainState,
                           batch: Tuple[Tensor, Tensor], *, generator=None,
-                          draws: Draws = None) -> Tuple[TrainState, Dict]:
+                          draws: Draws = None, mesh=None
+                          ) -> Tuple[TrainState, Dict]:
         """One step on a waveform batch, the VAE frozen: encode -> loss ->
-        grad -> clip -> Adam -> EMA of the score model (:103-125)."""
-        mix_lat, tgt_lat = self.encode(*batch, sample=True,
-                                       generator=generator, draws=draws)
+        grad -> clip -> Adam -> EMA of the score model (:103-125). With
+        ``mesh`` the global batch's step (``train_step``'s), the posterior
+        draws the global batch's too."""
+        with parallel.sharded(mesh):
+            mix_lat, tgt_lat = self.encode(*batch, sample=True,
+                                           generator=generator, draws=draws)
         return self._apply_step(state, mix_lat, tgt_lat, generator=generator,
-                                draws=draws)
+                                draws=draws, mesh=mesh)
 
     @torch.no_grad()
     def val_score_loss_latent(self, model, batch, *, generator=None,
-                              draws: Draws = None) -> Tensor:
+                              draws: Draws = None, mesh=None) -> Tensor:
         model = self.model if model is None else model
-        with _mode(model, False):
-            return self.training_loss_latent(model, *batch,
-                                             generator=generator, draws=draws)
+        with _mode(model, False), parallel.sharded(mesh):
+            loss = self.training_loss_latent(model, *batch,
+                                             generator=generator,
+                                             draws=draws)
+        return parallel.all_reduce_mean_(loss, mesh)
 
     @torch.no_grad()
     def sample_latents(self, mix: Tensor, *, latent: bool = False,
@@ -169,14 +176,15 @@ class LatentDiffSepTrainer(DiffSepTrainer):
         return self.decode(est, target_dim), nfe
 
     def val_metrics_latent(self, model, batch, *, generator=None,
-                           **kwargs) -> Dict[str, Tensor]:
+                           mesh=None, **kwargs) -> Dict[str, Tensor]:
         """Latent separation (``kwargs``: ``sample_latents``'s) + SI-SDR,
         with zero_mean=False as the reference's latent config sets it
-        (:160-181)."""
+        (:160-181); with ``mesh`` the global batch's."""
         mix, target = batch
-        est, _ = self.separate_latent(mix, target_dim=target.shape[-1],
-                                      generator=generator, model=model,
-                                      **kwargs)
-        return {"val/si_sdr": loss_lib.si_sdr_loss(est, target,
-                                                   zero_mean=False,
-                                                   clamp_db=30.0)}
+        with parallel.sharded(mesh):
+            est, _ = self.separate_latent(mix, target_dim=target.shape[-1],
+                                          generator=generator, model=model,
+                                          **kwargs)
+        si_sdr = loss_lib.si_sdr_loss(est, target, zero_mean=False,
+                                      clamp_db=30.0)
+        return {"val/si_sdr": parallel.all_reduce_mean_(si_sdr, mesh)}

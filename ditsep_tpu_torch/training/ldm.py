@@ -32,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ditsep_tpu_torch import parallel
 from ditsep_tpu_torch.models.discriminators import (
     MultiScaleSTFTDiscriminator, encodec_discriminator_loss,
 )
@@ -41,6 +42,18 @@ from ditsep_tpu_torch.training.diffsep_latent import LatentDiffSepTrainer
 from ditsep_tpu_torch.training.schedules import ClipAdamW
 
 Tensor = torch.Tensor
+
+
+def _population_std(x: Tensor) -> Tensor:
+    """The population std of ``x``; in a rank's shard, of the global
+    batch (from the ranks' means of x and x^2)."""
+    x = x.detach()
+    shard = parallel.couples_batch("decoded_std")
+    if shard is None:
+        return x.std(correction=0)
+    m = parallel.all_reduce_mean_(torch.stack([x.mean(), (x * x).mean()]),
+                                  shard.mesh)
+    return torch.sqrt(torch.clamp(m[1] - m[0] ** 2, min=0.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,36 +170,43 @@ class LDMTrainer:
             losses["loss_adv"] = w.adversarial * adv
             losses["feature_matching_loss"] = w.feature_matching * fm
         total = sum(losses.values())
-        return total, {**losses,
-                       "decoded_std": decoded.detach().std(correction=0)}
+        return total, {**losses, "decoded_std": _population_std(decoded)}
 
     def gen_step(self, state: LDMState, latents: Tensor, reals: Tensor,
-                 warmed_up: bool = True) -> Tuple[LDMState, Dict]:
+                 warmed_up: bool = True, *, mesh=None
+                 ) -> Tuple[LDMState, Dict]:
         """One decoder update and its EMA. The metrics are tensors on the
-        device (reading them syncs)."""
+        device (reading them syncs). With ``mesh``, ``latents`` and
+        ``reals`` are this rank's rows and the step is the global batch's
+        (the PIT permutation chosen on the global loss, the gradient
+        averaged over the ranks before the clip, the metrics averaged)."""
         params = list(state.decoder.parameters())
-        with torch.enable_grad():
+        with torch.enable_grad(), parallel.sharded(mesh):
             loss, aux = self.gen_loss(latents, reals, warmed_up)
-            grads = torch.autograd.grad(loss, params)
+            grads = list(torch.autograd.grad(loss, params))
+        parallel.all_reduce_grads_(grads, mesh)
         state.gen_optimizer.step(grads)
         ema_update_(state.ema_decoder, state.decoder, self.ema_decay)
         state.step += 1
-        return state, {"train/loss": loss.detach(), **{
+        metrics = {"train/loss": loss.detach(), **{
             f"train/{k}": v.detach() for k, v in aux.items()}}
+        return state, parallel.all_reduce_metrics(metrics, mesh)
 
-    def disc_step(self, state: LDMState, latents: Tensor, reals: Tensor
-                  ) -> Tuple[LDMState, Dict]:
+    def disc_step(self, state: LDMState, latents: Tensor, reals: Tensor, *,
+                  mesh=None) -> Tuple[LDMState, Dict]:
         """One discriminator update on the current decoder's output
-        (reference: src/ldm.py:449-471)."""
+        (reference: src/ldm.py:449-471); ``mesh`` as ``gen_step``'s."""
         decoded = self.latent_trainer.decode(latents, reals.shape[-1])
         params = list(state.disc.parameters())
-        with torch.enable_grad():
+        with torch.enable_grad(), parallel.sharded(mesh):
             loss, _, _ = encodec_discriminator_loss(state.disc, reals,
                                                     decoded)
-            grads = torch.autograd.grad(loss, params)
+            grads = list(torch.autograd.grad(loss, params))
+        parallel.all_reduce_grads_(grads, mesh)
         state.disc_optimizer.step(grads)
         state.step += 1
-        return state, {"train/discriminator_loss": loss.detach()}
+        return state, parallel.all_reduce_metrics(
+            {"train/discriminator_loss": loss.detach()}, mesh)
 
     def use_disc_this_step(self, step: int) -> bool:
         """The GAN alternation (reference: src/ldm.py:449-456): odd steps,

@@ -1,6 +1,6 @@
 """The training loop: ``fit`` drives train steps over bucketed data (the
-port's ditsep_tpu/training/loop.py:23-172, 254-353, on one device, with no
-mesh and no media logging).
+port's ditsep_tpu/training/loop.py:23-172, 254-353, without media
+logging), on one device or data-parallel over a mesh.
 
 Epochs over a ``BucketedLoader``; scalars every ``log_every`` steps to
 ``metrics.jsonl``; at each epoch's end a validation (the score loss over
@@ -9,6 +9,13 @@ every validation batch, weighted by its real item count, and up to
 SI-SDR), a top-k checkpoint on val/si_sdr and the rolling latest one; an
 emergency latest checkpoint when training raises; at the end the EMA
 weights as ``ema.npz`` in the JAX package's flat layout.
+
+With a ``mesh`` (``parallel.make_mesh`` under a process group) every rank
+builds the same loaders with the same seed, so all ranks see the same
+global batches, and takes its rows of each; the steps and the validation
+are the global batch's (the trainers reduce over the ranks). Rank 0
+alone writes the run config, the logs, the checkpoints and ``ema.npz``
+(ditsep_tpu/training/loop.py:74-79); every rank restores on resume.
 """
 from __future__ import annotations
 
@@ -22,6 +29,9 @@ import torch
 
 from ditsep_tpu_torch.data.wsj0_mix import BucketedLoader
 from ditsep_tpu_torch.models.weights import save_params_npz
+from ditsep_tpu_torch.parallel import (
+    check_one_device_a_rank, is_rank_zero, shard_batch,
+)
 from ditsep_tpu_torch.utils.checkpoint import CheckpointManager
 from ditsep_tpu_torch.utils.logging import MetricsLogger
 
@@ -47,16 +57,20 @@ def _save_run_config(workdir: str, trainer) -> None:
 def fit(trainer, train_dataset, val_dataset=None, *, workdir: str,
         max_epochs: int = 1000, batch_size: int = 16, seed: int = 0,
         valid_max_sep_batches: int = 2, log_every: int = 10,
-        resume: bool = False, max_steps: Optional[int] = None):
+        resume: bool = False, max_steps: Optional[int] = None, mesh=None):
     """Train ``trainer`` (a DiffSepTrainer, or anything with its
     ``model``, ``cfg``, ``sde``, ``init_state``, ``train_step``,
-    ``val_score_loss`` and ``val_separation_metrics``) on its model's
-    device; returns
-    the final TrainState. Random draws come from one generator on that
-    device, seeded with ``seed``."""
-    logger = MetricsLogger(workdir)
-    ckpt = CheckpointManager(f"{workdir}/checkpoints")
-    _save_run_config(workdir, trainer)
+    ``val_score_loss`` and ``val_separation_metrics``, each taking
+    ``mesh=``) on its model's device; returns the final TrainState. Random
+    draws come from one generator on that device, seeded with ``seed``.
+    ``batch_size`` is the global batch: with ``mesh`` it must split over
+    the ranks."""
+    check_one_device_a_rank(mesh, "training")
+    rank_zero = is_rank_zero()
+    logger = MetricsLogger(workdir, enabled=rank_zero)
+    ckpt = CheckpointManager(f"{workdir}/checkpoints", write=rank_zero)
+    if rank_zero:
+        _save_run_config(workdir, trainer)
     device = next(trainer.model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(seed)
     state = trainer.init_state()
@@ -83,7 +97,7 @@ def fit(trainer, train_dataset, val_dataset=None, *, workdir: str,
     try:
         _train_epochs(trainer, state, loader, val_loader, generator, device,
                       logger, ckpt, max_epochs, max_steps, log_every,
-                      valid_max_sep_batches, seed)
+                      valid_max_sep_batches, seed, mesh)
     except Exception:
         # a crash loses nothing past the last step (the state is updated
         # in place); a failing save must not hide the crash
@@ -93,24 +107,30 @@ def fit(trainer, train_dataset, val_dataset=None, *, workdir: str,
             pass
         raise
     logger.close()
-    save_params_npz(str(Path(workdir) / EMA_EXPORT), state.ema)
+    if rank_zero:
+        save_params_npz(str(Path(workdir) / EMA_EXPORT), state.ema)
     return state
 
 
-def _to_device(batch, device):
+def _to_device(batch, device, mesh=None):
+    """The batch's arrays as tensors on ``device``; with ``mesh`` this
+    rank's rows."""
+    if mesh is not None:
+        return tuple(shard_batch(mesh, tuple(batch)))
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in batch)
 
 
 def _train_epochs(trainer, state, loader, val_loader, generator, device,
                   logger, ckpt, max_epochs, max_steps, log_every,
-                  valid_max_sep_batches, seed) -> None:
+                  valid_max_sep_batches, seed, mesh) -> None:
     stop = False
     for epoch in range(max_epochs):
         loader.seed = seed + epoch
         for batch in loader:
             state, metrics = trainer.train_step(
-                state, _to_device(batch, device), generator=generator)
+                state, _to_device(batch, device, mesh), generator=generator,
+                mesh=mesh)
             if state.step % log_every == 0:
                 logger.log({k: float(v) for k, v in metrics.items()},
                            state.step)
@@ -122,13 +142,13 @@ def _train_epochs(trainer, state, loader, val_loader, generator, device,
         if val_loader is not None:
             losses, weights, si_sdrs, sep_weights = [], [], [], []
             for mix_b, tgt_b, n_real in val_loader:
-                batch = _to_device((mix_b, tgt_b), device)
+                batch = _to_device((mix_b, tgt_b), device, mesh)
                 losses.append(float(trainer.val_score_loss(
-                    state.model, batch, generator=generator)))
+                    state.model, batch, generator=generator, mesh=mesh)))
                 weights.append(n_real)
                 if len(si_sdrs) < valid_max_sep_batches:
                     m = trainer.val_separation_metrics(
-                        state.ema, batch, generator=generator)
+                        state.ema, batch, generator=generator, mesh=mesh)
                     si_sdrs.append(float(m["val/si_sdr"]))
                     sep_weights.append(n_real)
             # weighted by real item counts: remainder batches are filled

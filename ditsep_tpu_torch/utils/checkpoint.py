@@ -25,15 +25,20 @@ class CheckpointManager:
     """Top-k checkpoint manager keyed by the metric ``monitor``, the
     highest first (``mode`` 'max') or the lowest ('min'); NaN or missing
     metrics rank worst. The states saved and restored are any objects
-    with ``state_dict`` / ``load_state_dict``."""
+    with ``state_dict`` / ``load_state_dict``. ``write=False`` (the ranks
+    but 0 of data-parallel training) keeps ``restore`` and makes every
+    write a no-op, so that the ranks do not race the shared files."""
 
     def __init__(self, directory: str, monitor: str = "val/si_sdr",
-                 mode: str = "max", save_top_k: int = 20):
+                 mode: str = "max", save_top_k: int = 20,
+                 write: bool = True):
         if mode not in ("max", "min"):
             raise ValueError(f"mode must be 'max' or 'min', not {mode!r}")
         self.monitor, self.mode, self.save_top_k = monitor, mode, save_top_k
+        self.write = write
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        if write:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self._index_path = self.dir / "index.json"
         self._index: Dict[str, float] = {}
         if self._index_path.exists():
@@ -53,6 +58,8 @@ class CheckpointManager:
 
     def save(self, state, step: int, metrics: Dict[str, float]) -> str:
         """Save ``state``; prune to top-k; refresh the best link."""
+        if not self.write:
+            return ""
         metric = float(metrics.get(self.monitor, float("nan")))
         name = self._ckpt_name(step, metric)
         path = self.dir / name
@@ -76,6 +83,8 @@ class CheckpointManager:
     def save_latest(self, state, step: int) -> str:
         """Write (or replace) the rolling 'latest' checkpoint, the resume
         anchor, with no moment where none exists."""
+        if not self.write:
+            return ""
         tmp, final, old = (self.dir / ".latest.tmp", self.dir / "latest",
                            self.dir / ".latest.old")
         for p in (tmp, old):

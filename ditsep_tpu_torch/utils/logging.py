@@ -10,18 +10,26 @@ from typing import Dict
 
 
 class MetricsLogger:
-    """Appends one ``{"step", "time", <metric>: value}`` line a call."""
+    """Appends one ``{"step", "time", <metric>: value}`` line a call;
+    ``enabled=False`` (the ranks but 0 of data-parallel training) writes
+    nothing."""
 
-    def __init__(self, workdir: str):
+    def __init__(self, workdir: str, enabled: bool = True):
+        self.enabled = enabled
         self.dir = Path(workdir)
-        self.dir.mkdir(parents=True, exist_ok=True)
-        self._jsonl = open(self.dir / "metrics.jsonl", "a")
+        self._jsonl = None
+        if enabled:
+            self.dir.mkdir(parents=True, exist_ok=True)
+            self._jsonl = open(self.dir / "metrics.jsonl", "a")
 
     def log(self, metrics: Dict[str, float], step: int) -> None:
+        if not self.enabled:
+            return
         rec = {"step": int(step), "time": time.time(),
                **{k: float(v) for k, v in metrics.items()}}
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()

@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ditsep_tpu_torch import parallel
+
 Tensor = torch.Tensor
 
 
@@ -29,7 +31,8 @@ def shuffle_sources(x: Tensor, generator: Optional[torch.Generator] = None,
     if x.ndim <= 1:
         return x
     if u is None:
-        u = torch.rand(x.shape[:2], generator=generator, device=x.device)
+        u = parallel.draw_rows(lambda s: torch.rand(
+            s, generator=generator, device=x.device), x.shape[:2])
     return _gather_sources(x, torch.argsort(u.to(x.device), dim=1,
                                             stable=True))
 
@@ -50,8 +53,9 @@ def select_elem_at_random(x: Tensor, axis: int = -1,
     ``sel`` (B,) integers in [0, x.shape[axis]), drawn when not given."""
     x = torch.movedim(x, axis, -1)
     if sel is None:
-        sel = torch.randint(0, x.shape[-1], (x.shape[0],),
-                            generator=generator, device=x.device)
+        sel = parallel.draw_rows(lambda s: torch.randint(
+            0, x.shape[-1], s, generator=generator, device=x.device),
+            (x.shape[0],))
     sel = sel.to(device=x.device, dtype=torch.int64)
     idx = sel.reshape((-1,) + (1,) * (x.ndim - 1)).expand(x.shape[:-1] + (1,))
     return torch.movedim(torch.gather(x, -1, idx), -1, axis)

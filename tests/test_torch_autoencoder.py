@@ -107,15 +107,15 @@ def _reals(seed):
             ).astype(np.float32)
 
 
-def jax_draws(key):
-    """JAX's draws for ``key`` in the port's layouts: the posterior's and
-    the teacher's normals drawn (B, Tl, D), the mask's uniforms (B, D,
-    Tl)."""
+def jax_draws(key, b=B):
+    """JAX's draws for ``key`` on a batch of ``b`` in the port's layouts:
+    the posterior's and the teacher's normals drawn (b, Tl, D), the mask's
+    uniforms (b, D, Tl)."""
     k_enc, k_mask = jax.random.split(key)
     normal = lambda k: np.asarray(  # noqa: E731
-        jax.random.normal(k, (B, TL, D))).transpose(0, 2, 1)
+        jax.random.normal(k, (b, TL, D))).transpose(0, 2, 1)
     return {"enc_z": normal(k_enc),
-            "mask_u": np.asarray(jax.random.uniform(k_mask, (B, D, TL))),
+            "mask_u": np.asarray(jax.random.uniform(k_mask, (b, D, TL))),
             "teacher_z": normal(jax.random.fold_in(key, 7))}
 
 

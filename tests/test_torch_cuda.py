@@ -927,3 +927,147 @@ def test_engine_serves_on_card_and_matches_cpu(cuda_device):
         ref = want[i, :, :lengths[i]].numpy()
         assert got.shape == ref.shape and np.isfinite(got).all()
         assert np.abs(got - ref).max() <= 1e-3 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_kernel_launches_on_a_card_that_is_not_current(cuda_device):
+    """The wrappers launch under ``torch.cuda.device(x.device)``: a tensor
+    on card 1 while card 0 is current. No chip run so far had two
+    cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (every chip run so far had one)")
+    torch.cuda.set_device(0)
+    g = torch.Generator(device="cuda:1").manual_seed(0)
+    x = torch.randn((2, 8, 64, 144), generator=g, device="cuda:1")
+    before = cuda_kernels.fir_down2d.launches
+    y = fir.downsample_2d(x, (1, 3, 3, 1), 2, 1.0)
+    torch.cuda.synchronize(1)
+    assert cuda_kernels.fir_down2d.launches == before + 1
+    assert y.device == x.device and torch.cuda.current_device() == 0
+    ref = cuda_kernels.downsample_2d_plain(x, (1, 3, 3, 1), 2, 1.0)
+    assert (y - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+
+
+def _card_ranks_worker(mesh, out, draws):
+    from test_torch_parallel import diffsep_case
+    with _full_f32():
+        res = diffsep_case(mesh, draws)
+    if mesh.rank == 0:
+        torch.save(res, out)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_share_one_card(cuda_device, tmp_path):
+    """A waveform train step over two gloo ranks both on cuda:0 (the
+    fir_down2d and fir_up2d kernels in each) against the one-process
+    step on the card, at the train-step bars (tests/test_torch_parallel.py)."""
+    from ditsep_tpu_torch import parallel
+    from test_torch_parallel import (
+        all_draws, check_grads, check_step, diffsep_case,
+    )
+    draws = all_draws()["diffsep"]
+    out = tmp_path / "two.pt"
+    parallel.launch(_card_ranks_worker, 2, str(out), draws,
+                    device="cuda:0", backend="gloo", timeout_s=300)
+    two = torch.load(out, weights_only=False)
+    with _full_f32():
+        one = diffsep_case(None, draws, device=cuda_device)
+    check_grads(two["grads"], one["grads"], "two gloo ranks on cuda:0")
+    check_step(two, one, one["grads"], one["lr"], one["decay"],
+               "two gloo ranks on cuda:0")
+
+
+@pytest.mark.cuda
+def test_engine_over_cards_gives_the_plain_engines_stems(cuda_device):
+    """``BatchingEngine(mesh=make_mesh())`` over every local card (a
+    replica a card, each in its own thread, its generator a copy of
+    cuda:0's) serves one batch of 2 rows a card, a padded row among them.
+    The whole batch equals the plain engine on cuda:0 within 1e-6 of its
+    max (cuDNN may round a batch of 2 otherwise than a batch of 2n), and
+    each replica's stems equal bit for bit its rows separated on its own
+    card, in this thread, from the engine's first generator state (the
+    thread and the copied generator change nothing). TF32 off,
+    deterministic cuDNN. Against its rows separated on cuda:0 the last
+    card's differed by 1 ulp in 1 and then 89 elements in two four-card
+    runs (those of cards 1-2 were equal): prints each card's largest
+    difference from cuda:0. Skips below two cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards (every chip run so far had one)")
+    from ditsep_tpu_torch import parallel
+    from ditsep_tpu_torch.scripts import dryrun_multichip as dry
+
+    torch.cuda.set_device(0)
+    trainer = dry.diffsep_trainer("cuda:0")
+    rng = np.random.default_rng(9)
+    audios = [rng.standard_normal(3000 + 100 * i).astype(np.float32)
+              for i in range(2 * n - 1)]
+    mesh = parallel.make_mesh()
+    assert mesh.devices.size == n and mesh.world_size == 1
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        (plain, served), own, card0 = _serve_over_cards(trainer, audios,
+                                                        mesh, n)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    for i, a in enumerate(audios):
+        L = a.shape[-1]
+        assert served[i].shape == (2, L) and np.isfinite(served[i]).all()
+        top = np.abs(plain[i]).max()
+        assert np.abs(served[i] - plain[i]).max() <= 1e-6 * top, i
+    for k in range(n):
+        rows = range(2 * k, min(2 * k + 2, len(audios)))
+        d0 = max(float(np.abs(served[i] - card0[i, :, :audios[i].shape[-1]])
+                       .max()) for i in rows)
+        print(f"card {k}: largest difference from cuda:0's rows {d0}")
+    for i, a in enumerate(audios):
+        diff = np.abs(served[i] - own[i, :, :a.shape[-1]])
+        assert diff.max() == 0, (i, int((diff > 0).sum()), float(diff.max()))
+
+
+def _serve_over_cards(trainer, audios, mesh, n):
+    """The stems of the plain engine and of the engine over ``mesh``, and
+    each replica's rows separated from the engine's first generator state
+    on its own card and on cuda:0."""
+    from ditsep_tpu_torch import parallel
+    from ditsep_tpu_torch.cli.serve_api import TrainerSeparator
+    from ditsep_tpu_torch.serving import BatchingEngine
+
+    outs = []
+    sep = TrainerSeparator(trainer, latent=False, N=2, sampler="pc")
+    with _full_f32():
+        for m in (None, mesh):
+            eng = BatchingEngine(sep, max_batch=2 * n, max_wait_ms=2000.0,
+                                 device="cuda:0", mesh=m, seed=3)
+            try:
+                assert eng.batch_sizes[-1] == 2 * n
+                futs = [eng.submit(a) for a in audios]
+                outs.append([f.result(timeout=300) for f in futs])
+                st = eng.stats()
+                assert st["batches"] == 1 and st["padded_rows"] == 1
+                blen = eng.bucket_of(max(a.shape[-1] for a in audios))
+            finally:
+                eng.close()
+        mix = np.zeros((2 * n, 1, blen), np.float32)
+        for i, a in enumerate(audios):
+            mix[i, 0, :a.shape[-1]] = a
+        start = torch.Generator(device="cuda:0").manual_seed(3).get_state()
+        refs = {"own": [], "card0": []}
+        for k in range(n):
+            for name, dev in (("own", mesh.local[k]),
+                              ("card0", torch.device("cuda:0"))):
+                g = torch.Generator(device=dev)
+                g.set_state(start)
+                x = torch.from_numpy(mix[2 * k:2 * k + 2]).to(dev)
+                rep = sep if dev == torch.device("cuda:0") else (
+                    sep.replicate(dev))
+                with torch.inference_mode(), parallel.sharded(
+                        mesh, index=k, count=n):
+                    est = rep(x, generator=g)
+                refs[name].append(est.float().cpu().numpy())
+    return (outs, np.concatenate(refs["own"]),
+            np.concatenate(refs["card0"]))

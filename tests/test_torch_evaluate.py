@@ -167,7 +167,14 @@ def test_cli_evaluate_on_cpu(tmp_path, mode):
 @pytest.mark.parametrize("flag", [["--latent", "--mesh"], ["--mesh"],
                                   ["--config", "ldm", "--mesh"],
                                   ["--save-figures", "1"]])
-def test_unported_evaluate_flags_raise(tmp_path, flag):
+def test_unported_evaluate_flags_raise(tmp_path, flag, monkeypatch):
+    """--save-figures is not ported (ROADMAP A16); --mesh without a card
+    and without --cpu raises (no fallback to the CPU)."""
+    if "--mesh" in flag:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["--synthetic", "--out-dir", str(tmp_path), *flag])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--cpu", "--synthetic", "--out-dir", str(tmp_path),
                   *flag])

@@ -201,21 +201,25 @@ def test_cli_separate_on_cpu(tmp_path):
                                   "ldm_config", "save_figures",
                                   "serve_api_mesh", "serve_vae_config",
                                   "serve_gradio"])
-def test_unported_options_raise(what, tmp_path):
-    """What is not ported yet raises: a mesh on either training CLI and on
-    serve_api (A14), the demo decodes of the ldm config's CLI
-    (train_ldm), the latent CLI's demo callbacks and figures, and the
-    demo server's autoencoder tab and gradio shell (A16)."""
+def test_unported_options_raise(what, tmp_path, monkeypatch):
+    """What is not ported yet raises: the demo decodes of the ldm config's
+    CLI (train_ldm), the latent CLI's demo callbacks and figures, and the
+    demo server's autoencoder tab and gradio shell (A16). A mesh on either
+    training CLI and on serve_api raises without a card and without --cpu
+    (no fallback to the CPU)."""
     from ditsep_tpu_torch.cli import evaluate as eval_cli
     from ditsep_tpu_torch.cli import serve, serve_api, train_ldm
     from ditsep_tpu_torch.cli import train_diffsep, train_diffsep_latent
+    if what.endswith("mesh"):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        main = {"latent_mesh": train_diffsep_latent.main,
+                "mesh": train_diffsep.main,
+                "serve_api_mesh": serve_api.main}[what]
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--mesh", "--synthetic", "--workdir", str(tmp_path)]
+                 if what != "serve_api_mesh" else ["--mesh"])
+        return
     with pytest.raises(NotImplementedError):
-        if what == "latent_mesh":
-            train_diffsep_latent.main(["--mesh", "--cpu", "--synthetic",
-                                       "--workdir", str(tmp_path)])
-        if what == "mesh":
-            train_diffsep.main(["--mesh", "--cpu", "--synthetic",
-                                "--workdir", str(tmp_path)])
         if what == "latent_demo":
             train_diffsep_latent.main(["--demo-every", "5", "--cpu",
                                        "--synthetic", "--workdir",
@@ -226,8 +230,6 @@ def test_unported_options_raise(what, tmp_path):
                             str(tmp_path)])
         if what == "save_figures":
             eval_cli.main(["--save-figures", "1", "--cpu", "--synthetic"])
-        if what == "serve_api_mesh":
-            serve_api.main(["--mesh", "--cpu"])
         if what == "serve_vae_config":
             serve.main(["--vae-config", "vae.json", "--cpu"])
         if what == "serve_gradio":

@@ -11,9 +11,9 @@ CPU, mirroring tests/test_serving.py, and held against the JAX package's:
     at (510, 128, 64).
 
 Served stems of the real samplers against JAX (c) are in
-tests/test_torch_serving_models.py. The JAX tests of a device mesh become
-one case: ``mesh=`` and ``--mesh`` raise (ROADMAP A14). Every wait here
-carries a timeout, and every engine and server is closed in ``finally``.
+tests/test_torch_serving_models.py; the engine over a mesh of local
+devices in tests/test_torch_parallel_eval.py. Every wait here carries a
+timeout, and every engine and server is closed in ``finally``.
 """
 import base64
 import http.client
@@ -205,15 +205,23 @@ def test_engine_power_of_two_padding_counted():
 
 
 @pytest.mark.parametrize("entry", ["engine", "serve_api"])
-def test_mesh_raises(entry):
-    """The three mesh tests of the JAX package: sharded serving is not
-    ported yet (ROADMAP A14)."""
-    with pytest.raises(NotImplementedError, match="A14"):
-        if entry == "engine":
-            _engine(_pointwise_fn(), mesh=object())
-        else:
-            from ditsep_tpu_torch.cli import serve_api
-            serve_api.main(["--mesh", "--cpu"])
+def test_mesh_raises(entry, monkeypatch):
+    """What a mesh refuses: the engine splits batches over the devices of
+    one process (a mesh of several processes raises), and ``--mesh``
+    without a card and without --cpu raises (no fallback to the CPU)."""
+    from ditsep_tpu_torch import parallel
+    if entry == "engine":
+        mesh = parallel.Mesh(
+            devices=np.array([torch.device("cpu")] * 2, object),
+            axis_names=("data",), group=None, rank=0, world_size=2,
+            local=(torch.device("cpu"),))
+        with pytest.raises(ValueError, match="one process"):
+            _engine(_pointwise_fn(), mesh=mesh)
+    else:
+        from ditsep_tpu_torch.cli import serve_api
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve_api.main(["--mesh"])
 
 
 def test_engine_full_bucket_not_blocked_by_straggler():

@@ -194,10 +194,17 @@ def test_cli_train_diffsep_on_cpu(tmp_path):
     assert state.step == 2
     assert (work / "ema.npz").exists() and (work / "metrics.jsonl").exists()
     assert (work / "checkpoints" / "latest" / "state.pt").exists()
+    # --mesh in one process without a launcher: a mesh of this device,
+    # the plain run bit for bit
+    mesh_work = tmp_path / "cli_mesh"
+    main(["--cpu", "--mesh", "--synthetic", "--synthetic-items", "3",
+          "--synthetic-len-s", "0.2", "--batch-size", "2", "--max-steps",
+          "2", "--workdir", str(mesh_work), "--override", *_ov_args()])
+    assert ((mesh_work / "ema.npz").read_bytes()
+            == (work / "ema.npz").read_bytes())
     base = ["--cpu", "--synthetic", "--workdir", str(tmp_path / "x")]
-    for extra in (["--mesh"], ["--demo-every", "5"]):
-        with pytest.raises(NotImplementedError):
-            main(base + extra)
+    with pytest.raises(NotImplementedError):
+        main(base + ["--demo-every", "5"])
 
 
 def test_cli_train_diffsep_needs_cuda_unless_cpu(monkeypatch, tmp_path):
