@@ -1,6 +1,6 @@
 """Shared CLI plumbing: config resolution with hydra-style overrides, the
-common and training flags, and dataset construction (the port's
-ditsep_tpu/cli/common.py:11-103)."""
+common and training flags, dataset construction and the demo callbacks
+(the port's ditsep_tpu/cli/common.py:11-120)."""
 from __future__ import annotations
 
 import argparse
@@ -91,6 +91,21 @@ def add_train_args(p: argparse.ArgumentParser):
                    help="resume from the workdir's rolling latest "
                         "checkpoint (fresh start if none exists)")
     p.add_argument("--demo-every", type=int, default=0,
-                   help="demo separations every N steps (0 = off; others "
-                        "are not ported yet)")
+                   help="log demo separations (mix/est/target wavs) "
+                        "every N steps (0 = off)")
     return p
+
+
+def make_demo_callbacks(dataset, demo_every: int, fs: int = 8000,
+                        n_items: int = 2) -> tuple:
+    """A ``SeparationDemoCallback`` over the first ``n_items`` of
+    ``dataset``, for ``training.loop.fit(callbacks=...)``; () when
+    ``demo_every`` is 0 or the dataset is empty or None."""
+    if not demo_every or dataset is None or len(dataset) == 0:
+        return ()
+    from ditsep_tpu_torch.data import max_collator
+    from ditsep_tpu_torch.training.demo import SeparationDemoCallback
+
+    items = [dataset[i] for i in range(min(n_items, len(dataset)))]
+    return (SeparationDemoCallback(demo_batch=max_collator(items),
+                                   demo_every=demo_every, sample_rate=fs),)

@@ -5,7 +5,8 @@ unless --cpu is given.
 
     python -m ditsep_tpu_torch.cli.evaluate --config diffsep \\
         [--params X.npz] [--data-path DIR | --synthetic] \\
-        [--sampler pc|ab2] [--mask-padding] [--out-dir DIR] [--cpu]
+        [--sampler pc|ab2] [--mask-padding] [--out-dir DIR] [--cpu] \\
+        [--save-samples N] [--save-figures N]
 
 Data-parallel over N cards (each rank separates its rows of every batch,
 rank 0 scores and writes; ``--cpu``: N gloo processes):
@@ -37,7 +38,8 @@ from ditsep_tpu_torch.utils.device import resolve_device
 
 def main(argv=None) -> dict:
     """Returns evaluate_dataset's result: the per-utterance results, the
-    summary, the buckets, the separate calls and the metrics' seconds."""
+    summary, the buckets, the separate calls, the metrics' seconds and
+    the failed figures."""
     p = add_common_args(argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0]))
     p.add_argument("--params", default=None,
@@ -67,7 +69,8 @@ def main(argv=None) -> dict:
     p.add_argument("--save-samples", type=int, default=0,
                    help="write enh{i}.wav for the first N utterances")
     p.add_argument("--save-figures", type=int, default=0,
-                   help="spectrogram figures (not ported yet, ROADMAP A16)")
+                   help="write a spectrogram PDF for the first N utterances "
+                        "(needs matplotlib)")
     p.add_argument("--bf16", action="store_true",
                    help="compute the score network in bfloat16")
     p.add_argument("--mask-padding", action="store_true",
@@ -87,9 +90,6 @@ def main(argv=None) -> dict:
         raise SystemExit("--sampler ab2 is not wired for the latent path "
                          "(separate_latent follows the reference 'ald' PC "
                          "config)")
-    if args.save_figures:
-        raise NotImplementedError(
-            "--save-figures is not ported yet (ROADMAP A16, viz.py)")
     device = resolve_device("cpu" if args.cpu else "cuda")
     mesh = None
     if args.mesh:
@@ -157,6 +157,7 @@ def main(argv=None) -> dict:
                   (sm.get("n_fft", 510), sm.get("hop_length", 128), 64))
     res = evaluate_dataset(sep, ds, nfe=nfe, frame_spec=frame_spec,
                            save_samples=args.save_samples,
+                           save_figures=args.save_figures,
                            warmup=not args.no_warmup,
                            pass_lengths=args.mask_padding and not args.latent,
                            **common)

@@ -3,7 +3,8 @@ train_diffsep.py). Runs on the CUDA card unless --cpu is given.
 
     python -m ditsep_tpu_torch.cli.train_diffsep --config diffsep_icassp \\
         --synthetic --synthetic-items 12 --synthetic-len-s 5.0 \\
-        --max-steps 4 --workdir DIR [--cpu] [--resume] [--override a.b=v]
+        --max-steps 4 --workdir DIR [--cpu] [--resume] [--demo-every N] \\
+        [--override a.b=v]
 
 ``--config`` is any of diffsep, diffsep_icassp, diffsep_ouve, diffsep_sb
 (the EDM loss) and enhancement (PriorMix, init hack 4; VCTK-DEMAND under
@@ -12,7 +13,10 @@ train_diffsep.py). Runs on the CUDA card unless --cpu is given.
 Writes DIR/metrics.jsonl, DIR/hparams.json, DIR/checkpoints/ (top-k on
 val/si_sdr, latest, best-model, index.json) and DIR/ema.npz (the EMA
 weights in the JAX package's flat layout, loadable by both packages'
-separate CLIs with --params).
+separate CLIs with --params); with tensorboardX installed, DIR/tb/ holds
+the scalars, each validation's audio and spectrogram figure and, with
+--demo-every N, the demo separations of the first two validation items
+every N steps.
 
 Data-parallel over N cards (the global --batch-size split over the ranks,
 the gradient averaged before the clip; rank 0 writes; ``--cpu``: N gloo
@@ -27,6 +31,7 @@ import argparse
 
 from ditsep_tpu_torch.cli.common import (
     add_common_args, add_train_args, load_config, make_dataset,
+    make_demo_callbacks,
 )
 from ditsep_tpu_torch.configs import build_diffsep_trainer
 from ditsep_tpu_torch.parallel import (
@@ -41,8 +46,6 @@ def main(argv=None):
     p = add_train_args(add_common_args(
         argparse.ArgumentParser(description=__doc__.split("\n\n")[0])))
     args = p.parse_args(argv)
-    if args.demo_every:
-        raise NotImplementedError("--demo-every is not ported yet")
     device = resolve_device("cpu" if args.cpu else "cuda")
     mesh = None
     if args.mesh:
@@ -58,13 +61,16 @@ def main(argv=None):
                           synthetic_len_s=args.synthetic_len_s,
                           synthetic_items=4)
     batch_size = args.batch_size or cfg["datamodule"]["train"]["batch_size"]
+    fs = cfg["datamodule"].get("fs", 8000)
     return fit(trainer, train_ds, val_ds, workdir=args.workdir,
                max_epochs=(args.max_epochs
                            or cfg["trainer"].get("max_epochs", 1000)),
                batch_size=batch_size, seed=args.seed,
                valid_max_sep_batches=cfg["model"].get(
                    "valid_max_sep_batches", 2),
-               max_steps=args.max_steps, resume=args.resume, mesh=mesh)
+               max_steps=args.max_steps, resume=args.resume, mesh=mesh,
+               callbacks=make_demo_callbacks(val_ds, args.demo_every, fs=fs),
+               media_fs=fs)
 
 
 if __name__ == "__main__":

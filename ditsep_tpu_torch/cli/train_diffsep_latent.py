@@ -4,7 +4,8 @@ the CUDA card unless --cpu is given.
 
     python -m ditsep_tpu_torch.cli.train_diffsep_latent --synthetic \\
         --synthetic-items 32 --synthetic-len-s 5.0 --max-steps 4 \\
-        --workdir DIR [--vae-params VAE.npz] [--cpu] [--override a.b=v]
+        --workdir DIR [--vae-params VAE.npz] [--cpu] [--demo-every N] \\
+        [--override a.b=v]
 
 The VAE's weights come from --vae-params (the JAX package's ``.npz``
 export, the file its CLI takes); without it they are seeded random
@@ -22,6 +23,7 @@ import dataclasses
 
 from ditsep_tpu_torch.cli.common import (
     add_common_args, add_train_args, load_config, make_dataset,
+    make_demo_callbacks,
 )
 from ditsep_tpu_torch.configs import build_latent_trainer
 from ditsep_tpu_torch.parallel import (
@@ -34,8 +36,9 @@ from ditsep_tpu_torch.utils.device import resolve_device
 @dataclasses.dataclass
 class _VAEBoundTrainer:
     """A LatentDiffSepTrainer behind fit()'s trainer interface: the train
-    step, the validation loss and the validation separation take waveform
-    batches and go through the trainer's frozen VAE."""
+    step, the validation loss, the validation separation and the demo
+    callback's ``separate`` take waveform batches and go through the
+    trainer's frozen VAE."""
 
     trainer: object
 
@@ -63,6 +66,12 @@ class _VAEBoundTrainer:
     def val_separation_metrics(self, model, batch, **kw):
         return self.trainer.val_metrics_latent(model, batch, **kw)
 
+    def separate(self, mix, **kw):
+        """encode -> latent PC -> decode, cropped to the mixture's length:
+        (estimates (B, n_src, T), nfe)."""
+        return self.trainer.separate_latent(mix, target_dim=mix.shape[-1],
+                                            **kw)
+
 
 def main(argv=None):
     """Returns the final TrainState."""
@@ -73,9 +82,6 @@ def main(argv=None):
                    help="npz with the OobleckVAE's parameters (the JAX "
                         "package's export)")
     args = p.parse_args(argv)
-    if args.demo_every:
-        raise NotImplementedError("--demo-every is not ported yet "
-                                  "(ROADMAP A16)")
     device = resolve_device("cpu" if args.cpu else "cuda")
     mesh = None
     if args.mesh:
@@ -92,12 +98,15 @@ def main(argv=None):
                           synthetic_len_s=args.synthetic_len_s,
                           synthetic_items=4)
     batch_size = args.batch_size or cfg["datamodule"]["train"]["batch_size"]
+    fs = cfg["datamodule"].get("fs", 8000)
     return fit(_VAEBoundTrainer(trainer), train_ds, val_ds,
                workdir=args.workdir, max_epochs=args.max_epochs or 1000,
                batch_size=batch_size, seed=args.seed,
                valid_max_sep_batches=cfg["model"].get(
                    "valid_max_sep_batches", 2),
-               max_steps=args.max_steps, resume=args.resume, mesh=mesh)
+               max_steps=args.max_steps, resume=args.resume, mesh=mesh,
+               callbacks=make_demo_callbacks(val_ds, args.demo_every, fs=fs),
+               media_fs=fs)
 
 
 if __name__ == "__main__":

@@ -6,14 +6,18 @@ discriminator. Runs on the CUDA card unless --cpu is given.
 
     python -m ditsep_tpu_torch.cli.train_ldm --latent-cache CACHE \\
         --workdir DIR [--vae-params VAE.npz] [--use-disc] [--resume] \\
-        [--batch-size 4] [--max-steps N] [--cpu] [--override a.b=v]
+        [--batch-size 4] [--max-steps N] [--demo-every N] [--cpu] \\
+        [--override a.b=v]
 
 Each epoch visits the cache in the order of ``np.random.default_rng(seed
 + epoch)``, in batches cropped to their shortest item; odd steps are
 discriminator steps once it is warmed up (``LDMTrainer.
 use_disc_this_step``). Every 10 steps the last step's metrics go to
-DIR/metrics.jsonl under the JAX package's keys; each epoch ends with a
-checkpoint in DIR/checkpoints, the 5 of lowest ``train/loss`` kept.
+DIR/metrics.jsonl under the JAX package's keys (and, with tensorboardX
+installed, to DIR/tb/); each epoch ends with a checkpoint in
+DIR/checkpoints, the 5 of lowest ``train/loss`` kept. With --demo-every N
+the cache's first item is decoded through the live decoder every N steps
+and logged as audio (``demo/est_{s}/0`` beside ``demo/target_{s}/0``).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from ditsep_tpu_torch.data import LatentDataset
 from ditsep_tpu_torch.models.discriminators import (
     MultiScaleSTFTDiscriminator,
 )
+from ditsep_tpu_torch.training.demo import _log_wavs
 from ditsep_tpu_torch.training.ldm import LDMLossWeights, LDMTrainer
 from ditsep_tpu_torch.utils.checkpoint import CheckpointManager
 from ditsep_tpu_torch.utils.device import resolve_device
@@ -80,7 +85,8 @@ def main(argv=None):
                    help="resume from the workdir's newest checkpoint "
                         "(fresh start if none exists)")
     p.add_argument("--demo-every", type=int, default=0,
-                   help="demo decodes every N steps (not ported yet)")
+                   help="log demo decodes (est/target wavs through the "
+                        "live decoder) every N steps")
     args = p.parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
@@ -88,9 +94,6 @@ def main(argv=None):
             "does (it parses --mesh and ignores it); the LDM and VAE-GAN "
             "trainers run data-parallel through the API, gen_step / "
             "disc_step(..., mesh=) (scripts/dryrun_multichip.py legs 3-4)")
-    if args.demo_every:
-        raise NotImplementedError("--demo-every is not ported yet "
-                                  "(ROADMAP A16)")
     device = resolve_device("cpu" if args.cpu else "cuda")
     cfg = load_config(args.config, args.override)
     latent_trainer = build_latent_trainer(cfg, device=device, seed=args.seed,
@@ -119,6 +122,18 @@ def main(argv=None):
         except FileNotFoundError:
             pass
 
+    fs = cfg["datamodule"].get("fs", 8000)
+    demo_tgt, demo_lat = ds[0]
+    demo_tgt = demo_tgt[None]
+    demo_lat = torch.from_numpy(demo_lat[None]).to(device)
+
+    def log_demo(step, decoded):
+        for s in range(decoded.shape[1]):
+            _log_wavs(logger, f"demo/est_{s}", decoded[:, s:s + 1], step,
+                      fs, 2)
+            _log_wavs(logger, f"demo/target_{s}", demo_tgt[:, s:s + 1], step,
+                      fs, 2)
+
     step = state.step
     max_steps = args.max_steps or 10000
     epoch = 0
@@ -141,6 +156,12 @@ def main(argv=None):
             step += 1
             if step % 10 == 0:
                 logger.log({k: v.item() for k, v in metrics.items()}, step)
+            if args.demo_every and step % args.demo_every == 0:
+                with torch.no_grad():
+                    decoded = latent_trainer.decode(demo_lat,
+                                                    demo_tgt.shape[-1])
+                logger.guarded("train_ldm: demo", step, log_demo, step,
+                               decoded)
             if step >= max_steps:
                 break
         epoch += 1
@@ -148,6 +169,7 @@ def main(argv=None):
         ckpt.save(state, step, {"train/loss": np.inf if loss is None
                                 else loss.item()})
     logger.close()
+    state.media_failures = logger.failures
     print(f"finished {step} steps; checkpoints in {args.workdir}")
     return state
 

@@ -14,7 +14,9 @@ from __future__ import annotations
 
 import bisect
 import json
+import sys
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional
@@ -22,6 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ditsep_tpu_torch import viz
 from ditsep_tpu_torch.data.wsj0_mix import max_collator
 from ditsep_tpu_torch.eval.metrics import compute_metrics
 from ditsep_tpu_torch.ops.stft import n_frames_prepadded
@@ -132,6 +135,7 @@ def evaluate_dataset(
     limit: Optional[int] = None,
     seed: int = 0,
     save_samples: int = 0,
+    save_figures: int = 0,
     warmup: bool = True,
     pass_lengths: bool = False,
     device="cuda",
@@ -161,10 +165,15 @@ def evaluate_dataset(
     Returns {"results": per-utterance dict, "summary": mean dict} and,
     beside them, "buckets" ({padded length: items}), "calls" (the
     separate_fn calls, warmups included), "chunks" ((padded length,
-    real items, items) of each batch, in order) and "metrics_s" (the metric
+    real items, items) of each batch, in order), "metrics_s" (the metric
     threads' summed seconds, and the seconds the run waited for them
-    after its last call); writes ``<split>.json`` and
-    ``<split>_summary.json`` into ``out_dir`` when given.
+    after its last call) and "media_failures" (the figures that failed:
+    printed and counted, the run going on); writes ``<split>.json`` and
+    ``<split>_summary.json`` into ``out_dir`` when given, and into
+    ``<out_dir>/<split>_media/`` the estimates of the first
+    ``save_samples`` items as ``{idx:04d}.enh{s}.wav`` and, where
+    matplotlib is installed, the spectrogram grid of the first
+    ``save_figures`` as ``{idx:04d}.pdf``.
 
     With ``mesh`` (a process group's, ``parallel.make_mesh``) every batch
     is ``ceil(batch_size / n) * n`` items for n devices, filled up with
@@ -199,6 +208,11 @@ def evaluate_dataset(
     generator = torch.Generator(device=device).manual_seed(seed)
     calls = 0
     chunks = []
+    media_failures = 0
+    if save_figures and not viz.available():
+        print("evaluate_dataset: matplotlib is not installed, no figures "
+              "are saved", file=sys.stderr)
+        save_figures = 0
 
     def run(mix_t, kw):
         with sharded(mesh):
@@ -250,8 +264,12 @@ def evaluate_dataset(
                         _timed_metrics_entry, i, mix_b[bi][:, sl],
                         est[bi][:, sl], tgt_b[bi][:, sl], fs, runtime, nfe,
                         i in merged_idx)
-                    if out_dir is not None and i < save_samples:
-                        _save_media(out_dir, split_name, i, est[bi][:, sl], fs)
+                    if out_dir is not None and (i < save_samples
+                                                or i < save_figures):
+                        media_failures += not _save_media(
+                            out_dir, split_name, i, mix_b[bi][:, sl],
+                            est[bi][:, sl], tgt_b[bi][:, sl], fs,
+                            wavs=i < save_samples, figure=i < save_figures)
 
         t_wait = time.perf_counter()
         metric_s = 0.0
@@ -279,21 +297,37 @@ def evaluate_dataset(
             "buckets": {b: len(v) for b, v in sorted(buckets.items())},
             "chunks": chunks, "calls": calls,
             "metrics_s": {"threads": metric_s, "wait_after_last_call":
-                          wait_s}}
+                          wait_s}, "media_failures": media_failures}
 
 
-def _save_media(out_dir, split_name, idx, est, fs) -> None:
-    """The estimates as ``<split>_media/{idx:04d}.enh{s}.wav``, peak
-    normalized to 0.95 (the reference's enh{i}.wav names,
-    src/evaluate_mp.py:100-168)."""
+def _save_media(out_dir, split_name, idx, mix, est, target, fs,
+                wavs=True, figure=False) -> bool:
+    """With ``wavs`` the estimates as ``<split>_media/{idx:04d}.enh{s}
+    .wav``, peak normalized to 0.95 (the reference's enh{i}.wav names,
+    src/evaluate_mp.py:100-168); with ``figure`` the spectrogram grid of
+    the mixture, the estimates and the targets as ``{idx:04d}.pdf``. A
+    figure must not stop the run: its failure is printed and the call
+    returns False."""
     from ditsep_tpu_torch.data import write_wav
 
     media = Path(out_dir) / f"{split_name}_media"
     media.mkdir(parents=True, exist_ok=True)
-    peak = max(float(np.abs(est).max()), 1e-6)
-    for s in range(est.shape[0]):
-        write_wav(str(media / f"{idx:04d}.enh{s}.wav"),
-                  est[s] * 0.95 / peak, fs)
+    if wavs:
+        peak = max(float(np.abs(est).max()), 1e-6)
+        for s in range(est.shape[0]):
+            write_wav(str(media / f"{idx:04d}.enh{s}.wav"),
+                      est[s] * 0.95 / peak, fs)
+    if figure:
+        try:
+            fig = viz.separation_figure(mix.reshape(-1), est, target, fs=fs)
+            fig.savefig(str(media / f"{idx:04d}.pdf"))
+            import matplotlib.pyplot as plt
+            plt.close(fig)
+        except Exception as e:
+            print(f"evaluate_dataset: the figure of item {idx} failed: "
+                  f"{e!r}\n{traceback.format_exc()}", file=sys.stderr)
+            return False
+    return True
 
 
 def _timed_metrics_entry(*args):

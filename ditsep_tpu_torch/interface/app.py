@@ -3,9 +3,9 @@ ditsep_tpu/interface/app.py:33-62).
 
 Each process function is a plain callable over numpy audio and scalar
 knobs, so the demo is testable without a browser. The port has the
-separation backend; the autoencoder, generation and LM backends
-(``AutoencoderApp``, ``GenerationApp``, ``LMApp``) and
-``spectrogram_preview`` are not ported yet (ROADMAP A16).
+separation backend and ``spectrogram_preview``; the autoencoder,
+generation and LM backends (``AutoencoderApp``, ``GenerationApp``,
+``LMApp``) are not ported yet (ROADMAP A16).
 """
 from __future__ import annotations
 
@@ -49,3 +49,10 @@ class SeparationApp:
             mix, N=int(n_steps), snr=float(snr),
             corrector_steps=int(corrector_steps), generator=generator)
         return _peak_norm(est[0].float().cpu().numpy())
+
+
+def spectrogram_preview(wav: np.ndarray, fs: int = 8000):
+    """Matplotlib spectrogram figure of a waveform, for UI previews."""
+    from ditsep_tpu_torch.viz import spectrogram_image
+
+    return spectrogram_image(np.asarray(wav).reshape(-1), fs=fs)

@@ -9,9 +9,9 @@ torch_import.py's); leaves convert as the inverse of its ``_convert_leaf``:
 conv HWIO -> OIHW, Dense (in, out) -> (out, in), GroupNorm ``scale`` ->
 ``weight``, NIN ``W`` and Fourier ``W`` copied as they are.
 ``params_to_jax`` is the inverse, by each module's type (a ``weight`` is a
-GroupNorm's ``scale`` or a conv's or Dense's ``kernel``), and
-``save_params_npz`` writes it, so weights trained by the port load into
-both packages.
+GroupNorm's ``scale`` or a conv's or Dense's ``kernel``; for a bare
+state_dict, by the leaf's rank: 1-D, 4-D, 2-D), and ``save_params_npz``
+writes it, so weights trained by the port load into both packages.
 
 The OobleckVAE has a bridge of its own (``oobleck_params_from_jax`` /
 ``oobleck_params_to_jax``, a copy of ditsep_tpu/models/torch_import.py:
@@ -83,26 +83,41 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
-    """``model``'s parameters and buffers as the JAX package's flat
-    ``{"a/b/c": array}`` parameters (``all_modules.12`` ->
-    ``all_modules_12``; float32 numpy arrays in the JAX layouts)."""
+# the modules whose ``weight`` has a JAX counterpart, and its kind there
+_WEIGHT_KINDS = ((nn.GroupNorm, "scale"), (nn.Conv2d, "conv"),
+                 (nn.Linear, "dense"))
+
+
+def params_to_jax(model) -> Dict[str, np.ndarray]:
+    """A score model's (or NCSN++'s) parameters and buffers, the module or
+    its ``state_dict``, as the JAX package's flat ``{"a/b/c": array}``
+    parameters (``all_modules.12`` -> ``all_modules_12``; float32 numpy
+    arrays in the JAX layouts). A module's weights are named by their
+    owner's type; a state_dict's, which has no modules, by their rank."""
+    module = model if isinstance(model, nn.Module) else None
+    state = model.state_dict() if module is not None else model
     out = {}
-    for key, t in model.state_dict().items():
+    for key, t in state.items():
         parts = key.split(".")
-        owner = model.get_submodule(".".join(parts[:-1]))
         leaf = parts[-1]
         a = t.detach().float().cpu().numpy()
         if leaf == "weight":
-            if isinstance(owner, nn.GroupNorm):
-                leaf = "scale"
-            elif isinstance(owner, nn.Conv2d):
-                leaf, a = "kernel", a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-            elif isinstance(owner, nn.Linear):
-                leaf, a = "kernel", a.T
+            if module is not None:
+                owner = module.get_submodule(".".join(parts[:-1]))
+                kind = next((k for cls, k in _WEIGHT_KINDS
+                             if isinstance(owner, cls)), None)
+                what = f"a weight of {type(owner).__name__}"
             else:
-                raise KeyError(f"{key}: a weight of {type(owner).__name__} "
-                               "has no JAX counterpart")
+                kind = {1: "scale", 4: "conv", 2: "dense"}.get(a.ndim)
+                what = f"a {a.ndim}-D weight"
+            if kind is None:
+                raise KeyError(f"{key}: {what} has no JAX counterpart")
+            if kind == "scale":  # GroupNorm
+                leaf = "scale"
+            elif kind == "conv":  # OIHW -> HWIO
+                leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+            else:  # Dense
+                leaf, a = "kernel", a.T
         elif leaf not in ("bias", "W", "b"):
             raise KeyError(f"{key} has no JAX counterpart")
         path = []
@@ -118,11 +133,12 @@ def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
     return out
 
 
-def save_params_npz(path: str, model: nn.Module) -> None:
+def save_params_npz(path: str, model) -> None:
     """Write ``params_to_jax(model)`` (``oobleck_params_to_jax`` for an
-    OobleckVAE) as a flat ``.npz`` (the layout of ditsep_tpu/utils/
-    checkpoint.py:save_params_npz), atomically: a sibling temp file renamed
-    over the target."""
+    OobleckVAE; a score model's ``state_dict`` goes as it is) as a flat
+    ``.npz`` (the layout of ditsep_tpu/utils/checkpoint.py:
+    save_params_npz), atomically: a sibling temp file renamed over the
+    target."""
     tmp = f"{path}.tmp-{os.getpid()}.npz"
     flat = (oobleck_params_to_jax(model) if isinstance(model, OobleckVAE)
             else params_to_jax(model))
@@ -138,25 +154,43 @@ def load_params_npz(path: str, model: nn.Module) -> nn.Module:
         flat = {k: data[k] for k in data.files}
     state = (oobleck_params_from_jax(flat) if isinstance(model, OobleckVAE)
              else params_from_jax(flat))
+    return load_state(model, state, source=f"checkpoint {path}")
+
+
+def load_state(model: nn.Module, state: Mapping, *, strict: bool = True,
+               source: str = "the checkpoint") -> nn.Module:
+    """Copy ``state`` ({state_dict key: tensor or array}) into ``model``
+    and return it: ``backbone.`` added or stripped to fit a score model or
+    a bare NCSNpp, every shape checked, each value cast to the model's
+    dtype. ``strict``: every key on both sides must be placed (a KeyError
+    names those that are not); otherwise what fits is loaded and the rest
+    keeps its values."""
     want = model.state_dict()
-    model_prefixed = all(k.startswith("backbone.") for k in want)
-    state_prefixed = all(k.startswith("backbone.") for k in state)
+    model_prefixed = bool(want) and all(k.startswith("backbone.")
+                                        for k in want)
+    state_prefixed = bool(state) and all(k.startswith("backbone.")
+                                         for k in state)
     if model_prefixed and not state_prefixed:
         state = {f"backbone.{k}": v for k, v in state.items()}
     elif state_prefixed and not model_prefixed:
         state = {k[len("backbone."):]: v for k, v in state.items()}
-    missing = sorted(set(want) - set(state))
-    unexpected = sorted(set(state) - set(want))
-    if missing or unexpected:
-        raise KeyError(f"checkpoint {path} does not fit the model: missing "
-                       f"{missing[:5]}, unexpected {unexpected[:5]}")
+    missing = [k for k in want if k not in state]
+    unexpected = [k for k in state if k not in want]
+    if strict and (missing or unexpected):
+        raise KeyError(f"{source} does not fit the model: missing {missing}, "
+                       f"no place for {unexpected}")
+    new = {}
     for k, v in state.items():
-        if tuple(v.shape) != tuple(want[k].shape):
+        if k not in want:
+            continue
+        t = v.detach() if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.asarray(v))
+        if tuple(t.shape) != tuple(want[k].shape):
             raise ValueError(
-                f"checkpoint leaf {k!r} has shape {tuple(v.shape)}, model "
-                f"expects {tuple(want[k].shape)}: wrong config for this npz")
-        state[k] = v.to(want[k].dtype)
-    model.load_state_dict(state, strict=True)
+                f"{source}: leaf {k!r} has shape {tuple(t.shape)}, the model "
+                f"expects {tuple(want[k].shape)} (a wrong config for it?)")
+        new[k] = t.to(want[k].dtype)
+    model.load_state_dict({**want, **new}, strict=True)
     return model
 
 

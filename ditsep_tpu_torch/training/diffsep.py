@@ -228,12 +228,15 @@ class TrainState:
     """The counterpart of the JAX TrainState: ``step`` (micro-steps taken),
     ``model`` (the trained module, its parameters updated in place),
     ``optimizer`` and ``ema`` (a copy of the model holding the EMA of its
-    parameters and buffers)."""
+    parameters and buffers). ``media_failures`` counts the demo callbacks
+    and validation media that failed in the ``fit`` run that returned the
+    state (not saved)."""
 
     step: int
     model: nn.Module
     optimizer: ClipAdam
     ema: nn.Module
+    media_failures: int = 0
 
     def state_dict(self) -> dict:
         return {"step": self.step, "model": self.model.state_dict(),
@@ -638,12 +641,15 @@ class DiffSepTrainer:
         return torch.cat(outs), nfe
 
     def val_separation_metrics(self, model, batch, *, generator=None,
-                               mesh=None) -> Dict[str, Tensor]:
+                               mesh=None, return_est: bool = False):
         """Separation + SI-SDR for validation monitoring (:496-508); with
-        ``mesh`` the global batch's (this rank holds its rows)."""
+        ``mesh`` the global batch's (this rank holds its rows). Returns the
+        metrics dict, and with ``return_est`` (metrics, this rank's
+        estimates) for the validation media."""
         mix, target = batch
         with parallel.sharded(mesh):
             est, _ = self.separate(mix, generator=generator, model=model)
         si_sdr = loss_lib.si_sdr_loss(est, target, zero_mean=True,
                                       clamp_db=30.0)
-        return {"val/si_sdr": parallel.all_reduce_mean_(si_sdr, mesh)}
+        metrics = {"val/si_sdr": parallel.all_reduce_mean_(si_sdr, mesh)}
+        return (metrics, est) if return_est else metrics

@@ -176,10 +176,11 @@ class LatentDiffSepTrainer(DiffSepTrainer):
         return self.decode(est, target_dim), nfe
 
     def val_metrics_latent(self, model, batch, *, generator=None,
-                           mesh=None, **kwargs) -> Dict[str, Tensor]:
+                           mesh=None, return_est: bool = False, **kwargs):
         """Latent separation (``kwargs``: ``sample_latents``'s) + SI-SDR,
         with zero_mean=False as the reference's latent config sets it
-        (:160-181); with ``mesh`` the global batch's."""
+        (:160-181); with ``mesh`` the global batch's. With ``return_est``
+        (metrics, this rank's waveform estimates)."""
         mix, target = batch
         with parallel.sharded(mesh):
             est, _ = self.separate_latent(mix, target_dim=target.shape[-1],
@@ -187,4 +188,5 @@ class LatentDiffSepTrainer(DiffSepTrainer):
                                           **kwargs)
         si_sdr = loss_lib.si_sdr_loss(est, target, zero_mean=False,
                                       clamp_db=30.0)
-        return {"val/si_sdr": parallel.all_reduce_mean_(si_sdr, mesh)}
+        metrics = {"val/si_sdr": parallel.all_reduce_mean_(si_sdr, mesh)}
+        return (metrics, est) if return_est else metrics

@@ -77,7 +77,8 @@ class LDMState:
     """``step`` (generator and discriminator steps), the live ``decoder``
     and ``disc`` modules (their parameters updated in place), their
     optimizers, and ``ema_decoder``, a copy of the decoder holding its
-    EMA."""
+    EMA. ``media_failures`` counts the demo decodes that failed in the
+    ``cli.train_ldm`` run that returned the state (not saved)."""
 
     step: int
     decoder: nn.Module
@@ -85,6 +86,7 @@ class LDMState:
     ema_decoder: nn.Module
     disc: Optional[nn.Module] = None
     disc_optimizer: Optional[ClipAdamW] = None
+    media_failures: int = 0
 
     def state_dict(self) -> dict:
         out = {"step": self.step, "decoder": self.decoder.state_dict(),

@@ -1,14 +1,20 @@
 """The training loop: ``fit`` drives train steps over bucketed data (the
-port's ditsep_tpu/training/loop.py:23-172, 254-353, without media
-logging), on one device or data-parallel over a mesh.
+port's ditsep_tpu/training/loop.py), on one device or data-parallel over
+a mesh.
 
 Epochs over a ``BucketedLoader``; scalars every ``log_every`` steps to
-``metrics.jsonl``; at each epoch's end a validation (the score loss over
-every validation batch, weighted by its real item count, and up to
+``metrics.jsonl`` (and TensorBoard, ``utils/logging.py``); after each
+step the callbacks that are due (the demo separations, ``training/
+demo.py``); at each epoch's end a validation (the score loss over every
+validation batch, weighted by its real item count, and up to
 ``valid_max_sep_batches`` separations on the EMA weights scored by
-SI-SDR), a top-k checkpoint on val/si_sdr and the rolling latest one; an
+SI-SDR, the first one's item 0 logged as audio and a spectrogram
+figure), a top-k checkpoint on val/si_sdr and the rolling latest one; an
 emergency latest checkpoint when training raises; at the end the EMA
-weights as ``ema.npz`` in the JAX package's flat layout.
+weights as ``ema.npz`` in the JAX package's flat layout. A media call
+that fails is printed and counted, as the JAX loop goes on past it; the
+returned state's ``media_failures`` holds the count. A callback's own
+work is not guarded: the demo separation that fails stops the run.
 
 With a ``mesh`` (``parallel.make_mesh`` under a process group) every rank
 builds the same loaders with the same seed, so all ranks see the same
@@ -27,6 +33,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ditsep_tpu_torch import viz
 from ditsep_tpu_torch.data.wsj0_mix import BucketedLoader
 from ditsep_tpu_torch.models.weights import save_params_npz
 from ditsep_tpu_torch.parallel import (
@@ -57,14 +64,19 @@ def _save_run_config(workdir: str, trainer) -> None:
 def fit(trainer, train_dataset, val_dataset=None, *, workdir: str,
         max_epochs: int = 1000, batch_size: int = 16, seed: int = 0,
         valid_max_sep_batches: int = 2, log_every: int = 10,
-        resume: bool = False, max_steps: Optional[int] = None, mesh=None):
+        resume: bool = False, max_steps: Optional[int] = None, mesh=None,
+        log_media: bool = True, media_fs: int = 8000, callbacks: tuple = ()):
     """Train ``trainer`` (a DiffSepTrainer, or anything with its
     ``model``, ``cfg``, ``sde``, ``init_state``, ``train_step``,
     ``val_score_loss`` and ``val_separation_metrics``, each taking
-    ``mesh=``) on its model's device; returns the final TrainState. Random
-    draws come from one generator on that device, seeded with ``seed``.
-    ``batch_size`` is the global batch: with ``mesh`` it must split over
-    the ranks."""
+    ``mesh=``, the last ``return_est=`` too) on its model's device;
+    returns the final TrainState. Random draws come from one generator on
+    that device, seeded with ``seed``; each callback that is due takes one
+    draw of it, the seed of its own generator. ``batch_size`` is the
+    global batch: with ``mesh`` it must split over the ranks.
+    ``callbacks`` expose ``due(step)`` and ``__call__(logger, step,
+    trainer, state, generator)``; ``log_media`` logs the validation media
+    at ``media_fs``."""
     check_one_device_a_rank(mesh, "training")
     rank_zero = is_rank_zero()
     logger = MetricsLogger(workdir, enabled=rank_zero)
@@ -97,7 +109,8 @@ def fit(trainer, train_dataset, val_dataset=None, *, workdir: str,
     try:
         _train_epochs(trainer, state, loader, val_loader, generator, device,
                       logger, ckpt, max_epochs, max_steps, log_every,
-                      valid_max_sep_batches, seed, mesh)
+                      valid_max_sep_batches, seed, mesh, log_media, media_fs,
+                      callbacks)
     except Exception:
         # a crash loses nothing past the last step (the state is updated
         # in place); a failing save must not hide the crash
@@ -107,6 +120,7 @@ def fit(trainer, train_dataset, val_dataset=None, *, workdir: str,
             pass
         raise
     logger.close()
+    state.media_failures = logger.failures
     if rank_zero:
         save_params_npz(str(Path(workdir) / EMA_EXPORT), state.ema)
     return state
@@ -121,9 +135,32 @@ def _to_device(batch, device, mesh=None):
                  for a in batch)
 
 
+def _log_val_media(logger, batch, est, step: int, fs: int) -> None:
+    """The first validation item: its mixture and estimates as audio and,
+    where matplotlib is installed, a spectrogram grid of the mixture, the
+    estimates and the targets."""
+    mix = batch[0][0].float().cpu().numpy().reshape(-1)
+    tgt = batch[1][0].float().cpu().numpy()
+    e = est[0].float().cpu().numpy()
+    logger.log_audio("val/mix", mix, step, fs)
+    for i in range(e.shape[0]):
+        logger.log_audio(f"val/est_{i}", e[i], step, fs)
+    if viz.available():
+        logger.log_figure("val/spectrograms",
+                          viz.separation_figure(mix, e, tgt, fs=fs), step)
+
+
+def _callback_generator(generator: torch.Generator) -> torch.Generator:
+    """A generator on ``generator``'s device seeded by one draw of it."""
+    seed = torch.randint(0, 2 ** 62, (1,), generator=generator,
+                         device=generator.device).item()
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
 def _train_epochs(trainer, state, loader, val_loader, generator, device,
                   logger, ckpt, max_epochs, max_steps, log_every,
-                  valid_max_sep_batches, seed, mesh) -> None:
+                  valid_max_sep_batches, seed, mesh, log_media, media_fs,
+                  callbacks) -> None:
     stop = False
     for epoch in range(max_epochs):
         loader.seed = seed + epoch
@@ -134,6 +171,10 @@ def _train_epochs(trainer, state, loader, val_loader, generator, device,
             if state.step % log_every == 0:
                 logger.log({k: float(v) for k, v in metrics.items()},
                            state.step)
+            for cb in callbacks:
+                if cb.due(state.step):
+                    cb(logger, state.step, trainer, state,
+                       _callback_generator(generator))
             if max_steps is not None and state.step >= max_steps:
                 stop = True
                 break
@@ -147,8 +188,15 @@ def _train_epochs(trainer, state, loader, val_loader, generator, device,
                     state.model, batch, generator=generator, mesh=mesh)))
                 weights.append(n_real)
                 if len(si_sdrs) < valid_max_sep_batches:
+                    media = not si_sdrs and log_media and logger.enabled
                     m = trainer.val_separation_metrics(
-                        state.ema, batch, generator=generator, mesh=mesh)
+                        state.ema, batch, generator=generator, mesh=mesh,
+                        return_est=media)
+                    if media:
+                        m, est = m
+                        logger.guarded("fit: validation media", state.step,
+                                       _log_val_media, logger, batch, est,
+                                       state.step, media_fs)
                     si_sdrs.append(float(m["val/si_sdr"]))
                     sep_weights.append(n_real)
             # weighted by real item counts: remainder batches are filled

@@ -38,6 +38,7 @@ def test_every_phase_is_in_exactly_one_group(smoke):
     assert set(grouped) == _top_phases(smoke)
     assert sorted(smoke.GROUPS) == [1, 2]
     assert "phase_mesh" in grouped
+    assert {"phase_media", "phase_import"} <= set(smoke.GROUPS[1])
 
 
 def test_main_runs_phases_only_through_the_groups(smoke):
@@ -77,3 +78,24 @@ def test_kernels_line_of_a_group_run(smoke):
     assert down["launches"] == 1080 + 420 + 2880 + 12960 + 3
     assert down["ms"] is None and down["bound_ms"] is None
     assert by["fir_up2d"]["launches"] == 32 + 7
+
+
+def test_kernels_line_sums_the_media_paths(smoke):
+    """The media and import phases' paths count in both FIR kernels'
+    launches, beside the main path's."""
+    zero = {"fba_fwd": 0, "fba_bwd": 0, "conv3x3_9tap": 0,
+            "conv3x3_async_halo": 0}
+    ctx = {"main_path_launches": 4320,
+           "media_launches": {
+               "media_train_cli": {"fir_down2d": 2232, "fir_up2d": 24,
+                                   **zero},
+               "media_evaluate": {"fir_down2d": 180, "fir_up2d": 0, **zero},
+               "import_separate": {"fir_down2d": 72, "fir_up2d": 0,
+                                   **zero}}}
+    by = {k["name"]: k for k in smoke.kernels_line(ctx, torch)}
+    assert by["fir_down2d"]["launches"] == 4320
+    assert by["fir_down2d"]["launches_by_path"] == {
+        "separate_cli": 4320, "media_train_cli": 2232,
+        "media_evaluate": 180, "import_separate": 72}
+    assert by["fir_up2d"]["launches"] == 24 + 0 + 0
+    assert by["fba_fwd"]["launches"] == 0

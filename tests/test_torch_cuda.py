@@ -1071,3 +1071,62 @@ def _serve_over_cards(trainer, audios, mesh, n):
                 refs[name].append(est.float().cpu().numpy())
     return (outs, np.concatenate(refs["own"]),
             np.concatenate(refs["card0"]))
+
+
+@pytest.mark.cuda
+def test_reference_checkpoint_imports_on_the_card(cuda_device, tmp_path):
+    """A Lightning-layout checkpoint (the score network under
+    ``score_model.backbone.``, the sigmas buffer, torch_ema's shadows in
+    parameter order) loads into a model on the card with the shadows bit
+    for bit, and the card's separation with matched noise equals the
+    CPU's within 1e-3 of max|ref| (TF32 off), the card's launching
+    fir_down2d on every score evaluation."""
+    from ditsep_tpu_torch.configs import (
+        build_diffsep_trainer, diffsep, override,
+    )
+    from ditsep_tpu_torch.models import import_diffsep_ema
+    cfg = override(diffsep(), {"model.score_model.nf": 16,
+                               "model.score_model.ch_mult": (1, 1, 1),
+                               "model.score_model.num_res_blocks": 1,
+                               "model.score_model.attn_resolutions": ()})
+    src = build_diffsep_trainer(cfg, device="cpu", seed=0).model.backbone
+    sd = {"score_model.backbone.sigmas": torch.linspace(0.05, 0.5, 10)}
+    sd.update({f"score_model.backbone.{k}": v
+               for k, v in src.state_dict().items()})
+    g = torch.Generator().manual_seed(1)
+    names = [k for k, _ in src.named_parameters()]
+    shadows = [p.detach() + 0.01 * torch.randn(p.shape, generator=g)
+               for _, p in src.named_parameters()]
+    torch.save({"state_dict": sd, "ema": {"shadow_params": shadows}},
+               tmp_path / "ref.ckpt")
+    ckpt = torch.load(tmp_path / "ref.ckpt", weights_only=False)
+    tr = {d: build_diffsep_trainer(cfg, device=d, seed=2)
+          for d in ("cpu", "cuda")}
+    for t in tr.values():
+        import_diffsep_ema(t.model, ckpt)
+    got = tr["cuda"].model.backbone.state_dict()
+    for k, s in zip(names, shadows):
+        assert torch.equal(got[k].cpu(), s), k
+    rng = np.random.default_rng(3)
+    mix = rng.standard_normal((2, 1, 1500)).astype(np.float32)
+    noise = (rng.standard_normal((2, 2, 1500)).astype(np.float32),
+             rng.standard_normal((2, 1, 2, 2, 1500)).astype(np.float32),
+             rng.standard_normal((2, 2, 2, 1500)).astype(np.float32))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for d, t in tr.items():
+            before = cuda_kernels.fir_down2d.launches
+            est, nfe = t.separate(torch.from_numpy(mix).to(d), N=2, noise=[
+                torch.from_numpy(z).to(d) for z in noise])
+            out[d] = est.cpu().numpy()
+            launched = cuda_kernels.fir_down2d.launches - before
+        assert launched > 0 and launched % nfe == 0
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    ref = out["cpu"]
+    assert np.abs(out["cuda"] - ref).max() <= 1e-3 * np.abs(ref).max()

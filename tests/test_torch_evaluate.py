@@ -168,16 +168,21 @@ def test_cli_evaluate_on_cpu(tmp_path, mode):
                                   ["--config", "ldm", "--mesh"],
                                   ["--save-figures", "1"]])
 def test_unported_evaluate_flags_raise(tmp_path, flag, monkeypatch):
-    """--save-figures is not ported (ROADMAP A16); --mesh without a card
-    and without --cpu raises (no fallback to the CPU)."""
+    """--mesh without a card and without --cpu raises (no fallback to the
+    CPU). --save-figures, once unported, now runs: the first item's
+    spectrogram PDF beside the results, no figure failed."""
     if "--mesh" in flag:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["--synthetic", "--out-dir", str(tmp_path), *flag])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--cpu", "--synthetic", "--out-dir", str(tmp_path),
-                  *flag])
+    pytest.importorskip("matplotlib")
+    res = cli.main(["--cpu", "--synthetic", "--synthetic-items", "2",
+                    "--eval-batch-size", "2", "--sampler-N", "1",
+                    "--out-dir", str(tmp_path), *flag, "--override", *TINY])
+    media = tmp_path / "librimix_test_media"
+    assert sorted(p.name for p in media.iterdir()) == ["0000.pdf"]
+    assert res["media_failures"] == 0
 
 
 def test_evaluate_dataset_limit_without_warmup_matches_jax(tmp_path):

@@ -202,11 +202,12 @@ def test_cli_separate_on_cpu(tmp_path):
                                   "serve_api_mesh", "serve_vae_config",
                                   "serve_gradio"])
 def test_unported_options_raise(what, tmp_path, monkeypatch):
-    """What is not ported yet raises: the demo decodes of the ldm config's
-    CLI (train_ldm), the latent CLI's demo callbacks and figures, and the
-    demo server's autoencoder tab and gradio shell (A16). A mesh on either
-    training CLI and on serve_api raises without a card and without --cpu
-    (no fallback to the CPU)."""
+    """What is not ported yet raises: the demo server's autoencoder tab
+    and gradio shell (A16). A mesh on either training CLI and on
+    serve_api raises without a card and without --cpu (no fallback to the
+    CPU). The latent CLI's demo callbacks, train_ldm's demo decodes and
+    cli.evaluate's figures, once unported, now run (their flag alone
+    reaches no option that raises: each stops on a missing input)."""
     from ditsep_tpu_torch.cli import evaluate as eval_cli
     from ditsep_tpu_torch.cli import serve, serve_api, train_ldm
     from ditsep_tpu_torch.cli import train_diffsep, train_diffsep_latent
@@ -219,17 +220,24 @@ def test_unported_options_raise(what, tmp_path, monkeypatch):
             main(["--mesh", "--synthetic", "--workdir", str(tmp_path)]
                  if what != "serve_api_mesh" else ["--mesh"])
         return
-    with pytest.raises(NotImplementedError):
-        if what == "latent_demo":
-            train_diffsep_latent.main(["--demo-every", "5", "--cpu",
-                                       "--synthetic", "--workdir",
-                                       str(tmp_path)])
-        if what == "ldm_config":
+    if what == "latent_demo":  # a VAE file that is not there
+        with pytest.raises(FileNotFoundError):
+            train_diffsep_latent.main(
+                ["--demo-every", "5", "--cpu", "--synthetic", "--workdir",
+                 str(tmp_path), "--vae-params", str(tmp_path / "no.npz")])
+        return
+    if what == "ldm_config":  # an empty latent cache
+        with pytest.raises(FileNotFoundError):
             train_ldm.main(["--config", "ldm", "--demo-every", "2", "--cpu",
                             "--latent-cache", str(tmp_path), "--workdir",
                             str(tmp_path)])
-        if what == "save_figures":
-            eval_cli.main(["--save-figures", "1", "--cpu", "--synthetic"])
+        return
+    if what == "save_figures":  # a params file that is not there
+        with pytest.raises(FileNotFoundError):
+            eval_cli.main(["--save-figures", "1", "--cpu", "--synthetic",
+                           "--params", str(tmp_path / "no.npz")])
+        return
+    with pytest.raises(NotImplementedError):
         if what == "serve_vae_config":
             serve.main(["--vae-config", "vae.json", "--cpu"])
         if what == "serve_gradio":
