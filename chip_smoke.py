@@ -4,10 +4,10 @@
     python3 chip_smoke.py [--group 1|2] [--phase NAME ...]
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, all at once) and runs twenty-seven phases, each printing
+nvcc per source, all at once) and runs twenty-eight phases, each printing
 JSON lines and, after it, ``{"phase": NAME, "phase_s": seconds}``; any
 failure raises and the exit code is non-zero. ``--group 1`` runs phases
-2-16 and ``--group 2`` phases 17-27 (``GROUPS``: each group fits one
+2-16 and ``--group 2`` phases 17-28 (``GROUPS``: each group fits one
 900 s chip call); ``--phase`` runs the named phases alone:
 
 1. device   -- card name and power limit (nvidia-smi), kernel build time;
@@ -192,7 +192,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
 24. serving -- the flagship behind ``SeparationAPIServer`` on 127.0.0.1
                (``scripts/serving_bench``'s lengths, one 65,153-sample
                bucket): every batch size warmed, then concurrency 1, 4 and
-               8 over HTTP, two waves each (utt/s, wave latency, p50 / p95,
+               8 over HTTP, one wave each (utt/s, wave latency, p50 / p95,
                occupancy from /v1/stats, batches, peak GiB, launches =
                batches x 60 x 18); one wave at 8 with pipeline_depth=1 and
                one with the int16 wire; /metrics parsed once;
@@ -205,18 +205,39 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
 26. serving_latent -- ``build_engine(latent=True)`` on latent_diffsep_ouve
                at full width behind the API: the 65,536-sample bucket,
                concurrency 4 and 8, launches = batches x 60 x 6;
-27. mesh    -- data parallelism (``ditsep_tpu_torch.parallel``) in child
+27. generation -- the stable-audio generation path, which no kernel of
+               the port lies on (every launch count 0): a small config of
+               Stable Audio Open's schema (Oobleck VAE pretransform, a
+               t5-style prompt embedding and the two seconds conditioners,
+               a DiT 128 wide, 2 layers) through
+               ``GenerationApp.generate_conditional`` on the card and on
+               the CPU with the card's initial noise, TF32 off, within
+               1e-3 relative: the v sampler, k-heun, rectified-flow Euler,
+               a variation with an inpaint mask; a ``DemoServer`` with
+               that app on numbers only and ``cli.serve``'s autoencoder
+               tab at the latent path's VAE widths: /api/generate_cond and
+               /api/generate equal the direct calls' WAV bytes,
+               /api/autoencoder round-trips 2 s; then Stable Audio Open
+               1.0's published widths (DiT 1536 x 24, 1.07 B parameters)
+               with seeded weights: 2 requests at batch 1, CFG 7, 8
+               sampler steps (cut from the published 100), 2,097,152
+               stereo samples: seconds a step (2 CFG rows x 1,025 tokens),
+               a request and a decode, peak GiB, a profiled step's idle
+               share, TFLOP/s, a bf16 step's distance from f32; and the
+               DiT importer at full width, bit-equal to the same weights
+               through ``params_from_jax``;
+28. mesh    -- data parallelism (``ditsep_tpu_torch.parallel``) in child
                processes on 127.0.0.1, each under a hard timeout, TF32
                off and deterministic cuDNN: ``cli.train_diffsep`` at the
-               flagship width (batch 6 x 40,960, 3 steps, a validation)
+               flagship width (batch 6 x 40,960, 2 steps, a validation)
                under ``python -m torch.distributed.run --nproc-per-node
                1 ... --mesh`` (NCCL, world size 1) against the same run
                without --mesh, losses, validation and EMA export bit
                for bit, the step times and peak memory of both; then
-               ``cli.evaluate --mesh`` on 4 items; then two gloo ranks
+               ``cli.evaluate --mesh`` on 2 items; then two gloo ranks
                sharing cuda:0: two train steps of the nf=32 checkpoint
                on a batch of 4 split 2 + 2 against one process at the
-               train-step bars, and ``evaluate_dataset`` on 5 items
+               train-step bars, and ``evaluate_dataset`` on 3 items
                against one process.
 
 Every launch count is set to 0 just before each path (the fused bias-act
@@ -302,7 +323,7 @@ GROUPS = {
     2: ("phase_latent_kernel", "phase_latent_parity", "phase_latent_flagship",
         "phase_latent_train", "phase_ldm_parity", "phase_ldm_train",
         "phase_serving_parity", "phase_serving", "phase_serving_latent",
-        "phase_mesh"),
+        "phase_generation", "phase_mesh"),
 }
 
 
@@ -3399,12 +3420,12 @@ def autoencoder_steps(vcfg, dc, batch, trainer_cls, build_vae, dataset_cls):
 
 
 # the serving phases: the nf=32 checkpoint's parity through the engine; the
-# flagship behind the HTTP API at concurrency 1, 4 and 8 (two waves each,
+# flagship behind the HTTP API at concurrency 1, 4 and 8 (one wave each,
 # every batch size warmed first) and two /v1/stream sessions on the same
 # engine; the latent flagship behind the API at concurrency 4 and 8
 SERVE_PARITY_LENGTHS, SERVE_PARITY_N, SERVE_PARITY_SEED = (7000, 6500,
                                                           7600), 5, 7
-SERVE_LEVELS, SERVE_WAVES, SERVE_MAX_BATCH = (1, 4, 8), 2, 8
+SERVE_LEVELS, SERVE_WAVES, SERVE_MAX_BATCH = (1, 4, 8), 1, 8
 SERVE_WAIT_MS = 100.0
 STREAM_S, STREAM_BLOCK_S, STREAMS = 10.0, 0.5, 2  # CHUNK_S, OVERLAP_S too
 LATENT_SERVE_LEVELS = (4, 8)
@@ -3581,8 +3602,8 @@ def warm_engine(eng, length: int, per_forward: int) -> dict:
 def phase_serving(ctx):
     """The flagship (diffsep_icassp, seeded weights, f32 with TF32 convs)
     through cli.serve_api's build_engine behind SeparationAPIServer:
-    every batch size warmed, then concurrency 1, 4 and 8 over HTTP, two
-    waves each; one wave at 8 with pipeline_depth=1 and one with the int16
+    every batch size warmed, then concurrency 1, 4 and 8 over HTTP, one
+    wave each; one wave at 8 with pipeline_depth=1 and one with the int16
     wire, each on an engine of its own; /metrics parsed once. Then the
     serving_stream phase on the same engine."""
     from ditsep_tpu_torch.cli.serve_api import build_engine
@@ -3804,7 +3825,7 @@ def cli_separate_streaming(ctx):
 def phase_serving_latent(ctx):
     """build_engine(latent=True) on latent_diffsep_ouve at full width,
     seeded weights, behind the HTTP API: every batch size warmed at the
-    65,536-sample bucket, then concurrency 4 and 8, two waves each;
+    65,536-sample bucket, then concurrency 4 and 8, one wave each;
     launches batches x NFE x 6."""
     from ditsep_tpu_torch.cli.serve_api import build_engine
     from ditsep_tpu_torch.configs import latent_diffsep_ouve
@@ -3838,9 +3859,452 @@ def phase_serving_latent(ctx):
 
 
 # -- the mesh phase: data parallelism over torch.distributed ------------------
-MESH_STEPS, MESH_ITEMS = 3, 18     # one epoch of 3 steps at batch 6
-MESH_VAL_N = 5                     # the validation's PC steps in both runs
-MESH_EVAL_ITEMS, MESH_GLOO_ITEMS = 4, 5
+# the stable-audio generation path (generation phase): a small config of
+# Stable Audio Open's schema for card-vs-CPU parity and the HTTP routes,
+# and Stable Audio Open 1.0's published widths (stabilityai/
+# stable-audio-open-1.0 model_config.json) for the full-width run
+GEN_PARITY_STEPS, GEN_PARITY_SEED, GEN_PARITY_CFG = 4, 3, 5.0
+GEN_FULL_STEPS, GEN_FULL_REQUESTS, GEN_FULL_CFG = 8, 2, 7.0
+GEN_SMALL_VAE = {"in_channels": 2, "channels": 16, "c_mults": [1, 2, 4],
+                 "strides": [2, 4, 4], "use_snake": True}
+SAO_VAE = {"in_channels": 2, "channels": 128, "c_mults": [1, 2, 4, 8, 16],
+           "strides": [2, 4, 4, 8, 8], "use_snake": True}
+
+
+def sao_config(vae: dict, latent_dim: int, cond_dim: int, prompt_len: int,
+               dit: dict, prompt: bool = True) -> dict:
+    """A diffusion_cond config in Stable Audio Open 1.0's schema: an
+    Oobleck VAE pretransform (encoder 2 x latent_dim, decoder latent_dim),
+    a T5 prompt (``prompt``) and seconds_start / seconds_total number
+    conditioners (0-512) on cross-attention, the two seconds on the global
+    conditioning, a 'v' DiT."""
+    ratio = math.prod(vae["strides"])
+    enc = {**vae, "latent_dim": 2 * latent_dim}
+    dec = {k: v for k, v in vae.items() if k != "in_channels"}
+    dec.update(out_channels=vae["in_channels"], latent_dim=latent_dim)
+    ids = (["prompt"] if prompt else []) + ["seconds_start", "seconds_total"]
+    configs = [{"id": i, "type": "number",
+                "config": {"min_val": 0, "max_val": 512}}
+               for i in ("seconds_start", "seconds_total")]
+    if prompt:
+        configs.insert(0, {"id": "prompt", "type": "t5", "config": {
+            "t5_model_name": "t5-base", "max_length": prompt_len}})
+    return {"model_type": "diffusion_cond", "sample_rate": 44100, "model": {
+        "pretransform": {"type": "autoencoder", "iterate_batch": True,
+                         "config": {
+                             "encoder": {"type": "oobleck", "config": enc},
+                             "decoder": {"type": "oobleck", "config": dec},
+                             "bottleneck": {"type": "vae"},
+                             "latent_dim": latent_dim,
+                             "downsampling_ratio": ratio,
+                             "io_channels": vae["in_channels"]}},
+        "conditioning": {"configs": configs, "cond_dim": cond_dim},
+        "diffusion": {"cross_attention_cond_ids": ids,
+                      "global_cond_ids": ["seconds_start", "seconds_total"],
+                      "type": "dit", "diffusion_objective": "v",
+                      "config": {"io_channels": latent_dim,
+                                 "cond_token_dim": cond_dim,
+                                 "global_cond_dim": 2 * cond_dim,
+                                 "project_cond_tokens": False,
+                                 "transformer_type": "continuous_transformer",
+                                 **dit}},
+        "io_channels": latent_dim}}
+
+
+# Stable Audio Open 1.0: DiT 1536 wide, 24 layers, 24 heads; t5-base's
+# 768-wide prompt of 128 tokens; VAE 128 channels, hop 2048, 64 latents
+SAO_FULL = sao_config(SAO_VAE, 64, 768, 128,
+                      {"embed_dim": 1536, "depth": 24, "num_heads": 24})
+SAO_SAMPLE_SIZE = 2097152          # 1,024 latent frames, 47.6 s at 44.1 kHz
+GEN_SMALL = sao_config(GEN_SMALL_VAE, 8, 64, 16,
+                       {"embed_dim": 128, "depth": 2, "num_heads": 4})
+GEN_SMALL_SAMPLE_SIZE = 2048       # 64 latent frames at hop 32
+
+
+def nonzero_(module, seed: int) -> None:
+    """Redraw the parameters that are all zero (the zero-initialised
+    outputs, pre/post convs and biases) at N(0, 0.02^2): seeded weights
+    whose every layer moves the output."""
+    import torch
+    g = torch.Generator(device=next(module.parameters()).device)
+    g.manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            if not p.any():
+                p.normal_(0.0, 0.02, generator=g)
+
+
+def generation_app(cfg: dict, sample_size: int, device: str, seed: int = 0):
+    """``GenerationApp`` of a stable-audio config from the model factory
+    on ``device``: the DiT, the conditioners and the VAE seeded, the DiT's
+    zero layers redrawn (``nonzero_``), in eval mode."""
+    import torch
+    from ditsep_tpu_torch.interface import GenerationApp
+    from ditsep_tpu_torch.models.conditioners import (
+        create_multi_conditioner_from_config)
+    from ditsep_tpu_torch.models.factory import (
+        create_diffusion_cond_from_config)
+
+    with torch.device(device):
+        g = torch.Generator(device=device).manual_seed(seed)
+        dit, routing, _, pre = create_diffusion_cond_from_config(
+            cfg, include_pretransform=True, generator=g)
+        torch.manual_seed(seed)
+        cond = create_multi_conditioner_from_config(
+            cfg["model"]["conditioning"])
+    nonzero_(dit, seed + 1)
+    return GenerationApp(model=dit.eval(), io_channels=dit.io_channels,
+                         sample_size=sample_size, fs=cfg["sample_rate"],
+                         routing=routing, conditioner=cond.eval(),
+                         pretransform=pre.eval())
+
+
+def gen_inputs(prompt_len: int, width: int, seed: int,
+               prompt: bool = True) -> dict:
+    """Conditioner inputs of one request: a seeded (1, prompt_len, width)
+    prompt embedding with its mask (what ``t5_encode_host`` hands the
+    prompt conditioner; the last quarter is padding), seconds_start 0 and
+    seconds_total 47."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {"seconds_start": np.zeros(1, np.float32),
+           "seconds_total": np.full(1, 47.0, np.float32)}
+    if prompt:
+        mask = np.ones((1, prompt_len), bool)
+        mask[:, 3 * prompt_len // 4:] = False
+        out["prompt"] = (rng.standard_normal((1, prompt_len, width)).astype(
+            np.float32), mask)
+    return out
+
+
+@contextlib.contextmanager
+def timed_calls(obj, name: str):
+    """Within it each ``obj.name(...)`` call is recorded: its arguments and
+    its seconds between two synchronizations."""
+    import torch
+    calls, real = [], getattr(obj, name)
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        calls.append({"args": args, "kw": kw,
+                      "s": time.perf_counter() - t0})
+        return out
+
+    setattr(obj, name, timed)
+    try:
+        yield calls
+    finally:
+        delattr(obj, name)
+
+
+def gen_parity(ctx, device: str = "cuda") -> dict:
+    """(1) The small config's ``generate_conditional`` on the card and on
+    the CPU with the same weights and the card's initial noise, TF32 off:
+    the v sampler, k-heun, rectified-flow Euler, and a variation
+    (init_noise_level 0.7) with an inpaint mask, each within 1e-3 of
+    max|cpu|."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    card = generation_app(GEN_SMALL, GEN_SMALL_SAMPLE_SIZE, device)
+    cpu = copy.deepcopy(card)
+    for m in (cpu.model, cpu.conditioner, cpu.pretransform):
+        m.to("cpu")
+    inputs = gen_inputs(16, 64, seed=4)
+    t = np.arange(GEN_SMALL_SAMPLE_SIZE // 2) / 44100.0
+    init = (0.6 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+    mask = np.zeros(GEN_SMALL_SAMPLE_SIZE // 32, np.float32)
+    mask[16:48] = 1.0
+    cases = {"v": {}, "k_heun": {"sampler_type": "k-heun"},
+             "rf_euler": {"objective": "rectified_flow"},
+             "variation_inpaint": {"init_audio": init,
+                                   "init_noise_level": 0.7,
+                                   "inpaint_mask": mask}}
+    out = {}
+    with full_f32():
+        for name, kw in cases.items():
+            kw = dict(kw)
+            objective = kw.pop("objective", "v")
+            for app in (card, cpu):
+                app.model.diffusion_objective = objective
+            noise = card.initial_noise(1, GEN_PARITY_SEED)
+            reset_counts()
+            got = card.generate_conditional(
+                inputs, steps=GEN_PARITY_STEPS, cfg_scale=GEN_PARITY_CFG,
+                noise=noise, **kw)
+            torch.cuda.synchronize()
+            launches = counts()
+            want = cpu.generate_conditional(
+                inputs, steps=GEN_PARITY_STEPS, cfg_scale=GEN_PARITY_CFG,
+                noise=noise.cpu(), **kw)
+            rel = float(np.abs(got - want).max() / np.abs(want).max())
+            check(got.shape == (1, 2, GEN_SMALL_SAMPLE_SIZE)
+                  and np.isfinite(got).all(), f"{name}: {got.shape}")
+            check(rel <= 1e-3, f"generation {name}: card vs CPU {rel}")
+            check(not any(launches.values()), f"{name} launches {launches}")
+            out[name] = rel
+    card.model.diffusion_objective = "v"
+    return {"card_vs_cpu_rel": out, "app": card}
+
+
+def gen_http(ctx, tmp: Path, device: str = "cuda") -> dict:
+    """(2) A DemoServer with the small config's GenerationApp on numbers
+    only and ``cli.serve``'s autoencoder tab at the latent path's VAE
+    widths (mono, 128 channels, hop 2048, seeded): /api/generate_cond and
+    /api/generate equal the direct calls' WAV bytes, /api/autoencoder
+    round-trips 2 s."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.cli.serve import build_autoencoder_app
+    from ditsep_tpu_torch.configs import latent_diffsep_ouve
+    from ditsep_tpu_torch.interface import DemoServer
+    from ditsep_tpu_torch.interface.web import decode_wav, encode_wav
+
+    numbers = sao_config(GEN_SMALL_VAE, 8, 64, 16,
+                         {"embed_dim": 128, "depth": 2, "num_heads": 4},
+                         prompt=False)
+    gen = generation_app(numbers, GEN_SMALL_SAMPLE_SIZE, device, seed=7)
+    v = latent_diffsep_ouve()["model"]["vae"]
+    vae_json = tmp / "vae.json"
+    vae_json.write_text(json.dumps({
+        "model_type": "autoencoder", "sample_rate": v["sample_rate"],
+        "model": {"encoder": {"type": "oobleck", "config": {
+            "in_channels": 1, "channels": v["channels"],
+            "c_mults": list(v["c_mults"]), "strides": list(v["strides"]),
+            "latent_dim": 2 * v["latent_dim"]}},
+            "decoder": {"type": "oobleck", "config": {
+                "out_channels": 1, "channels": v["channels"],
+                "c_mults": list(v["c_mults"]), "strides": list(v["strides"]),
+                "latent_dim": v["latent_dim"]}},
+            "bottleneck": {"type": "vae"}, "latent_dim": v["latent_dim"]}}))
+    ae = build_autoencoder_app(str(vae_json), device=device, seed=2)
+    srv = DemoServer(generation=gen, autoencoder=ae, port=0).start()
+    out = {}
+
+    def post(path, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}{path}", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+
+    try:
+        reset_counts()
+        with deterministic_cudnn():
+            cond = {"seconds_start": 0, "seconds_total": 47}
+            status, body = post("/api/generate_cond", json.dumps(
+                {"cond": cond, "steps": GEN_PARITY_STEPS,
+                 "cfg_scale": GEN_PARITY_CFG, "seed": 5}).encode())
+            direct = gen.generate_conditional(
+                {k: np.asarray([v], np.float32) for k, v in cond.items()},
+                steps=GEN_PARITY_STEPS, cfg_scale=GEN_PARITY_CFG, seed=5)
+            check(status == 200 and body == encode_wav(direct[0], gen.fs),
+                  "/api/generate_cond differs from the direct call")
+            status, body = post("/api/generate", json.dumps(
+                {"steps": GEN_PARITY_STEPS, "seed": 6}).encode())
+            direct = gen.generate_uncond(steps=GEN_PARITY_STEPS, seed=6)
+            check(status == 200 and body == encode_wav(direct[0], gen.fs),
+                  "/api/generate differs from the direct call")
+            hop = ae.vae.downsampling_ratio  # 2 s, whole hops
+            clip = (0.5 * np.sin(np.arange(-(-2 * ae.fs // hop) * hop)
+                                 * 0.05)).astype(np.float32)
+            wav = encode_wav(clip, ae.fs)
+            status, body = post("/api/autoencoder", wav)
+            rec, fs = decode_wav(body)
+            direct = ae.process(decode_wav(wav)[0])
+            check(status == 200 and fs == ae.fs and rec.shape == (
+                clip.size, 1) and body == encode_wav(direct, ae.fs),
+                f"/api/autoencoder: {status} {rec.shape}")
+        torch.cuda.synchronize()
+        out["launches"] = counts()
+        check(not any(out["launches"].values()),
+              f"HTTP launches {out['launches']}")
+    finally:
+        srv.close()
+    out["routes"] = ["/api/generate_cond", "/api/generate",
+                     "/api/autoencoder"]
+    return out
+
+
+def gen_full(ctx, cfg: dict = SAO_FULL, sample_size: int = SAO_SAMPLE_SIZE,
+             device: str = "cuda") -> dict:
+    """(3) Stable Audio Open 1.0's widths with seeded weights:
+    ``GenerationApp.generate_conditional`` for GEN_FULL_REQUESTS requests
+    at batch 1, CFG 7, GEN_FULL_STEPS sampler steps (cut for the chip
+    budget; the published default is 100), the sample_size of 2,097,152
+    stereo samples. Seconds a sampler step and a decode, the request,
+    peak memory, one profiled step, TFLOP/s, a bf16 step's distance."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.models.dit import DiffusionTransformer
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    app = generation_app(cfg, sample_size, device, seed=11)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    dit = app.model
+    n_params = sum(p.numel() for p in dit.parameters())
+    out["dit_params"] = n_params
+    cond = cfg["model"]["conditioning"]
+    inputs = gen_inputs(cond["configs"][0]["config"]["max_length"],
+                        cond["cond_dim"], seed=12)
+    requests = []
+    reset_counts()
+    with timed_calls(dit, "forward") as steps, \
+            timed_calls(app.pretransform, "decode") as decodes:
+        for i in range(GEN_FULL_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            audio = app.generate_conditional(
+                inputs, steps=GEN_FULL_STEPS, cfg_scale=GEN_FULL_CFG,
+                seed=20 + i)
+            requests.append(time.perf_counter() - t0)
+            check(audio.shape == (1, 2, sample_size)
+                  and np.isfinite(audio).all(),
+                  f"full-width request {i}: {audio.shape}")
+    torch.cuda.synchronize()
+    out["launches"] = counts()
+    check(not any(out["launches"].values()),
+          f"full-width launches {out['launches']}")
+    check(len(steps) == GEN_FULL_REQUESTS * GEN_FULL_STEPS
+          and len(decodes) == GEN_FULL_REQUESTS,
+          f"{len(steps)} DiT calls, {len(decodes)} decodes")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["tf32"] = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                   "cudnn": torch.backends.cudnn.allow_tf32}
+    out["request_s"] = requests
+    out["step_s"] = [c["s"] for c in steps]
+    steady = [c["s"] for c in steps[GEN_FULL_STEPS:]]
+    out["steady_step_s"] = sum(steady) / len(steady)
+    out["decode_s"] = [c["s"] for c in decodes]
+    x, t = steps[-1]["args"][:2]
+    kw = steps[-1]["kw"]
+    rows, tokens = x.shape[0] * 2, x.shape[-1] + 1  # CFG rows, + the global
+    ctx_len = kw["cross_attn_cond"].shape[1]
+    depth, width = len(dit.transformer.layers()), dit.embed_dim
+    attn = rows * depth * 4 * width * (tokens * tokens + tokens * ctx_len)
+    flops = 2 * n_params * tokens * rows + attn
+    out["step_flop"] = flops
+    out["step_tflop_per_s"] = flops / out["steady_step_s"] / 1e12
+    out["cfg_rows"], out["tokens"] = rows, tokens
+    prof = profile_replay(lambda: (dit(x, t, **kw), 1)[1])
+    out["profiled_step"] = {k: prof[k] for k in ("wall_ms",
+                                                  "device_busy_ms",
+                                                  "idle_share", "top")}
+    # one bf16 step (the port's dtype field: compute in bf16, float32
+    # parameters) on the same weights and inputs
+    with torch.device(device):
+        bf16 = DiffusionTransformer(
+            io_channels=dit.io_channels, embed_dim=width, depth=depth,
+            num_heads=width // dit.transformer.dim_heads,
+            cond_token_dim=dit.cond_token_dim,
+            global_cond_dim=dit.to_global_embed.dense_0.in_features,
+            project_cond_tokens=False, dtype=torch.bfloat16)
+    bf16.load_state_dict(dit.state_dict())
+    bf16.eval()
+    with torch.no_grad():
+        ref = dit(x, t, **kw).float()
+        dit(x, t, **kw)
+        bf16(x, t, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = bf16(x, t, **kw).float()
+        torch.cuda.synchronize()
+        out["bf16_step_s"] = time.perf_counter() - t0
+    out["bf16_rel_dist"] = float((y - ref).abs().max() / ref.abs().max())
+    del bf16
+    out["app"] = app
+    out["probe"] = (x, t, kw)
+    return out
+
+
+def gen_importer(app, probe, cfg: dict = SAO_FULL,
+                 device: str = "cuda") -> dict:
+    """(4) A seeded reference-layout state_dict of the full-width DiT (the
+    full model's own weights, ``dit_reference_state``) through
+    ``import_dit_params`` into a fresh full-width DiT; one forward equals,
+    bit for bit, the same weights loaded through ``params_from_jax`` (the
+    JAX package's flat layout, ``params_to_jax``)."""
+    import torch
+    from ditsep_tpu_torch.models.factory import (
+        create_diffusion_cond_from_config)
+    from ditsep_tpu_torch.models.torch_import import (
+        dit_reference_state, import_dit_params)
+    from ditsep_tpu_torch.models.weights import (
+        load_state, params_from_jax, params_to_jax)
+
+    src = app.model
+    sd = dit_reference_state(src)
+    flat = params_to_jax(src)
+    x, t, kw = probe
+    outs = {}
+    t0 = time.perf_counter()
+    for name in ("import", "jax_layout"):
+        with torch.device(device):
+            fresh = create_diffusion_cond_from_config(
+                cfg, generator=torch.Generator(device=device))[0]
+        if name == "import":
+            import_dit_params(fresh, sd)
+        else:
+            load_state(fresh, params_from_jax(flat))
+        with torch.no_grad():
+            outs[name] = fresh.eval()(x, t, **kw)
+        del fresh
+        torch.cuda.empty_cache()
+    check(torch.equal(outs["import"], outs["jax_layout"])
+          and bool(torch.isfinite(outs["import"]).all()),
+          "the imported full-width DiT differs from its JAX-layout load")
+    return {"keys": len(sd), "bit_equal": True,
+            "import_s": time.perf_counter() - t0}
+
+
+def phase_generation(ctx):
+    """The stable-audio generation path (``GenerationApp`` ->
+    ``generate_diffusion_cond`` -> the samplers -> the DiT -> the VAE
+    pretransform): (1) card vs CPU on a small config at 1e-3 relative, (2)
+    the demo server's three routes, (3) Stable Audio Open 1.0's widths,
+    (4) the DiT importer at full width. No kernel of the port lies on this
+    path: every count stays 0."""
+    import torch
+    par = gen_parity(ctx)
+    par.pop("app")
+    emit({"phase": "generation_parity", "config": "Stable Audio Open's "
+          "schema at a small width (Oobleck VAE 16 channels, hop 32, 8 "
+          "latents; t5-style prompt (1, 16, 64) + seconds; DiT 128 wide, 2 "
+          f"layers), {GEN_PARITY_STEPS} steps, CFG {GEN_PARITY_CFG}, TF32 "
+          "off, the card's initial noise on the CPU", **par,
+          "tolerance": "1e-3 of max|cpu|", "card": ctx["card"]})
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        http = gen_http(ctx, Path(tmp))
+    emit({"phase": "generation_http", **http, "bytes_equal": True,
+          "card": ctx["card"]})
+    torch.cuda.empty_cache()
+    full = gen_full(ctx)
+    app, probe = full.pop("app"), full.pop("probe")
+    emit({"phase": "generation_full", "config": "Stable Audio Open 1.0 "
+          "widths (DiT 1536 x 24 layers, 24 heads, cond 768, VAE 128 "
+          "channels hop 2048, 64 latents), seeded weights, prompt a seeded "
+          "(1, 128, 768) embedding with its mask, seconds 0 / 47, batch 1, "
+          f"CFG {GEN_FULL_CFG}, {GEN_FULL_STEPS} sampler steps (cut for the "
+          "chip budget; 100 published), 2,097,152 stereo samples",
+          **full, "card": ctx["card"]})
+    imp = gen_importer(app, probe)
+    emit({"phase": "generation_import", **imp, "card": ctx["card"]})
+    ctx["generation_launches"] = full["launches"]
+    del app, probe
+    torch.cuda.empty_cache()
+
+
+MESH_STEPS, MESH_ITEMS = 2, 12     # one epoch of 2 steps at batch 6
+MESH_VAL_N = 3                     # the validation's PC steps in both runs
+MESH_EVAL_ITEMS, MESH_GLOO_ITEMS = 2, 3
 MESH_CHILD_TIMEOUT_S = 240
 MESH_EVAL_TOL = 1e-3  # abs, every number of the gloo JSONs but runtime
 # a child's hook: TF32 off and deterministic cuDNN, each train step and
@@ -4001,7 +4465,7 @@ def phase_mesh(ctx):
     ``cli.evaluate --mesh``. (b) Two gloo ranks sharing cuda:0: two train
     steps of the trained nf=32 checkpoint on a batch of 4 split 2 + 2
     against one process at the train-step bars, and ``evaluate_dataset``
-    on 5 items against one process."""
+    on 3 items against one process."""
     import pickle
 
     import numpy as np
@@ -4057,9 +4521,9 @@ def phase_mesh(ctx):
               "world size 1: the all-reduce a copy)", "bit_equal": True,
               "losses": mesh["losses"], "validation": vals["mesh"],
               "step_s_plain": plain["step_s"], "step_s_mesh": mesh["step_s"],
-              "step_s_2_3": step,
+              "step_s_after_first": step,
               "all_reduce_s": mesh["all_reduce_s"],
-              "all_reduce_share_2_3": sum(mesh["all_reduce_s"][1:])
+              "all_reduce_share_after_first": sum(mesh["all_reduce_s"][1:])
               / sum(mesh["step_s"][1:]),
               "peak_gib": {"plain": plain["peak_gib"],
                            "mesh": mesh["peak_gib"]},
@@ -4164,6 +4628,8 @@ def kernels_line(ctx, torch) -> list:
             paths.update(ctx.get("serve_launches", {}))
         for key in ("media_launches", "mesh_launches"):
             paths.update({k: v[kernel] for k, v in ctx.get(key, {}).items()})
+        if "generation_launches" in ctx:
+            paths["generation_full"] = ctx["generation_launches"][kernel]
         return paths
 
     def main_count(paths: dict, key: str) -> int:

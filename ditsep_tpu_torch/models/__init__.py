@@ -5,8 +5,9 @@ from ditsep_tpu_torch.models.score_models import (  # noqa: F401
     LatentScoreModelNCSNpp, ScoreModelNCSNpp,
 )
 from ditsep_tpu_torch.models.torch_import import (  # noqa: F401
-    diffsep_ema_param_order, import_diffsep_ema, import_ema_params,
-    import_oobleck_params, import_params, load_torch_ckpt,
+    diffsep_ema_param_order, dit_reference_state, import_diffsep_ema,
+    import_dit_params, import_ema_params, import_oobleck_params,
+    import_params, load_torch_ckpt,
 )
 from ditsep_tpu_torch.models.weights import (  # noqa: F401
     disc_params_from_jax, disc_params_to_jax, load_params_npz,

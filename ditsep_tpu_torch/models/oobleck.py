@@ -349,3 +349,70 @@ class OobleckVAE(nn.Module):
         """(B, D, Tl) -> (B, C, Tl * hop), float32."""
         y = self.decoder(latents).float()
         return torch.tanh(y) if self.soft_clip else y
+
+
+def _chunk_starts(total: int, size: int, hop: int) -> list:
+    starts = list(range(0, total - size + 1, hop))
+    if starts[-1] + size != total:
+        starts.append(total - size)
+    return starts
+
+
+def _stitch(chunks: Tensor, starts: list, total: int, size: int,
+            trim: int) -> Tensor:
+    """Overlap-trim stitching of (B, n, C, size) chunks at ``starts`` (in
+    output samples): each chunk but the first drops ``trim`` at its left,
+    each but the last at its right; the last chunk ends at ``total``."""
+    b, n, c, _ = chunks.shape
+    out = chunks.new_zeros((b, c, total))
+    for i in range(n):
+        t_start = total - size if i == n - 1 else starts[i]
+        t_end, c_start, c_end = t_start + size, 0, size
+        if i > 0:
+            t_start, c_start = t_start + trim, c_start + trim
+        if i < n - 1:
+            t_end, c_end = t_end - trim, c_end - trim
+        out[:, :, t_start:t_end] = chunks[:, i, :, c_start:c_end]
+    return out
+
+
+def encode_audio_chunked(vae: OobleckVAE, audio: Tensor, *,
+                         generator: Optional[torch.Generator] = None,
+                         noise: Optional[Tensor] = None, overlap: int = 32,
+                         chunk_size: int = 128) -> Tensor:
+    """Encode long (B, C, T) audio in chunks of ``chunk_size`` latent
+    frames overlapping by ``overlap``, all chunks in one batch, stitched
+    with ``overlap / 2`` frames trimmed at each inner edge (port of
+    ditsep_tpu/models/oobleck.py:430-464; reference: autoencoders.py:
+    596-664). ``generator`` / ``noise`` ((B * chunks, D, chunk_size))
+    sample the posterior as ``OobleckVAE.encode``."""
+    spl = vae.downsampling_ratio
+    b, c, total = audio.shape
+    cs, ov = chunk_size * spl, overlap * spl
+    if total <= cs:
+        return vae.encode(audio, generator=generator, noise=noise)
+    starts = _chunk_starts(total, cs, cs - ov)
+    flat = torch.stack([audio[:, :, s:s + cs] for s in starts],
+                       dim=1).reshape(b * len(starts), c, cs)
+    lat = vae.encode(flat, generator=generator, noise=noise)
+    lat = lat.reshape(b, len(starts), vae.latent_dim, chunk_size)
+    return _stitch(lat, [s // spl for s in starts], total // spl,
+                   chunk_size, overlap // 2)
+
+
+def decode_audio_chunked(vae: OobleckVAE, latents: Tensor, *,
+                         overlap: int = 32, chunk_size: int = 128) -> Tensor:
+    """Decode long (B, D, Tl) latents in chunks, the mirror of
+    ``encode_audio_chunked`` (port of ditsep_tpu/models/oobleck.py:
+    467-503)."""
+    spl = vae.downsampling_ratio
+    b, d, total = latents.shape
+    if total <= chunk_size:
+        return vae.decode(latents)
+    starts = _chunk_starts(total, chunk_size, chunk_size - overlap)
+    flat = torch.stack([latents[:, :, s:s + chunk_size] for s in starts],
+                       dim=1).reshape(b * len(starts), d, chunk_size)
+    dec = vae.decode(flat).reshape(b, len(starts), vae.out_channels,
+                                   chunk_size * spl)
+    return _stitch(dec, [s * spl for s in starts], total * spl,
+                   chunk_size * spl, (overlap // 2) * spl)

@@ -15,8 +15,10 @@ A full DiffSep Lightning checkpoint keys the score network under
 order of the module's trainable parameters, under ``ema.shadow_params``
 (reference: src/diffsep.py:578-609): ``import_diffsep_ema`` loads it.
 
-The DAU1d and DiT importers go with their models (ROADMAP A16.3);
-``utils/hub.py`` downloads, and is not ported.
+``import_dit_params`` loads a stable-audio DiffusionTransformer
+state_dict (port of ditsep_tpu/models/torch_import.py:417-520) by a
+rename to the port's flax names. The DAU1d importer goes with its model
+(ROADMAP A16.3b); ``utils/hub.py`` downloads, and is not ported.
 """
 from __future__ import annotations
 
@@ -115,3 +117,79 @@ def load_torch_ckpt(path: str) -> Dict[str, np.ndarray]:
         obj = obj["state_dict"]
     return {k: v.detach().cpu().numpy() for k, v in obj.items()
             if isinstance(v, torch.Tensor)}
+
+
+# the reference DiT's non-trainable entries the port does not keep: the
+# rotary embedding's frequency buffer (built from the config)
+_DIT_SKIPPED_SUFFIXES = ("rotary_pos_emb.inv_freq",)
+
+
+def dit_reference_key(key: str) -> str:
+    """A reference DiffusionTransformer state_dict key (reference:
+    stable-audio-tools models/dit.py:12-180, continuous_transformer,
+    models/transformer.py:637-899) -> the port's key: the MLPs' ``.0`` /
+    ``.2`` are ``dense_0`` / ``dense_1``, ``transformer.layers.{i}`` is
+    ``transformer.layer_{i}``, the adaLN ``global_cond_embedder.0`` / ``.2``
+    are ``global_embed_in`` / ``global_embed_out``, the GLU's
+    ``ff.ff.0.proj`` / ``ff.ff.2`` are ``ff.proj_in`` / ``ff.proj_out``, a
+    LayerNorm's ``gamma`` / ``beta`` its ``weight`` / ``bias``."""
+    parts = key.split(".")
+    if parts[0] in ("to_timestep_embed", "to_cond_embed", "to_global_embed",
+                    "to_prepend_embed") and len(parts) == 3:
+        return f"{parts[0]}.dense_{int(parts[1]) // 2}.{parts[2]}"
+    if parts[:2] == ["transformer", "global_cond_embedder"]:
+        which = {"0": "global_embed_in", "2": "global_embed_out"}[parts[2]]
+        return f"transformer.{which}.{parts[3]}"
+    if parts[:2] == ["transformer", "layers"]:
+        rest = ".".join(parts[3:])
+        rest = (rest.replace("ff.ff.0.proj.", "ff.proj_in.")
+                .replace("ff.ff.2.", "ff.proj_out."))
+        if rest.endswith(".gamma"):
+            rest = rest[:-len("gamma")] + "weight"
+        elif rest.endswith(".beta"):
+            rest = rest[:-len("beta")] + "bias"
+        return f"transformer.layer_{parts[2]}.{rest}"
+    return key
+
+
+def import_dit_params(model: nn.Module, state_dict: Mapping[str, Any],
+                      prefix: str = "") -> nn.Module:
+    """Load a reference DiffusionTransformer state_dict (the keys under
+    ``prefix``: ``model.model.`` in a stable-audio-tools
+    ``ConditionedDiffusionModelWrapper`` checkpoint) into the port's
+    ``DiffusionTransformer``, strictly, and return it. A LayerNorm without
+    its ``beta`` buffer takes a zero bias, as the reference keeps it; the
+    rotary frequency buffer is skipped."""
+    sub = {dit_reference_key(k[len(prefix):]): v
+           for k, v in state_dict.items()
+           if k.startswith(prefix) and not k.endswith(_DIT_SKIPPED_SUFFIXES)}
+    for key, value in model.state_dict().items():
+        if key.endswith("norm.bias") and key not in sub:
+            sub[key] = torch.zeros_like(value)
+    return load_state(model, sub)
+
+
+def dit_reference_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The inverse of ``import_dit_params``: a port DiffusionTransformer's
+    parameters as a reference state_dict (``dense_{0,1}`` -> ``.0`` /
+    ``.2``, ``layer_{i}`` -> ``layers.{i}``, the block norms' ``gamma`` /
+    ``beta``, the GLU's ``ff.ff.0.proj`` / ``ff.ff.2``)."""
+    out = {}
+    for key, value in model.state_dict().items():
+        parts = key.split(".")
+        if parts[0].startswith("to_") and parts[1].startswith("dense_"):
+            key = f"{parts[0]}.{2 * int(parts[1][6:])}.{parts[2]}"
+        elif parts[:2] in (["transformer", "global_embed_in"],
+                           ["transformer", "global_embed_out"]):
+            which = 0 if parts[1] == "global_embed_in" else 2
+            key = f"transformer.global_cond_embedder.{which}.{parts[2]}"
+        elif parts[0] == "transformer" and parts[1].startswith("layer_"):
+            rest = ".".join(parts[2:])
+            rest = (rest.replace("ff.proj_in.", "ff.ff.0.proj.")
+                    .replace("ff.proj_out.", "ff.ff.2."))
+            if parts[2] in ("pre_norm", "ff_norm", "cross_attend_norm"):
+                leaf = "gamma" if parts[3] == "weight" else "beta"
+                rest = f"{parts[2]}.{leaf}"
+            key = f"transformer.layers.{parts[1][6:]}.{rest}"
+        out[key] = value.detach().clone()
+    return out

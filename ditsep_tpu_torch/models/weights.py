@@ -13,6 +13,15 @@ GroupNorm's ``scale`` or a conv's or Dense's ``kernel``; for a bare
 state_dict, by the leaf's rank: 1-D, 4-D, 2-D), and ``save_params_npz``
 writes it, so weights trained by the port load into both packages.
 
+The stable-audio models (the DiT, the conditioners, the residual VQs)
+carry the flax names themselves, so the same rule covers them, with three
+more leaves: a conv1d kernel WIO (1, in, out) <-> OIW (out, in, 1), an
+``Embed``'s ``embedding`` <-> ``nn.Embedding.weight``, and any other leaf
+(``to_scale_shift_gate``, LayerScale's ``gamma``, ``codebook_{q}``, the
+Fourier features' ``weight``) copied under its own name. A ``params``
+level anywhere in a path (a conditioner's variables under its name) is
+dropped.
+
 The OobleckVAE has a bridge of its own (``oobleck_params_from_jax`` /
 ``oobleck_params_to_jax``, a copy of ditsep_tpu/models/torch_import.py:
 151-205's key map and its inverse): the flax tree (``encoder/stem/v``,
@@ -62,20 +71,43 @@ def _to_torch_layout(a: np.ndarray, leaf: str) -> np.ndarray:
     if leaf == "kernel":
         if a.ndim == 4:  # conv HWIO -> OIHW
             return a.transpose(3, 2, 0, 1)
+        if a.ndim == 3:  # conv1d WIO -> OIW
+            return a.transpose(2, 1, 0)
         if a.ndim == 2:  # dense (in, out) -> (out, in)
             return a.T
         raise ValueError(f"unexpected kernel rank {a.ndim}")
     return a
 
 
+# flax leaves outside ``flax_path_to_torch_key``'s map that keep a name of
+# their own in the port (the stable-audio models')
+_OWN_NAME_LEAVES = ("to_scale_shift_gate", "gamma", "weight")
+
+
+def _torch_key(path: Tuple[str, ...]) -> Optional[str]:
+    tkey = flax_path_to_torch_key(path)
+    if tkey is not None:
+        return tkey
+    leaf = path[-1]
+    if leaf == "embedding":
+        leaf = "weight"
+    elif not (leaf in _OWN_NAME_LEAVES or leaf.startswith("codebook_")):
+        return None
+    return ".".join(path[:-1] + (leaf,))
+
+
 def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """``{"a/b/c": array}`` JAX parameters -> ``{torch_key: tensor}``."""
+    """``{"a/b/c": array}`` JAX parameters -> ``{torch_key: tensor}``. An
+    OobleckVAE's tree (every key under ``encoder/`` or ``decoder/``, the
+    factory's autoencoder) goes through ``oobleck_params_from_jax``."""
+    paths = {key: tuple(p for p in key.split("/") if p != "params")
+             for key in flat}
+    if paths and all(p[0] in ("encoder", "decoder") for p in paths.values()):
+        return oobleck_params_from_jax(flat)
     out = {}
     for key, arr in flat.items():
-        path = tuple(key.split("/"))
-        if path[0] == "params":
-            path = path[1:]
-        tkey = flax_path_to_torch_key(path)
+        path = paths[key]
+        tkey = _torch_key(path)
         if tkey is None:
             raise KeyError(f"JAX parameter {key!r} has no torch counterpart")
         a = _to_torch_layout(np.asarray(arr), path[-1])
@@ -83,17 +115,27 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return out
 
 
-# the modules whose ``weight`` has a JAX counterpart, and its kind there
-_WEIGHT_KINDS = ((nn.GroupNorm, "scale"), (nn.Conv2d, "conv"),
-                 (nn.Linear, "dense"))
+def _weight_kinds():
+    """The modules whose ``weight`` has a JAX counterpart, and its kind
+    there."""
+    from ditsep_tpu_torch.models.dit import FourierFeatures
+    from ditsep_tpu_torch.models.transformer import LayerNorm
+    return ((nn.GroupNorm, "scale"), (LayerNorm, "scale"),
+            (nn.Conv2d, "conv"), (nn.Conv1d, "conv1d"),
+            (nn.Linear, "dense"), (nn.Embedding, "embedding"),
+            (FourierFeatures, "own"))
 
 
 def params_to_jax(model) -> Dict[str, np.ndarray]:
-    """A score model's (or NCSN++'s) parameters and buffers, the module or
-    its ``state_dict``, as the JAX package's flat ``{"a/b/c": array}``
-    parameters (``all_modules.12`` -> ``all_modules_12``; float32 numpy
-    arrays in the JAX layouts). A module's weights are named by their
-    owner's type; a state_dict's, which has no modules, by their rank."""
+    """A model's parameters and buffers, the module or its ``state_dict``,
+    as the JAX package's flat ``{"a/b/c": array}`` parameters
+    (``all_modules.12`` -> ``all_modules_12``; float32 numpy arrays in the
+    JAX layouts): a score model's, an NCSN++'s, or a stable-audio model's
+    (the module only; an OobleckVAE's through ``oobleck_params_to_jax``).
+    A module's weights are named by their owner's type; a state_dict's,
+    which has no modules, by their rank."""
+    if isinstance(model, OobleckVAE):
+        return oobleck_params_to_jax(model)
     module = model if isinstance(model, nn.Module) else None
     state = model.state_dict() if module is not None else model
     out = {}
@@ -104,7 +146,7 @@ def params_to_jax(model) -> Dict[str, np.ndarray]:
         if leaf == "weight":
             if module is not None:
                 owner = module.get_submodule(".".join(parts[:-1]))
-                kind = next((k for cls, k in _WEIGHT_KINDS
+                kind = next((k for cls, k in _weight_kinds()
                              if isinstance(owner, cls)), None)
                 what = f"a weight of {type(owner).__name__}"
             else:
@@ -112,13 +154,20 @@ def params_to_jax(model) -> Dict[str, np.ndarray]:
                 what = f"a {a.ndim}-D weight"
             if kind is None:
                 raise KeyError(f"{key}: {what} has no JAX counterpart")
-            if kind == "scale":  # GroupNorm
+            if kind == "scale":  # GroupNorm, LayerNorm
                 leaf = "scale"
             elif kind == "conv":  # OIHW -> HWIO
                 leaf, a = "kernel", a.transpose(2, 3, 1, 0)
-            else:  # Dense
+            elif kind == "conv1d":  # OIW -> WIO
+                leaf, a = "kernel", a.transpose(2, 1, 0)
+            elif kind == "embedding":
+                leaf = "embedding"
+            elif kind == "dense":
                 leaf, a = "kernel", a.T
-        elif leaf not in ("bias", "W", "b"):
+        elif not (leaf in ("bias", "W", "b")
+                  or (module is not None and (
+                      leaf in _OWN_NAME_LEAVES
+                      or leaf.startswith("codebook_")))):
             raise KeyError(f"{key} has no JAX counterpart")
         path = []
         i = 0

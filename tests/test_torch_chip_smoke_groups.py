@@ -99,3 +99,72 @@ def test_kernels_line_sums_the_media_paths(smoke):
         "media_evaluate": 180, "import_separate": 72}
     assert by["fir_up2d"]["launches"] == 24 + 0 + 0
     assert by["fba_fwd"]["launches"] == 0
+
+
+def test_kernels_line_lists_the_generation_path(smoke):
+    """The generation phase's path runs no kernel: every kernel lists it
+    with 0 launches."""
+    zero = {k: 0 for k in ("fir_down2d", "fir_up2d", "fba_fwd", "fba_bwd",
+                           "conv3x3_9tap", "conv3x3_async_halo")}
+    line = smoke.kernels_line({"generation_launches": zero}, torch)
+    assert all(k["launches_by_path"]["generation_full"] == 0
+               for k in line if "launches_by_path" in k)
+    assert "phase_generation" in smoke.GROUPS[2]
+
+
+def test_generation_configs_are_stable_audio_open(smoke):
+    """The full-width config has Stable Audio Open 1.0's widths (the
+    DiT's parameter count on the meta device: no memory), 1,024 latent
+    frames for 2,097,152 samples; the small one its schema."""
+    from ditsep_tpu_torch.models.factory import (
+        create_diffusion_cond_from_config)
+    with torch.device("meta"):
+        dit, routing, cfgs, pre = create_diffusion_cond_from_config(
+            smoke.SAO_FULL, include_pretransform=True)
+    n = sum(p.numel() for p in dit.parameters())
+    assert 1.05e9 < n < 1.1e9
+    assert (dit.embed_dim, len(dit.transformer.layers()),
+            dit.transformer.dim_heads) == (1536, 24, 64)
+    assert smoke.SAO_SAMPLE_SIZE // pre.downsampling_ratio == 1024
+    assert (pre.encoded_channels, pre.io_channels) == (64, 2)
+    assert routing.cross_attn_cond_ids == ("prompt", "seconds_start",
+                                           "seconds_total")
+    assert routing.global_cond_ids == ("seconds_start", "seconds_total")
+    small = smoke.GEN_SMALL["model"]
+    assert set(small) == set(smoke.SAO_FULL["model"])
+
+
+def test_generation_phase_rehearsed_on_the_cpu(smoke, monkeypatch,
+                                               tmp_path):
+    """The phase's parts on the CPU (CUDA calls patched to no-ops, the
+    profiler's replay skipped): the small config's four generation cases
+    (card and CPU both the CPU here), the three routes byte-equal to the
+    direct calls, a full-width run at a tiny width and the importer, every
+    launch count 0."""
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    monkeypatch.setattr(smoke, "profile_replay", lambda run: {
+        "nfe": run(), "wall_ms": 0.0, "device_busy_ms": 0.0,
+        "idle_share": None, "top": []})
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        ctx = {"card": "CPU"}
+        par = smoke.gen_parity(ctx, device="cpu")
+        assert set(par["card_vs_cpu_rel"]) == {"v", "k_heun", "rf_euler",
+                                               "variation_inpaint"}
+        http = smoke.gen_http(ctx, tmp_path, device="cpu")
+        assert not any(http["launches"].values())
+        tiny = smoke.sao_config(smoke.GEN_SMALL_VAE, 8, 32, 8, {
+            "embed_dim": 64, "depth": 2, "num_heads": 2})
+        full = smoke.gen_full(ctx, tiny, 1024, device="cpu")
+        assert len(full["step_s"]) == (smoke.GEN_FULL_REQUESTS
+                                       * smoke.GEN_FULL_STEPS)
+        assert (full["cfg_rows"], full["tokens"]) == (2, 1024 // 32 + 1)
+        assert not any(full["launches"].values())
+        imp = smoke.gen_importer(full["app"], full["probe"], tiny,
+                                 device="cpu")
+        assert imp["bit_equal"]
+    finally:
+        torch.set_num_threads(n)

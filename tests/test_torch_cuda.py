@@ -1130,3 +1130,46 @@ def test_reference_checkpoint_imports_on_the_card(cuda_device, tmp_path):
          torch.backends.cudnn.allow_tf32) = tf32
     ref = out["cpu"]
     assert np.abs(out["cuda"] - ref).max() <= 1e-3 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_full_width_dit_on_card_matches_cpu(cuda_device):
+    """Stable Audio Open 1.0's DiT (1536 wide, 24 layers, 1.09 B
+    parameters) with seeded weights, its zero-initialised layers redrawn:
+    one CFG forward (2 rows x 1,025 tokens, a 130-token context and the
+    global conditioning) on the card equals the CPU's within 1e-3 of
+    max|cpu|, TF32 off."""
+    import copy
+
+    from ditsep_tpu_torch.models.factory import (
+        create_diffusion_cond_from_config)
+
+    from chip_smoke import SAO_FULL, nonzero_
+
+    with torch.device("meta"):
+        dit = create_diffusion_cond_from_config(SAO_FULL)[0]
+    dit = dit.to_empty(device="cpu")
+    dit.reset_parameters(torch.Generator().manual_seed(0))
+    nonzero_(dit, 1)
+    dit.eval()
+    card = copy.deepcopy(dit).to(cuda_device)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(1, 64, 1024, generator=g)
+    t = torch.full((1,), 0.6)
+    cond = {"cross_attn_cond": torch.randn(1, 130, 768, generator=g),
+            "global_embed": torch.randn(1, 1536, generator=g)}
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = dit(x, t, cfg_scale=7.0, **cond)
+            got = card(x.to(cuda_device), t.to(cuda_device), cfg_scale=7.0,
+                       **{k: v.to(cuda_device) for k, v in cond.items()})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    assert got.shape == want.shape == (1, 64, 1024)
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert err <= 1e-3, float(err)

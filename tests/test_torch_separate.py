@@ -199,11 +199,10 @@ def test_cli_separate_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("what", ["latent_mesh", "mesh", "latent_demo",
                                   "ldm_config", "save_figures",
-                                  "serve_api_mesh", "serve_vae_config",
-                                  "serve_gradio"])
+                                  "serve_api_mesh", "serve_gradio"])
 def test_unported_options_raise(what, tmp_path, monkeypatch):
-    """What is not ported yet raises: the demo server's autoencoder tab
-    and gradio shell (A16). A mesh on either training CLI and on
+    """What is not ported yet raises: the demo server's gradio shell
+    (A16.4). A mesh on either training CLI and on
     serve_api raises without a card and without --cpu (no fallback to the
     CPU). The latent CLI's demo callbacks, train_ldm's demo decodes and
     cli.evaluate's figures, once unported, now run (their flag alone
@@ -238,10 +237,43 @@ def test_unported_options_raise(what, tmp_path, monkeypatch):
                            "--params", str(tmp_path / "no.npz")])
         return
     with pytest.raises(NotImplementedError):
-        if what == "serve_vae_config":
-            serve.main(["--vae-config", "vae.json", "--cpu"])
-        if what == "serve_gradio":
-            serve.main(["--gradio", "--cpu"])
+        serve.main(["--gradio", "--cpu"])
+
+
+def test_serve_vae_config_builds_the_autoencoder_tab(tmp_path, monkeypatch):
+    """``cli.serve --vae-config X.json --cpu`` builds the autoencoder tab
+    from the stable-audio JSON (the model factory's seeded OobleckVAE on
+    the CPU) beside the separation tab, and serves both."""
+    import json
+
+    from ditsep_tpu_torch.cli import serve
+    from ditsep_tpu_torch.interface import AutoencoderApp, DemoServer
+    vae_json = tmp_path / "vae.json"
+    vae_json.write_text(json.dumps({
+        "model_type": "autoencoder", "sample_rate": 16000, "model": {
+            "encoder": {"type": "oobleck", "config": {
+                "channels": 4, "c_mults": [1, 2], "strides": [2, 2],
+                "latent_dim": 4}},
+            "decoder": {"type": "oobleck", "config": {
+                "channels": 4, "c_mults": [1, 2], "strides": [2, 2],
+                "latent_dim": 2}},
+            "bottleneck": {"type": "vae"}, "latent_dim": 2}}))
+    served = {}
+    monkeypatch.setattr(DemoServer, "serve_forever",
+                        lambda self: served.update(srv=self))
+    serve.main(["--vae-config", str(vae_json), "--cpu", "--port", "0",
+                "--override", *[f"{k}={v!r}" for k, v in TINY.items()]])
+    srv = served["srv"]
+    try:
+        info = srv.info()
+        assert info["separation"] and info["autoencoder"]
+        ae = srv.autoencoder
+        assert isinstance(ae, AutoencoderApp) and ae.fs == 16000
+        assert next(ae.vae.parameters()).device.type == "cpu"
+        rec = ae.process(np.sin(np.arange(64) / 3.0).astype(np.float32))
+        assert rec.shape == (64,) and np.isfinite(rec).all()
+    finally:
+        srv._httpd.server_close()
 
 
 def test_cuda_requested_without_cuda_raises(monkeypatch):

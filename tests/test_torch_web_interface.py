@@ -1,8 +1,9 @@
 """The port's stdlib web demo (ditsep_tpu_torch.interface) on the CPU,
 mirroring tests/test_web_interface.py: a live ThreadingHTTPServer over
-localhost driven with urllib. The port has the separation backend; the
-autoencoder, generation and LM routes answer 404 "backend not loaded" as
-the JAX server does without those backends (ROADMAP A16).
+localhost driven with urllib. The separation, autoencoder and generation
+routes answer with the bytes of the direct backend calls; the LM route
+answers 404 "backend not loaded", the LM not being ported (ROADMAP
+A16.3b).
 
 Against the JAX package: the WAV codec (``encode_wav`` byte-equal,
 ``decode_wav`` equal on 8-, 16- and 32-bit input) and
@@ -142,19 +143,123 @@ def test_separate_endpoint(server):
         assert np.isfinite(src).all()
 
 
+VAE_JSON = {"model_type": "autoencoder", "sample_rate": 8000, "model": {
+    "encoder": {"type": "oobleck", "config": {
+        "in_channels": 1, "channels": 4, "c_mults": [1, 2],
+        "strides": [2, 2], "latent_dim": 6}},
+    "decoder": {"type": "oobleck", "config": {
+        "out_channels": 1, "channels": 4, "c_mults": [1, 2],
+        "strides": [2, 2], "latent_dim": 3}},
+    "bottleneck": {"type": "vae"}, "latent_dim": 3}}
+
+GEN_JSON = {"model_type": "diffusion_cond", "model": {
+    "conditioning": {"cond_dim": 8, "configs": [
+        {"id": "seconds_start", "type": "number",
+         "config": {"min_val": 0, "max_val": 512}},
+        {"id": "seconds_total", "type": "number",
+         "config": {"min_val": 0, "max_val": 512}}]},
+    "diffusion": {"cross_attention_cond_ids": ["seconds_start",
+                                               "seconds_total"],
+                  "global_cond_ids": ["seconds_start", "seconds_total"],
+                  "type": "dit", "config": {
+                      "embed_dim": 16, "depth": 1, "num_heads": 2,
+                      "cond_token_dim": 8, "global_cond_dim": 16}},
+    "io_channels": 1}}
+
+
+def _generation_app():
+    """A numbers-only conditional DiT from the factory (seeded), its
+    zero-initialised layers redrawn so the output depends on them."""
+    from ditsep_tpu_torch.interface import GenerationApp
+    from ditsep_tpu_torch.models.conditioners import (
+        create_multi_conditioner_from_config)
+    from ditsep_tpu_torch.models.factory import create_model_from_config
+
+    dit, routing, _ = create_model_from_config(GEN_JSON)
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in dit.parameters():
+            if not p.any():
+                p.normal_(0.0, 0.1, generator=g)
+    cond = create_multi_conditioner_from_config(
+        GEN_JSON["model"]["conditioning"])
+    return GenerationApp(model=dit.eval(), io_channels=1, sample_size=64,
+                         routing=routing, conditioner=cond.eval())
+
+
+@pytest.fixture(scope="module")
+def full_server(tmp_path_factory):
+    from ditsep_tpu_torch.cli.serve import build_autoencoder_app
+    path = tmp_path_factory.mktemp("vae") / "vae.json"
+    path.write_text(json.dumps(VAE_JSON))
+    srv = DemoServer(separation=_tiny_app(),
+                     autoencoder=build_autoencoder_app(str(path),
+                                                       device="cpu"),
+                     generation=_generation_app(), port=0).start()
+    yield srv
+    srv.close()
+
+
+ROUTE_CASES = {
+    "autoencoder": "/api/autoencoder?latent_noise=0.1&seed=2",
+    "generate": "/api/generate",
+    "generate_cond": "/api/generate_cond",
+}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTE_CASES))
+def test_generation_and_autoencoder_routes_match_direct_calls(full_server,
+                                                              route):
+    """Each route answers 200 with a WAV equal, byte for byte, to the
+    direct backend call's int16 encoding."""
+    srv = full_server
+    if route == "autoencoder":
+        wav = (np.sin(np.arange(400) / 7.0) * 0.5).astype(np.float32)
+        body = encode_wav(wav, 8000)
+        direct = srv.autoencoder.process(decode_wav(body)[0],
+                                         latent_noise=0.1, seed=2)
+        fs = srv.autoencoder.fs
+    elif route == "generate":
+        body = json.dumps({"steps": 3, "seed": 1}).encode()
+        direct = srv.generation.generate_uncond(steps=3, seed=1)[0]
+        fs = srv.generation.fs
+    else:
+        body = json.dumps({"cond": {"seconds_start": 0, "seconds_total": 47},
+                           "steps": 3, "cfg_scale": 4.0,
+                           "seed": 2}).encode()
+        direct = srv.generation.generate_conditional(
+            {"seconds_start": np.asarray([0.0], np.float32),
+             "seconds_total": np.asarray([47.0], np.float32)},
+            steps=3, cfg_scale=4.0, seed=2)[0]
+        fs = srv.generation.fs
+    with _post(srv, ROUTE_CASES[route], body) as r:
+        assert r.status == 200
+        assert r.headers["Content-Type"] == "audio/wav"
+        got = r.read()
+    assert got == encode_wav(direct, fs)
+    assert np.isfinite(decode_wav(got)[0]).all()
+
+
 @pytest.mark.parametrize("path,body", [
-    ("/api/autoencoder?latent_noise=0.1", b"RIFF"),
-    ("/api/generate", json.dumps({"steps": 3, "seed": 1}).encode()),
-    ("/api/generate_cond", json.dumps({"cond": {"prompt": "x"}}).encode()),
     ("/api/lm", json.dumps({"length": 4, "top_k": 4}).encode()),
 ])
-def test_unloaded_backend_routes_404(server, path, body):
-    """The autoencoder, generation and LM tests of the JAX package: their
-    backends are not ported (ROADMAP A16), so the routes answer 404."""
+def test_unloaded_backend_routes_404(full_server, path, body):
+    """The LM backend is not ported (ROADMAP A16.3b): its route answers
+    404 on a server with every other backend."""
     with pytest.raises(urllib.error.HTTPError) as e:
-        _post(server, path, body)
+        _post(full_server, path, body)
     assert e.value.code == 404
     assert b"backend not loaded" in e.value.read()
+
+
+def test_generate_cond_prompt_string_fails_cleanly(full_server):
+    """A JSON prompt passes through as a string, which number conditioners
+    cannot take (as in the JAX package): a clean 500 with the error."""
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(full_server, "/api/generate_cond", json.dumps(
+            {"cond": {"seconds_start": "x", "seconds_total": 3},
+             "steps": 2}).encode())
+    assert e.value.code == 500
 
 
 def test_unknown_endpoint_and_bad_input(server):
