@@ -4,10 +4,10 @@
     python3 chip_smoke.py [--group 1|2] [--phase NAME ...]
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, all at once) and runs twenty-eight phases, each printing
+nvcc per source, all at once) and runs twenty-nine phases, each printing
 JSON lines and, after it, ``{"phase": NAME, "phase_s": seconds}``; any
 failure raises and the exit code is non-zero. ``--group 1`` runs phases
-2-16 and ``--group 2`` phases 17-28 (``GROUPS``: each group fits one
+2-16 and ``--group 2`` phases 17-29 (``GROUPS``: each group fits one
 900 s chip call); ``--phase`` runs the named phases alone:
 
 1. device   -- card name and power limit (nvidia-smi), kernel build time;
@@ -226,7 +226,31 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                share, TFLOP/s, a bf16 step's distance from f32; and the
                DiT importer at full width, bit-equal to the same weights
                through ``params_from_jax``;
-28. mesh    -- data parallelism (``ditsep_tpu_torch.parallel``) in child
+28. stable_models -- the rest of the stable-audio models, which no kernel
+               of the port lies on (every launch count 0): card vs CPU
+               (TF32 off, the card's draws) on small configs, an
+               ``AudioLM`` (depth 2, width 64, 4 codebooks of 32,
+               cross-attention, prepend and global conditioning) through
+               ``lm_generate`` at CFG 3 replayed teacher-forced (every
+               step's logits within 1e-4 of max|cpu|), its codes through
+               a small ``DACPretransform.decode_tokens`` (1e-3), SEANet
+               and TAAE autoencoders (1e-4), ``generate_diffusion_cond``
+               through the 'adp_cfg_1d' U-Net and the diffusion
+               autoencoder's ``reconstruct`` (1e-3); ``DemoServer(lm=
+               LMApp(...))``: /api/lm's WAV (and, without a decoder, its
+               JSON codes) equal to the direct call's; the token LM at
+               MusicGen-small's widths (1024 x 24 layers, 16 heads) over
+               DAC 44 kHz's 9 x 1024 codes, seeded, through ``LMApp``: 2
+               requests of 172 frames (180 cached LM calls each, top-k
+               250), the prefill, a decode step's median and spread,
+               frames per second, ``decode_tokens``, the request, peak
+               GiB, 16 profiled decode steps' idle share, a step's byte
+               bound; the last cached step against a full uncached pass
+               (1e-4, TF32 off); DAU1d at the reference class's defaults
+               (stereo, depth 14), 8 sampler steps of 65,536 samples, one
+               step profiled, and its importer bit-equal to the
+               ``params_from_jax`` load;
+29. mesh    -- data parallelism (``ditsep_tpu_torch.parallel``) in child
                processes on 127.0.0.1, each under a hard timeout, TF32
                off and deterministic cuDNN: ``cli.train_diffsep`` at the
                flagship width (batch 6 x 40,960, 2 steps, a validation)
@@ -247,8 +271,9 @@ latent evaluate, separate, training and caching paths, the LDM's caching
 and training CLIs, the media phase's training, evaluate and separate
 CLIs and its API callback, the imported checkpoint's separations, each
 serving
-warmup and level, the stream sessions and the streaming CLI; the mesh
-phase's children count their own) and read just after it. The script
+warmup and level, the stream sessions and the streaming CLI, the
+generation and stable_models paths; the mesh phase's children count their
+own) and read just after it. The script
 then prints the ``kernels`` JSON line (all six kernels; a group run, the
 launches of the paths it ran), and as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -323,7 +348,7 @@ GROUPS = {
     2: ("phase_latent_kernel", "phase_latent_parity", "phase_latent_flagship",
         "phase_latent_train", "phase_ldm_parity", "phase_ldm_train",
         "phase_serving_parity", "phase_serving", "phase_serving_latent",
-        "phase_generation", "phase_mesh"),
+        "phase_generation", "phase_stable_models", "phase_mesh"),
 }
 
 
@@ -890,8 +915,10 @@ def profile_separate_call(call, n: int = 2) -> dict:
 
 def profile_replay(run) -> dict:
     """``run()`` (one call; returns its NFE) warmed, timed unprofiled on
-    the host clock, then once under torch.profiler. Device busy time, and
-    the device's idle share of the unprofiled call's wall time."""
+    the host clock, then once under torch.profiler, recording the device's
+    activity alone (the summary reads nothing else, and recording
+    thousands of host ops takes the profiler seconds). Device busy time,
+    and the device's idle share of the unprofiled call's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -902,8 +929,7 @@ def profile_replay(run) -> dict:
         nfe = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
     summary = profile_summary(prof, wall_ms)
@@ -4302,6 +4328,499 @@ def phase_generation(ctx):
     torch.cuda.empty_cache()
 
 
+# -- the stable_models phase: the token LM, the codecs, the 1-D U-Nets --------
+# MusicGen-small's transformer widths (audiocraft facebook/musicgen-small:
+# 1024 wide, 24 layers, 16 heads) over DAC 44 kHz's 9 codebooks of 1024,
+# in the delay pattern; the dac_pretrained pretransform at the widths the
+# factory fixes (encoder d_model 64, strides 2, 4, 8, 8, hop 512, latent
+# 1024, decoder 1536)
+LM_FULL = {"model_type": "lm", "sample_rate": 44100, "model": {
+    "pretransform": {"type": "dac_pretrained",
+                     "config": {"model_type": "44khz"}},
+    "lm": {"type": "continuous_transformer", "codebook_pattern": "delay",
+           "config": {"n_quantizers": 9, "codebook_size": 1024,
+                      "embed_dim": 1024, "depth": 24, "num_heads": 16}}}}
+LM_FULL_LENGTH = 172               # frames: 88,064 samples, 2.0 s
+LM_FULL_REQUESTS, LM_FULL_TOP_K = 2, 250
+LM_PROFILE_STEPS = 16
+# the small LM held card against CPU: 4 codebooks of 32, cross-attention,
+# prepend and global conditioning, CFG 3
+LM_SMALL = {"n_quantizers": 4, "codebook_size": 32, "dim": 64, "depth": 2,
+            "num_heads": 4, "cross_attn_cond_dim": 16,
+            "prepend_cond_dim": 8, "global_cond_dim": 8}
+LM_SMALL_LENGTH, LM_SMALL_CFG = 24, 3.0
+# the dance-diffusion U-Net at the reference class's defaults (stereo,
+# depth 14, channels 128, 128, 256, 256 + 512 x 10)
+DAU_FULL = {"model_type": "diffusion_uncond",
+            "model": {"type": "DAU1d", "config": {}}}
+DAU_SAMPLE_SIZE, DAU_STEPS = 65536, 8
+SMALL_CODECS = {  # the small SEANet and TAAE autoencoders held card vs CPU
+    "seanet": ({"dimension": 8, "n_filters": 8, "ratios": [4, 2]},
+               {"dimension": 8, "n_filters": 8, "ratios": [4, 2]}),
+    "taae": ({"in_channels": 1, "channels": 16, "latent_dim": 8,
+              "c_mults": [1, 2], "strides": [2, 4],
+              "transformer_depths": [1, 1], "sliding_window": [7, 8],
+              "use_snake": True, "conformer": True},
+             {"out_channels": 1, "channels": 16, "latent_dim": 8,
+              "c_mults": [1, 2], "strides": [2, 4],
+              "transformer_depths": [1, 1], "sliding_window": [7, 8],
+              "use_snake": True, "conformer": True})}
+UNET_SMALL = {"model_type": "diffusion_cond", "model": {"diffusion": {
+    "type": "adp_cfg_1d", "cross_attention_cond_ids": ["prompt"],
+    "config": {"in_channels": 2, "channels": 16, "multipliers": [1, 2, 2],
+               "factors": [2, 2], "num_blocks": [1, 1],
+               "attentions": [0, 1, 1], "context_embedding_features": 32,
+               "context_embedding_max_length": 8, "attention_heads": 2,
+               "attention_features": 16}}}}
+DIFFAE_SMALL = {"model_type": "diffusion_autoencoder", "model": {
+    "latent_dim": 4, "downsampling_ratio": 8, "io_channels": 1,
+    "encoder": {"type": "oobleck", "config": {
+        "channels": 8, "c_mults": [1, 2], "strides": [2, 4],
+        "latent_dim": 4}},
+    "diffusion": {"type": "adp_1d", "config": {
+        "in_channels": 5, "out_channels": 1, "channels": 16,
+        "multipliers": [1, 2], "factors": [2], "num_blocks": [1],
+        "attentions": [0, 1]}}}}
+
+
+def small_dac(device: str, seed: int):
+    """A seeded DACPretransform whose quantizer takes LM_SMALL's codes (4
+    codebooks of 32; hop 4, 16 latent channels)."""
+    import torch
+    from ditsep_tpu_torch.models.bottleneck import DACResidualVQ
+    from ditsep_tpu_torch.models.codecs import (DACDecoderWrapper,
+                                                DACEncoderWrapper)
+    from ditsep_tpu_torch.models.pretransforms import DACPretransform
+
+    with torch.device(device):
+        g = torch.Generator(device=device).manual_seed(seed)
+        parts = [DACEncoderWrapper(d_model=4, strides=(2, 2)),
+                 DACDecoderWrapper(latent_dim=16, channels=16, rates=(2, 2)),
+                 DACResidualVQ(16, n_codebooks=4, codebook_size=32,
+                               codebook_dim=4)]
+        for m in parts:
+            m.reset_parameters(g)
+    return DACPretransform(*parts).eval()
+
+
+def small_lm(device: str, seed: int):
+    """LM_SMALL seeded, its zero layers redrawn (``nonzero_``)."""
+    import torch
+    from ditsep_tpu_torch.models.lm import AudioLM
+    with torch.device(device):
+        lm = AudioLM(**LM_SMALL)
+        lm.reset_parameters(torch.Generator(device=device).manual_seed(seed))
+    nonzero_(lm, seed + 1)
+    return lm.eval()
+
+
+def lm_teacher_forced(lm, grid, cond: dict, cfg_scale: float):
+    """The per-step logits (B, n_q, S, C) of ``lm``'s cached decode fed BOS
+    then grid[..., :-1] a token at a time (the prepend on the prefill),
+    the CFG pair blended as ``lm_generate`` blends it."""
+    import torch
+    b, n_q, s = grid.shape
+    use_cfg = cfg_scale != 1.0 and bool(cond)
+    if use_cfg:
+        cond = {k: torch.cat([v, v]) if k == "cross_attn_mask"
+                else torch.cat([v, torch.zeros_like(v)])
+                for k, v in cond.items()}
+    n_prep = cond["prepend_cond"].shape[1] if "prepend_cond" in cond else 0
+    cache = lm.init_cache(2 * b if use_cfg else b, n_prep + s + 1)
+    bos = torch.full((b, n_q, 1), lm.special_token, dtype=grid.dtype,
+                     device=grid.device)
+    inp = torch.cat([bos, grid[..., :-1]], dim=-1)
+    rest = {k: v for k, v in cond.items() if k != "prepend_cond"}
+    out = []
+    with torch.no_grad():
+        for i in range(s):
+            tok = inp[..., i:i + 1]
+            lg, cache = lm(torch.cat([tok, tok]) if use_cfg else tok,
+                           cache=cache, cache_index=0 if i == 0 else
+                           n_prep + i, **(cond if i == 0 else rest))
+            lg = lg[:, :, -1]
+            if use_cfg:
+                c, u = lg.chunk(2)
+                lg = u + (c - u) * cfg_scale
+            out.append(lg)
+    return torch.stack(out, dim=2)
+
+
+def _rel(got, want) -> float:
+    return float((got.detach().cpu().float() - want.detach().float()).abs()
+                 .max() / want.detach().float().abs().max())
+
+
+def stable_parity(ctx, device: str = "cuda") -> dict:
+    """(1) The small configs on the card and on the CPU with the same
+    weights and the card's draws, TF32 off: the LM's ``lm_generate`` (CFG
+    3, top-k 8) replayed teacher-forced on both (every step's logits
+    within 1e-4 of max|cpu|), the same codes through a small
+    ``DACPretransform.decode_tokens`` (1e-3), SEANet and TAAE
+    autoencoders' round trips (1e-4), ``generate_diffusion_cond`` through
+    the 'adp_cfg_1d' U-Net and ``DiffusionAutoencoder.reconstruct`` from
+    the card's noise (1e-3). Every launch count 0."""
+    import copy
+
+    import torch
+    from ditsep_tpu_torch.inference.generation import (
+        generate_diffusion_cond)
+    from ditsep_tpu_torch.models.factory import create_model_from_config
+    from ditsep_tpu_torch.models.lm import DelayPattern, lm_generate
+
+    def pair(module):
+        return module, copy.deepcopy(module).to("cpu")
+
+    out, rel = {}, {}
+    g = torch.Generator().manual_seed(3)
+    mask = torch.ones(1, 6, dtype=torch.bool)
+    mask[:, 4:] = False
+    cond_cpu = {"cross_attn_cond": torch.randn(1, 6, 16, generator=g),
+                "cross_attn_mask": mask,
+                "prepend_cond": torch.randn(1, 3, 8, generator=g),
+                "global_cond": torch.randn(1, 8, generator=g)}
+    cond = {k: v.to(device) for k, v in cond_cpu.items()}
+    reset_counts()
+    with full_f32():
+        lm, cpu_lm = pair(small_lm(device, 1))
+        tokens = lm_generate(
+            lm, 1, LM_SMALL_LENGTH, top_k=8, cfg_scale=LM_SMALL_CFG,
+            generator=torch.Generator(device=device).manual_seed(4), **cond)
+        check(tokens.shape == (1, 4, LM_SMALL_LENGTH) and int(tokens.min())
+              >= 0 and int(tokens.max()) < 32, f"LM tokens {tokens.shape}")
+        grid = DelayPattern(4, 32).apply(tokens)
+        rel["lm_teacher_forced_logits"] = _rel(
+            lm_teacher_forced(lm, grid, cond, LM_SMALL_CFG),
+            lm_teacher_forced(cpu_lm, grid.cpu(), cond_cpu, LM_SMALL_CFG))
+        pre, cpu_pre = pair(small_dac(device, 5))
+        with torch.no_grad():
+            rel["dac_decode_tokens"] = _rel(pre.decode_tokens(tokens),
+                                            cpu_pre.decode_tokens(
+                                                tokens.cpu()))
+        x = torch.randn(2, 1, 256, generator=g)
+        for name, (enc, dec) in SMALL_CODECS.items():
+            with torch.device(device):
+                ae = create_model_from_config({
+                    "model_type": "autoencoder", "model": {
+                        "encoder": {"type": name, "config": enc},
+                        "decoder": {"type": name, "config": dec},
+                        "bottleneck": {"type": "tanh"}, "latent_dim": 8}},
+                    torch.Generator(device=device).manual_seed(6))
+            ae, cpu_ae = pair(ae.eval())
+            with torch.no_grad():
+                rel[f"{name}_round_trip"] = _rel(ae(x.to(device))[0],
+                                                 cpu_ae(x)[0])
+        with torch.device(device):
+            net = create_model_from_config(
+                UNET_SMALL, torch.Generator(device=device).manual_seed(7))[0]
+        nonzero_(net, 8)
+        net, cpu_net = pair(net.eval())
+        emb = torch.randn(1, 5, 32, generator=g)
+        noise = torch.randn(1, 2, 256, generator=torch.Generator(
+            device=device).manual_seed(9), device=device)
+        runs = []
+        for model, dev in ((net, device), (cpu_net, "cpu")):
+            with torch.no_grad():
+                runs.append(generate_diffusion_cond(
+                    model, steps=4, cfg_scale=3.0, batch_size=1,
+                    sample_size=256, io_channels=model.io_channels,
+                    cond_inputs={"cross_attn_cond": emb.to(dev)},
+                    diffusion_objective=model.diffusion_objective,
+                    noise=noise.to(dev)))
+        rel["unet_cfg_generate"] = _rel(*runs)
+        with torch.device(device):
+            dae = create_model_from_config(
+                DIFFAE_SMALL, torch.Generator(device=device).manual_seed(10))
+        nonzero_(dae.diffusion, 11)
+        dae, cpu_dae = pair(dae.eval())
+        audio = torch.randn(1, 1, 256, generator=g)
+        noise = torch.randn(1, 1, 256, generator=torch.Generator(
+            device=device).manual_seed(12), device=device)
+        with torch.no_grad():
+            rel["diffae_reconstruct"] = _rel(
+                dae.reconstruct(audio.to(device), steps=3, noise=noise),
+                cpu_dae.reconstruct(audio, steps=3, noise=noise.cpu()))
+    torch.cuda.synchronize()
+    out["launches"] = counts()
+    check(not any(out["launches"].values()),
+          f"stable parity launches {out['launches']}")
+    bars = {"lm_teacher_forced_logits": 1e-4, "dac_decode_tokens": 1e-3,
+            "seanet_round_trip": 1e-4, "taae_round_trip": 1e-4,
+            "unet_cfg_generate": 1e-3, "diffae_reconstruct": 1e-3}
+    for name, bar in bars.items():
+        check(rel[name] <= bar, f"{name}: card vs CPU {rel[name]} > {bar}")
+    out["card_vs_cpu_rel"], out["bars"] = rel, bars
+    return out
+
+
+def stable_http(ctx, device: str = "cuda") -> dict:
+    """(2) A ``DemoServer(lm=LMApp(...))`` with the small LM and the small
+    DAC codec: /api/lm answers 200 with the WAV bytes of a direct
+    ``LMApp.process`` at the same seed; without a decoder, the JSON codes
+    of the direct call."""
+    import urllib.request
+
+    import torch
+    from ditsep_tpu_torch.interface import DemoServer, LMApp
+    from ditsep_tpu_torch.interface.web import encode_wav
+
+    lm, pre = small_lm(device, 13), small_dac(device, 14)
+    body = {"length": 16, "temperature": 0.9, "top_k": 8, "top_p": 0.0,
+            "seed": 15}
+    out = {}
+    reset_counts()
+    for name, decode in (("wav", pre.decode_tokens), ("codes", None)):
+        app = LMApp(lm=lm, decode_tokens=decode, fs=44100)
+        srv = DemoServer(lm=app, port=0).start()
+        try:
+            with deterministic_cudnn():
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{srv.port}/api/lm",
+                    data=json.dumps(body).encode(), method="POST")
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    status, got = r.status, r.read()
+                direct = app.process(**body)
+        finally:
+            srv.close()
+        want = (encode_wav(direct.reshape(-1), app.fs) if decode is not None
+                else json.dumps({"codes": direct.tolist()}).encode())
+        check(status == 200 and got == want,
+              f"/api/lm ({name}) differs from the direct call")
+        out[name] = {"status": status, "bytes": len(got),
+                     "shape": list(direct.shape)}
+    torch.cuda.synchronize()
+    out["launches"] = counts()
+    check(not any(out["launches"].values()),
+          f"/api/lm launches {out['launches']}")
+    return out
+
+
+def stable_lm_full(ctx, cfg: dict = LM_FULL, length: int = LM_FULL_LENGTH,
+                   device: str = "cuda") -> dict:
+    """(3) The token LM at full width (LM_FULL, seeded, its zero layers
+    redrawn at N(0, 0.02^2)) behind ``LMApp`` with the DAC 44 kHz codec:
+    LM_FULL_REQUESTS requests of ``length`` frames, temperature 1, top-k
+    250, each its prefill and its decode steps timed between
+    synchronizations, ``decode_tokens`` timed; the codes in [0, 1024),
+    the audio finite; with TF32 off, the last cached step's logits against
+    a full uncached pass over the same prefix (1e-4 of max|ref|); 16
+    decode steps profiled (the device's idle share); a step's byte bound
+    (the parameters read once)."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.interface import LMApp
+    from ditsep_tpu_torch.models.factory import (
+        create_model_from_config, create_pretransform_from_config)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.device(device):
+        g = torch.Generator(device=device).manual_seed(21)
+        lm, pattern = create_model_from_config(cfg, g)
+        pre = create_pretransform_from_config(cfg["model"]["pretransform"],
+                                              generator=g)
+    nonzero_(lm, 22)
+    lm.eval()
+    pre.eval()
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    n_params = sum(p.numel() for p in lm.parameters())
+    out["lm_params"] = n_params
+    out["codec_params"] = sum(p.numel() for p in pre.parameters())
+    hop, n_q = pre.downsampling_ratio, lm.n_quantizers
+    app = LMApp(lm=lm, decode_tokens=lambda c: pre.decode_tokens(c),
+                fs=cfg["sample_rate"])
+    steps = length + n_q - 1
+    requests = []
+    reset_counts()
+    with timed_calls(lm, "forward") as calls, \
+            timed_calls(pre, "decode_tokens") as decodes:
+        for i in range(LM_FULL_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            audio = app.process(length=length, temperature=1.0,
+                                top_k=LM_FULL_TOP_K, seed=30 + i)
+            requests.append(time.perf_counter() - t0)
+            check(audio.shape == (1, 1, length * hop)
+                  and np.isfinite(audio).all(),
+                  f"LM request {i}: {audio.shape}")
+    torch.cuda.synchronize()
+    out["launches"] = counts()
+    check(not any(out["launches"].values()),
+          f"full-width LM launches {out['launches']}")
+    check(len(calls) == LM_FULL_REQUESTS * steps
+          and len(decodes) == LM_FULL_REQUESTS,
+          f"{len(calls)} LM calls, {len(decodes)} decodes")
+    for d in decodes:
+        codes = d["args"][0]
+        check(codes.shape == (1, n_q, length) and int(codes.min()) >= 0
+              and int(codes.max()) < lm.codebook_size,
+              f"codes {tuple(codes.shape)} in [{int(codes.min())}, "
+              f"{int(codes.max())}]")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["request_s"] = requests
+    out["prefill_s"] = [calls[i * steps]["s"]
+                        for i in range(LM_FULL_REQUESTS)]
+    step_s = [c["s"] for i, c in enumerate(calls) if i % steps]
+    q = np.percentile(step_s, [0, 10, 50, 90, 100])
+    out["decode_step_s"] = {"n": len(step_s), "min": q[0], "p10": q[1],
+                            "median": q[2], "p90": q[3], "max": q[4]}
+    out["frames_per_s"] = [length / r for r in requests]
+    out["decode_tokens_s"] = [d["s"] for d in decodes]
+    bound_s = n_params * 4 / ctx["bandwidth"]
+    out["step_bytes"], out["step_bound_ms"] = n_params * 4, bound_s * 1e3
+    out["step_bound_share"] = bound_s / q[2]
+    # the last cached step against a full uncached pass, TF32 off
+    t0 = time.perf_counter()
+    grid = pattern.apply(decodes[0]["args"][0])
+    bos = torch.full((1, n_q, 1), lm.special_token, dtype=grid.dtype,
+                     device=grid.device)
+    inp = torch.cat([bos, grid[..., :-1]], dim=-1)
+    with full_f32(), torch.no_grad():
+        cached = lm_teacher_forced(lm, grid, {}, 1.0)[:, :, -1]
+        full = lm(inp)[:, :, -1]
+    out["cached_vs_full_rel"] = _rel(cached, full.cpu())
+    check(out["cached_vs_full_rel"] <= 1e-4,
+          f"cached step vs full pass {out['cached_vs_full_rel']}")
+    out["cached_vs_full_s"] = time.perf_counter() - t0
+    # LM_PROFILE_STEPS decode steps, the cache prefilled to the middle
+    half = steps // 2
+    n_prof = min(LM_PROFILE_STEPS, steps - half)
+    cache = lm.init_cache(1, steps + 1)
+    with torch.no_grad():
+        lm(inp[..., :half], cache=cache, cache_index=0)
+
+    def run():
+        with torch.no_grad():
+            for i in range(n_prof):
+                lm(inp[..., half + i:half + i + 1], cache=cache,
+                   cache_index=half + i)
+        return n_prof
+
+    t0 = time.perf_counter()
+    prof = profile_replay(run)
+    out["profiled_steps"] = {
+        "steps": n_prof, "profile_s": time.perf_counter() - t0,
+        "wall_ms": prof["wall_ms"],
+        "device_busy_ms": prof["device_busy_ms"],
+        "idle_share": prof["idle_share"], "top": prof["top"]}
+    out["tf32"] = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                   "cudnn": torch.backends.cudnn.allow_tf32}
+    return out
+
+
+def stable_dau(ctx, cfg: dict = DAU_FULL,
+               sample_size: int = DAU_SAMPLE_SIZE,
+               device: str = "cuda") -> dict:
+    """(4) DAU1d at the reference class's defaults through the factory,
+    seeded: DAU_STEPS steps of ``inference.sampling.sample`` from noise of
+    ``sample_size`` stereo samples (seconds a step, peak GiB, the output
+    finite, 0 launches), one step profiled (the device's idle share, the
+    top kernels); then a seeded reference-layout state_dict (its
+    own weights, ``dau1d_reference_state``) through ``import_dau1d_params``
+    into a fresh U-Net, one forward equal, bit for bit, to the same
+    weights through ``params_from_jax``."""
+    import torch
+    from ditsep_tpu_torch.inference.sampling import sample
+    from ditsep_tpu_torch.models.factory import create_model_from_config
+    from ditsep_tpu_torch.models.torch_import import (
+        dau1d_reference_state, import_dau1d_params)
+    from ditsep_tpu_torch.models.weights import (
+        load_state, params_from_jax, params_to_jax)
+
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device(device):
+        dau = create_model_from_config(
+            cfg, torch.Generator(device=device).manual_seed(40)).eval()
+    out = {"params": sum(p.numel() for p in dau.parameters())}
+    io = dau.io_channels
+    noise = torch.randn(1, io, sample_size, device=device,
+                        generator=torch.Generator(device=device).manual_seed(
+                            41))
+    reset_counts()
+    with timed_calls(dau, "forward") as calls, torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = sample(lambda x, t, **kw: dau(x, t), noise, DAU_STEPS, eta=0.0)
+        torch.cuda.synchronize()
+        out["sample_s"] = time.perf_counter() - t0
+    out["launches"] = counts()
+    check(not any(out["launches"].values()),
+          f"DAU1d launches {out['launches']}")
+    check(y.shape == (1, io, sample_size) and bool(torch.isfinite(y).all()),
+          f"DAU1d sample {tuple(y.shape)}")
+    out["step_s"] = [c["s"] for c in calls]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    t = torch.full((1,), 0.5, device=device)
+    prof = profile_replay(lambda: (dau(noise, t), 1)[1])
+    out["profiled_step"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                  "idle_share", "top")}
+    t0 = time.perf_counter()
+    sd, flat = dau1d_reference_state(dau), params_to_jax(dau)
+    outs = {}
+    for name in ("import", "jax_layout"):
+        with torch.device(device):
+            fresh = create_model_from_config(
+                cfg, torch.Generator(device=device)).eval()
+        if name == "import":
+            import_dau1d_params(fresh, sd)
+        else:
+            load_state(fresh, params_from_jax(flat, fresh))
+        with torch.no_grad(), deterministic_cudnn():
+            outs[name] = fresh(noise, t)
+        del fresh
+    check(torch.equal(outs["import"], outs["jax_layout"]),
+          "the imported DAU1d differs from its JAX-layout load")
+    out["importer"] = {"keys": len(sd), "bit_equal": True,
+                       "s": time.perf_counter() - t0}
+    return out
+
+
+def phase_stable_models(ctx):
+    """The rest of the stable-audio models (the token LM with its KV
+    cache behind ``LMApp`` and /api/lm, the DAC / SEANet / TAAE codecs,
+    the adp U-Net, the diffusion autoencoder, DAU1d): (1) card vs CPU on
+    small configs, (2) /api/lm, (3) the full-width LM path, (4) DAU1d at
+    its reference width with its importer. No kernel of the port lies on
+    these paths: every count stays 0. Each line carries its part's
+    seconds (``part_s``)."""
+    import torch
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return {**out, "part_s": time.perf_counter() - t0}
+
+    par = timed(stable_parity, ctx)
+    emit({"phase": "stable_parity", "config": "AudioLM depth 2, width 64, "
+          "4 codebooks of 32, cross-attention + prepend + global, CFG 3, "
+          f"{LM_SMALL_LENGTH} frames, top-k 8; DAC hop 4; SEANet and TAAE "
+          "hop 8; adp_cfg_1d 16 channels, 4 steps; diffusion autoencoder "
+          "hop 8, 3 steps; TF32 off, the card's draws on the CPU", **par,
+          "card": ctx["card"]})
+    http = timed(stable_http, ctx)
+    emit({"phase": "stable_http", **http, "bytes_equal": True,
+          "card": ctx["card"]})
+    torch.cuda.empty_cache()
+    full = timed(stable_lm_full, ctx)
+    emit({"phase": "stable_lm_full", "config": "MusicGen-small widths (1024 "
+          "wide, 24 layers, 16 heads) over DAC 44 kHz's 9 x 1024 codes in "
+          "the delay pattern, seeded weights (zero layers redrawn at N(0, "
+          f"0.02^2)); LMApp.process x {LM_FULL_REQUESTS}: {LM_FULL_LENGTH} "
+          f"frames ({LM_FULL_LENGTH + 8} LM calls), temperature 1, top-k "
+          f"{LM_FULL_TOP_K}, decoded by the DAC 44 kHz decoder (1536 "
+          "channels, hop 512)", **full, "card": ctx["card"]})
+    ctx["stable_launches"] = full["launches"]
+    torch.cuda.empty_cache()
+    dau = timed(stable_dau, ctx)
+    emit({"phase": "stable_dau", "config": "DAU1d at the reference class's "
+          "defaults (stereo, depth 14, channels 128, 128, 256, 256 + 512 x "
+          f"10), seeded, {DAU_STEPS} v-sampler steps of {DAU_SAMPLE_SIZE} "
+          "samples", **dau, "card": ctx["card"]})
+    torch.cuda.empty_cache()
+
+
 MESH_STEPS, MESH_ITEMS = 2, 12     # one epoch of 2 steps at batch 6
 MESH_VAL_N = 3                     # the validation's PC steps in both runs
 MESH_EVAL_ITEMS, MESH_GLOO_ITEMS = 2, 3
@@ -4630,6 +5149,8 @@ def kernels_line(ctx, torch) -> list:
             paths.update({k: v[kernel] for k, v in ctx.get(key, {}).items()})
         if "generation_launches" in ctx:
             paths["generation_full"] = ctx["generation_launches"][kernel]
+        if "stable_launches" in ctx:
+            paths["stable_lm_full"] = ctx["stable_launches"][kernel]
         return paths
 
     def main_count(paths: dict, key: str) -> int:

@@ -3,9 +3,9 @@ ditsep_tpu/interface/app.py:33-170).
 
 Each process function is a plain callable over numpy audio and scalar
 knobs, so the demo is testable without a browser: the separation,
-autoencoder and generation backends and ``spectrogram_preview``. Models
-run on the device their parameters are on, a ``seed`` seeds a generator
-there. The LM backend (``LMApp``) needs the token LM (ROADMAP A16.3b).
+autoencoder, generation and token-LM backends and
+``spectrogram_preview``. Models run on the device their parameters are on,
+a ``seed`` seeds a generator there.
 """
 from __future__ import annotations
 
@@ -181,6 +181,36 @@ class GenerationApp:
                 diffusion_objective=self.model.diffusion_objective,
                 pretransform=self.pretransform, noise=noise)
         return out.float().cpu().numpy()
+
+
+@dataclasses.dataclass
+class LMApp:
+    """The token-LM backend: ``lm_generate`` (temperature, top-k, top-p;
+    the Gumbel draws from a generator seeded with ``seed`` on the LM's
+    device) for one item of ``length`` frames in the delay pattern,
+    decoded by ``decode_tokens`` (codes (1, Q, length) -> audio, e.g. a
+    ``DACPretransform``'s) where one is given."""
+
+    lm: Any
+    decode_tokens: Optional[Any] = None
+    fs: int = 8000
+
+    def process(self, length: int = 64, temperature: float = 1.0,
+                top_k: int = 250, top_p: float = 0.0,
+                seed: int = 0) -> np.ndarray:
+        """Codes (1, n_q, length) as int64 without a decoder; with one,
+        its audio peak-normalized."""
+        from ditsep_tpu_torch.models.lm import lm_generate
+
+        g = torch.Generator(device=_device(self.lm)).manual_seed(int(seed))
+        codes = lm_generate(self.lm, 1, int(length),
+                            temperature=float(temperature), top_k=int(top_k),
+                            top_p=float(top_p), generator=g)
+        if self.decode_tokens is None:
+            return codes.cpu().numpy()
+        with torch.no_grad():
+            audio = self.decode_tokens(codes)
+        return _peak_norm(audio.float().cpu().numpy())
 
 
 def spectrogram_preview(wav: np.ndarray, fs: int = 8000):

@@ -5,8 +5,7 @@ A plain ``http.server`` application with a single-page HTML front end:
 the demo's tab surface runs and is tested with the standard library only.
 Processing goes through the backends in ``ditsep_tpu_torch.interface.app``;
 this file is transport and WAV codec glue. A route whose backend was not
-given answers 404 "backend not loaded"; the LM backend is not ported
-(ROADMAP A16.3b), so /api/lm always does. /api/generate_cond passes a JSON
+given answers 404 "backend not loaded". /api/generate_cond passes a JSON
 prompt string through as it is: a T5 conditioner needs embeddings, so
 over HTTP the route serves number, int and list conditioning only, as the
 JAX package's does.

@@ -10,13 +10,14 @@ torch.device("cuda")`` with a cuda generator. Move them with
 ``models.weights.load_params_npz`` or the ``models.torch_import``
 importers.
 
-Ported: every bottleneck, the oobleck encoder and decoder, the
-oobleck + VAE autoencoder, the autoencoder / wavelet / PQMF / patched
-pretransforms, the 'dit' conditional and unconditional diffusion models
-with their conditioning routing. The DAC / SEANet / local-attention / TAAE
-codecs (with the generic autoencoder and the DAC pretransform), the
-audio-diffusion U-Nets ('adp_*', 'DAU1d'), the diffusion autoencoder and
-the token LM raise naming ROADMAP A16.3b.
+Every branch of the JAX package's factory is here: the bottlenecks, the
+oobleck / DAC / SEANet / local-attention / TAAE encoders and decoders
+(an oobleck + VAE pair as the ``OobleckVAE``, any other pair through
+``GenericAudioAutoencoder``), the autoencoder / DAC / wavelet / PQMF /
+patched pretransforms, the 'dit' and adp U-Net ('adp_cfg_1d', 'adp_1d')
+conditional models, the unconditional 'dit', 'DAU1d' and 'adp_uncond_1d',
+the diffusion autoencoder and the token LM. 'audiocraft_pretrained' needs
+the absent audiocraft package, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,17 +27,18 @@ from typing import Any, Dict, Optional
 import torch
 
 from ditsep_tpu_torch.models import bottleneck as bn_mod
+from ditsep_tpu_torch.models import codecs
 from ditsep_tpu_torch.models import pretransforms as pt
+from ditsep_tpu_torch.models.dau1d import DiffusionAttnUnet1D
+from ditsep_tpu_torch.models.diffusion_ae import DiffusionAutoencoder
 from ditsep_tpu_torch.models.dit import DiffusionTransformer
+from ditsep_tpu_torch.models.lm import (
+    AudioLM, DelayPattern, MusicLMPattern, ParallelPattern, UnrolledPattern,
+)
 from ditsep_tpu_torch.models.oobleck import (
     OobleckDecoder, OobleckEncoder, OobleckVAE,
 )
-
-
-def _a16_3b(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A16.3b: models/{{codecs,unet1d,"
-        f"dau1d,diffusion_ae,lm}}.py)")
+from ditsep_tpu_torch.models.unet1d import create_unet_from_config
 
 
 def _seeded(module, generator: Optional[torch.Generator]):
@@ -90,9 +92,27 @@ def create_bottleneck_from_config(cfg: Dict[str, Any]):
     raise NotImplementedError(f"Unknown bottleneck type: {kind}")
 
 
+def _tuples(c: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in c.items()}
+
+
+# the encodec options the SEANet here does not take: weight norm is its
+# only norm, ELU its activation, its padding the symmetric scheme
+_SEANET_DROPPED = ("norm", "activation", "activation_params", "causal",
+                   "pad_mode", "final_activation")
+
+
+def _seanet_config(c: Dict[str, Any]) -> Dict[str, Any]:
+    c = {k: v for k, v in c.items() if k not in _SEANET_DROPPED}
+    c["ratios"] = tuple(c.get("ratios", (8, 5, 4, 2)))
+    return c
+
+
 def create_encoder_from_config(enc_cfg: Dict[str, Any]):
-    """The encoder dispatch (reference: autoencoders.py:782-824): 'oobleck'
-    is ported; 'dac', 'seanet', 'local_attn' and 'taae' raise."""
+    """The encoder dispatch (reference: autoencoders.py:782-824): 'oobleck',
+    'dac', 'seanet' (its configured decoder-order ratios reversed inside,
+    as the reference reverses them), 'local_attn', 'taae'. Unseeded:
+    ``create_autoencoder_from_config`` seeds the whole."""
     kind = enc_cfg["type"]
     c = dict(enc_cfg.get("config", {}))
     if kind == "oobleck":
@@ -103,13 +123,23 @@ def create_encoder_from_config(enc_cfg: Dict[str, Any]):
             c_mults=tuple(c.get("c_mults", (1, 2, 4, 8, 16))),
             strides=tuple(c.get("strides", (2, 4, 4, 8, 8))),
             use_snake=c.get("use_snake", False))
-    if kind in ("dac", "seanet", "local_attn", "taae"):
-        raise _a16_3b(f"The {kind!r} encoder")
+    if kind == "dac":
+        return codecs.DACEncoderWrapper(
+            d_model=c.get("d_model", 64),
+            strides=tuple(c.get("strides", (2, 4, 8, 8))),
+            latent_dim=c.get("latent_dim"),
+            in_channels=c.get("in_channels", 1))
+    if kind == "seanet":
+        return codecs.SEANetEncoder(**_seanet_config(c))
+    if kind == "local_attn":
+        return codecs.LocalTransformerEncoder1D(**_tuples(c))
+    if kind == "taae":
+        return codecs.TAAEEncoder(**_tuples(c))
     raise NotImplementedError(f"Unknown encoder type: {kind}")
 
 
 def create_decoder_from_config(dec_cfg: Dict[str, Any]):
-    """The decoder dispatch (reference: autoencoders.py:826-864): as the
+    """The decoder dispatch (reference: autoencoders.py:826-864), as the
     encoder's."""
     kind = dec_cfg["type"]
     c = dict(dec_cfg.get("config", {}))
@@ -122,8 +152,18 @@ def create_decoder_from_config(dec_cfg: Dict[str, Any]):
             strides=tuple(c.get("strides", (2, 4, 4, 8, 8))),
             use_snake=c.get("use_snake", False),
             use_nearest_upsample=c.get("use_nearest_upsample", False))
-    if kind in ("dac", "seanet", "local_attn", "taae"):
-        raise _a16_3b(f"The {kind!r} decoder")
+    if kind == "dac":
+        return codecs.DACDecoderWrapper(
+            latent_dim=c.get("latent_dim", 32),
+            channels=c.get("channels", 1536),
+            rates=tuple(c.get("rates", (8, 8, 4, 2))),
+            out_channels=c.get("out_channels", 1))
+    if kind == "seanet":
+        return codecs.SEANetDecoder(**_seanet_config(c))
+    if kind == "local_attn":
+        return codecs.LocalTransformerDecoder1D(**_tuples(c))
+    if kind == "taae":
+        return codecs.TAAEDecoder(**_tuples(c))
     raise NotImplementedError(f"Unknown decoder type: {kind}")
 
 
@@ -131,11 +171,10 @@ def create_autoencoder_from_config(cfg: Dict[str, Any],
                                    generator: Optional[torch.Generator]
                                    = None):
     """An autoencoder from the reference JSON schema (reference:
-    autoencoders.py:866-905): an oobleck encoder and decoder with a VAE
-    bottleneck is the ``OobleckVAE`` (its decoder's latent width
-    ``model.latent_dim``), seeded. Any other combination composes through
-    the JAX package's ``GenericAudioAutoencoder`` (models/codecs.py), not
-    ported yet."""
+    autoencoders.py:866-905), seeded: an oobleck encoder and decoder with
+    a VAE bottleneck is the ``OobleckVAE`` (its decoder's latent width
+    ``model.latent_dim``); any other combination a
+    ``GenericAudioAutoencoder``."""
     model = cfg["model"]
     enc, dec = model["encoder"], model["decoder"]
     bn = model.get("bottleneck", {"type": "vae"}) or {"type": "none"}
@@ -150,8 +189,12 @@ def create_autoencoder_from_config(cfg: Dict[str, Any],
             c_mults=tuple(e.get("c_mults", (1, 2, 4, 8, 16))),
             strides=tuple(e.get("strides", (2, 4, 4, 8, 8))),
             use_snake=e.get("use_snake", False)), generator)
-    raise _a16_3b(f"An autoencoder of {enc['type']!r} / {dec['type']!r} / "
-                  f"{bn['type']!r} (GenericAudioAutoencoder)")
+    return _seeded(codecs.GenericAudioAutoencoder(
+        encoder=create_encoder_from_config(enc),
+        decoder=create_decoder_from_config(dec),
+        latent_dim=model.get("latent_dim", 64), bottleneck_type=bn["type"],
+        bottleneck_config=bn.get("config"),
+        soft_clip=model.get("soft_clip", False)), generator)
 
 
 def create_pretransform_from_config(cfg: Dict[str, Any],
@@ -160,10 +203,11 @@ def create_pretransform_from_config(cfg: Dict[str, Any],
                                     = None):
     """The pretransform dispatch (reference: factory.py:32-88): an
     'autoencoder' is built seeded (swap real weights in with
-    ``load_params_npz(path, pre.model)``) and frozen; 'wavelet', 'pqmf' and
-    'patched' hold no weights. 'dac_pretrained' raises (A16.3b);
-    'audiocraft_pretrained' needs the absent audiocraft package and its
-    weights, as in the JAX package."""
+    ``load_params_npz(path, pre.model)``) and frozen; 'dac_pretrained' is
+    the published descript codec's architecture ('44khz', '24khz' or
+    '16khz'), seeded and frozen; 'wavelet', 'pqmf' and 'patched' hold no
+    weights. 'audiocraft_pretrained' needs the absent audiocraft package and
+    its weights, as in the JAX package."""
     kind = cfg["type"]
     c = dict(cfg.get("config", {}))
     if kind == "autoencoder":
@@ -180,7 +224,26 @@ def create_pretransform_from_config(cfg: Dict[str, Any],
     if kind == "patched":
         return pt.PatchedPretransform(**c)
     if kind == "dac_pretrained":
-        raise _a16_3b("The 'dac_pretrained' pretransform")
+        # the published descript codecs' hyperparameters (the reference
+        # reads them from the downloaded checkpoint)
+        arch = {"44khz": ((2, 4, 8, 8), 9), "24khz": ((2, 4, 5, 8), 32),
+                "16khz": ((2, 4, 5, 8), 12)}
+        strides, n_codebooks = arch[c.get("model_type", "44khz")]
+        latent_dim = 64 * 2 ** len(strides)
+        g = generator or torch.Generator().manual_seed(0)
+        parts = []
+        for m in (codecs.DACEncoderWrapper(d_model=64, strides=strides),
+                  codecs.DACDecoderWrapper(latent_dim=latent_dim,
+                                           channels=1536,
+                                           rates=tuple(reversed(strides))),
+                  bn_mod.DACResidualVQ(input_dim=latent_dim,
+                                       n_codebooks=n_codebooks,
+                                       codebook_size=1024, codebook_dim=8)):
+            parts.append(_seeded(m, g))
+        return pt.DACPretransform(
+            *parts, scale=c.get("scale", 1.0),
+            quantize_on_decode=c.get("quantize_on_decode", True),
+            enable_grad=cfg.get("enable_grad", False))
     if kind == "audiocraft_pretrained":
         raise NotImplementedError(
             "audiocraft_pretrained needs the audiocraft package and its "
@@ -194,12 +257,13 @@ def create_diffusion_cond_from_config(cfg: Dict[str, Any],
                                       include_pretransform: bool = False,
                                       generator: Optional[torch.Generator]
                                       = None):
-    """A conditional DiT and its routing from the reference diffusion_cond
-    JSON schema: (DiffusionTransformer, CondRouting, conditioner configs),
-    plus the config's pretransform (or None) with
-    ``include_pretransform``. The DiT's conditioning widths come from the
-    config (``cond_token_dim``, ``global_cond_dim``), as the JAX package
-    reads them; its weights are seeded."""
+    """A conditional diffusion model and its routing from the reference
+    diffusion_cond JSON schema: (the model, CondRouting, conditioner
+    configs), plus the config's pretransform (or None) with
+    ``include_pretransform``. The model is a DiffusionTransformer, its
+    conditioning widths from the config (``cond_token_dim``,
+    ``global_cond_dim``) as the JAX package reads them, or for 'adp_cfg_1d'
+    / 'adp_1d' the adp U-Net in a ``UNetCondAdapter``; seeded."""
     from ditsep_tpu_torch.training.diffusion import CondRouting
 
     model = cfg["model"]
@@ -207,17 +271,18 @@ def create_diffusion_cond_from_config(cfg: Dict[str, Any],
     dit_cfg = diff.get("config", {})
     diff_type = diff.get("type", "dit")
     if diff_type in ("adp_cfg_1d", "adp_1d"):
-        raise _a16_3b(f"The {diff_type!r} U-Net (models/unet1d.py)")
-    dit = _seeded(DiffusionTransformer(
-        io_channels=diff.get("io_channels", model.get("io_channels", 64)),
-        embed_dim=dit_cfg.get("embed_dim", 768),
-        depth=dit_cfg.get("depth", 12),
-        num_heads=dit_cfg.get("num_heads", 8),
-        cond_token_dim=dit_cfg.get("cond_token_dim", 0),
-        global_cond_dim=dit_cfg.get("global_cond_dim", 0),
-        project_cond_tokens=dit_cfg.get("project_cond_tokens", True),
-        diffusion_objective=diff.get("diffusion_objective", "v")),
-        generator)
+        dit = _seeded(create_unet_from_config(diff_type, dit_cfg), generator)
+    else:
+        dit = _seeded(DiffusionTransformer(
+            io_channels=diff.get("io_channels", model.get("io_channels", 64)),
+            embed_dim=dit_cfg.get("embed_dim", 768),
+            depth=dit_cfg.get("depth", 12),
+            num_heads=dit_cfg.get("num_heads", 8),
+            cond_token_dim=dit_cfg.get("cond_token_dim", 0),
+            global_cond_dim=dit_cfg.get("global_cond_dim", 0),
+            project_cond_tokens=dit_cfg.get("project_cond_tokens", True),
+            diffusion_objective=diff.get("diffusion_objective", "v")),
+            generator)
     routing = CondRouting(
         cross_attn_cond_ids=tuple(diff.get("cross_attention_cond_ids", ())),
         global_cond_ids=tuple(diff.get("global_cond_ids", ())),
@@ -233,12 +298,94 @@ def create_diffusion_cond_from_config(cfg: Dict[str, Any],
     return dit, routing, cond_cfgs
 
 
-def create_diffAE_from_config(cfg: Dict[str, Any]):
-    raise _a16_3b("The diffusion autoencoder (models/diffusion_ae.py)")
+def create_diffAE_from_config(cfg: Dict[str, Any],
+                              generator: Optional[torch.Generator] = None):
+    """A ``DiffusionAutoencoder`` from the reference diffAE JSON schema
+    (reference: autoencoders.py:911-974): an optional oobleck encoder to
+    the latent and a diffusion net ('dit', 'adp_1d' or 'adp_cfg_1d')
+    reconstructing the audio from it; seeded, the encoder first."""
+    model = cfg["model"]
+    latent_dim, io_channels = model["latent_dim"], model["io_channels"]
+    g = generator or torch.Generator().manual_seed(0)
+    encoder = None
+    enc_cfg = model.get("encoder")
+    if enc_cfg is not None:
+        if enc_cfg["type"] != "oobleck":
+            raise NotImplementedError(
+                "only oobleck encoders are supported for "
+                "diffusion_autoencoder")
+        e = enc_cfg.get("config", {})
+        encoder = _seeded(OobleckEncoder(
+            in_channels=e.get("in_channels", io_channels),
+            channels=e.get("channels", 128),
+            latent_dim=e.get("latent_dim", latent_dim),
+            c_mults=tuple(e.get("c_mults", (1, 2, 4, 8, 16))),
+            strides=tuple(e.get("strides", (2, 4, 4, 8, 8))),
+            use_snake=e.get("use_snake", False)), g)
+    diff = model["diffusion"]
+    diff_type, dc = diff.get("type", "dit"), diff.get("config", {})
+    if diff_type in ("adp_1d", "adp_cfg_1d"):
+        diffusion = create_unet_from_config(diff_type, dc)
+    elif diff_type == "dit":
+        diffusion = DiffusionTransformer(
+            io_channels=dc.get("io_channels", io_channels),
+            embed_dim=dc.get("embed_dim", 768), depth=dc.get("depth", 12),
+            num_heads=dc.get("num_heads", 8),
+            cond_token_dim=dc.get("cond_token_dim", 0),
+            global_cond_dim=dc.get("global_cond_dim", 0))
+    else:
+        raise NotImplementedError(f"Unknown diffAE diffusion type: "
+                                  f"{diff_type}")
+    return DiffusionAutoencoder(
+        encoder=encoder, diffusion=_seeded(diffusion, g),
+        latent_dim=latent_dim,
+        downsampling_ratio=model["downsampling_ratio"],
+        io_channels=io_channels)
 
 
-def create_audio_lm_from_config(cfg: Dict[str, Any]):
-    raise _a16_3b("The token LM (models/lm.py)")
+def create_audio_lm_from_config(cfg: Dict[str, Any],
+                                generator: Optional[torch.Generator] = None):
+    """(AudioLM, pattern) from the reference lm JSON schema (reference:
+    lm.py:471-540), the LM seeded. ``n_quantizers`` / ``codebook_size`` come
+    from ``model.lm.config`` or, as the reference derives them, from the
+    discrete pretransform's bottleneck config; the backbone is the
+    continuous transformer; the pattern 'delay' (default), 'parallel',
+    'unroll' or 'musiclm'."""
+    model = cfg["model"]
+    lm_cfg = model.get("lm")
+    if lm_cfg is None:
+        raise ValueError("lm config must be specified in model config")
+    c = dict(lm_cfg.get("config", {}))
+    n_q = c.pop("n_quantizers", None)
+    codebook_size = c.pop("codebook_size", None)
+    pre = model.get("pretransform")
+    if pre is not None:
+        bc = pre.get("config", {}).get("bottleneck", {}).get("config", {})
+        n_q = n_q or bc.get("num_quantizers", bc.get("n_codebooks"))
+        codebook_size = codebook_size or bc.get("codebook_size")
+    if not (n_q and codebook_size):
+        raise ValueError("n_quantizers/codebook_size must come from "
+                         "model.lm.config or a discrete pretransform "
+                         "bottleneck config")
+    lm_type = lm_cfg.get("type", "continuous_transformer")
+    if lm_type != "continuous_transformer":
+        raise NotImplementedError(
+            f"Unrecognized lm type {lm_type} (continuous_transformer covers "
+            "the shipped configs, as in the JAX package)")
+    lm = _seeded(AudioLM(
+        n_quantizers=int(n_q), codebook_size=int(codebook_size),
+        dim=c.get("embed_dim", c.get("dim", 256)), depth=c.get("depth", 4),
+        num_heads=c.get("num_heads", 4),
+        cross_attn_cond_dim=c.get("cross_attn_cond_dim", 0),
+        prepend_cond_dim=c.get("prepend_cond_dim", 0),
+        global_cond_dim=c.get("global_cond_dim", 0),
+        conformer=c.get("conformer", False)), generator)
+    patterns = {"parallel": ParallelPattern, "delay": DelayPattern,
+                "unroll": UnrolledPattern, "musiclm": MusicLMPattern}
+    name = lm_cfg.get("codebook_pattern", "delay")
+    if name not in patterns:
+        raise NotImplementedError(f"Unknown codebook pattern: {name}")
+    return lm, patterns[name](lm.n_quantizers, int(codebook_size))
 
 
 def create_diffusion_uncond_from_config(cfg: Dict[str, Any],
@@ -246,15 +393,18 @@ def create_diffusion_uncond_from_config(cfg: Dict[str, Any],
                                         = None):
     """The unconditional dispatch (reference: models/diffusion.py:595-637):
     a config in the conditional schema (``model.diffusion``) gives its
-    bare DiT; ``model.type`` 'dit' a plain DiT. 'DAU1d' and
-    'adp_uncond_1d' raise (A16.3b)."""
+    bare model; ``model.type`` 'DAU1d' (the dance-diffusion configs) a
+    ``DiffusionAttnUnet1D``, 'adp_uncond_1d' the plain adp U-Net in its
+    adapter, 'dit' a plain DiT; seeded."""
     model = cfg["model"]
     if "diffusion" in model:
         return create_diffusion_cond_from_config(cfg, generator=generator)[0]
     kind = model.get("type")
     c = dict(model.get("config", {}))
-    if kind in ("DAU1d", "adp_uncond_1d"):
-        raise _a16_3b(f"The {kind!r} diffusion model")
+    if kind == "DAU1d":
+        return _seeded(DiffusionAttnUnet1D(**_tuples(c)), generator)
+    if kind == "adp_uncond_1d":
+        return _seeded(create_unet_from_config("adp_1d", c), generator)
     if kind == "dit":
         return _seeded(DiffusionTransformer(
             io_channels=c.get("io_channels", model.get("io_channels", 2)),
@@ -277,9 +427,9 @@ def create_model_from_config(cfg: Dict[str, Any],
     if model_type == "diffusion_uncond":
         return create_diffusion_uncond_from_config(cfg, generator)
     if model_type == "diffusion_autoencoder":
-        return create_diffAE_from_config(cfg)
+        return create_diffAE_from_config(cfg, generator)
     if model_type == "lm":
-        return create_audio_lm_from_config(cfg)
+        return create_audio_lm_from_config(cfg, generator)
     raise NotImplementedError(f"Unknown model type: {model_type}")
 
 

@@ -7,8 +7,8 @@ bridge (models/weights.py) is a rename plus a layout transpose.
 
 ``dtype`` on a layer is the compute dtype, as the JAX package's ``dtype``
 field: parameters stay float32 and are cast, with the input, to ``dtype``
-(None keeps the input's dtype). GroupNorm statistics are float32 inside
-PyTorch's kernels for bf16 inputs, as in flax.
+(None keeps the input's dtype). GroupNorm statistics are float32, as in
+flax.
 
 Masked scoring (``mask_padding``): a (B, W) boolean frame mask ``tmask``
 marks the valid time columns. GroupNorm then takes its statistics over the
@@ -119,8 +119,21 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+# An unmasked GroupNorm with at most GN_PLAIN_MAX_ROWS (item, group) rows,
+# each longer than GN_PLAIN_MIN_ROW values, takes its statistics by plain
+# reductions; any other by F.group_norm. F.group_norm reduces each row in
+# one thread block, so a few long rows (DAU1d's GroupNorm(1) of one item
+# over 65,536 steps: one row of 8.4 M values) leave the card nearly idle,
+# while the plain reductions' half-dozen launches cost more than a short
+# row. Chosen from ditsep_tpu_torch/scripts/groupnorm_timing.py (PERF.md
+# section 6: H100 times at NCSN++'s and DAU1d's shapes).
+GN_PLAIN_MAX_ROWS = 32
+GN_PLAIN_MIN_ROW = 1 << 18
+
+
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm with a compute dtype (output dtype, stats in float32)."""
+    """flax's ``nn.GroupNorm`` over NC... (NCHW or NCW) with a compute
+    dtype (the output's; statistics in float32)."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float,
                  dtype=None):
@@ -132,26 +145,34 @@ class GroupNorm(nn.GroupNorm):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
-        """``mask`` (B, 1, 1, W) bool: statistics over the valid columns
-        only, as flax's ``GroupNorm(mask=...)``: in float32, per (item,
-        group) over the group's channels x H x the valid columns, mean =
-        E[x] and var = max(E[x^2] - E[x]^2, 0); every element, masked ones
-        too, is then normalized and given the affine transform."""
+        """Per (item, group), in float32 over the group's channels and
+        the trailing axes, flax's fast statistics: mean = E[x], var =
+        max(E[x^2] - E[x]^2, 0); every element is then normalized and
+        given the affine transform. ``mask`` (B, 1, 1, W) bool, for NCHW:
+        the statistics over the valid columns only, as flax's
+        ``GroupNorm(mask=...)``; masked elements are normalized too.
+        Unmasked, unless the rows are few and long (``GN_PLAIN_MAX_ROWS``,
+        ``GN_PLAIN_MIN_ROW``), ``F.group_norm`` computes it (its exact
+        variance: the same up to rounding)."""
         dt = _compute_dtype(self.compute_dtype, x)
-        if mask is None:
-            return F.group_norm(x.to(dt), self.num_groups,
-                                self.weight.to(dt), self.bias.to(dt),
-                                self.eps)
         b, c = x.shape[:2]
         g = self.num_groups
+        if mask is None and not (b * g <= GN_PLAIN_MAX_ROWS
+                                 and x[0].numel() // g > GN_PLAIN_MIN_ROW):
+            return F.group_norm(x.to(dt), g, self.weight.to(dt),
+                                self.bias.to(dt), self.eps)
         xg = x.to(dt).float().reshape(b, g, c // g, *x.shape[2:])
-        m = mask.to(torch.float32)[:, None]          # (B, 1, 1, 1, W)
         dims = tuple(range(2, xg.ndim))
-        count = m.sum(dim=dims, keepdim=True) * (
-            c // g * math.prod(x.shape[2:-1]))
-        xm = xg * m
-        mean = xm.sum(dim=dims, keepdim=True) / count
-        mean2 = (xm * xg).sum(dim=dims, keepdim=True) / count
+        if mask is None:
+            mean = xg.mean(dim=dims, keepdim=True)
+            mean2 = (xg * xg).mean(dim=dims, keepdim=True)
+        else:
+            m = mask.to(torch.float32)[:, None]          # (B, 1, 1, 1, W)
+            count = m.sum(dim=dims, keepdim=True) * (
+                c // g * math.prod(x.shape[2:-1]))
+            xm = xg * m
+            mean = xm.sum(dim=dims, keepdim=True) / count
+            mean2 = (xm * xg).sum(dim=dims, keepdim=True) / count
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         shape = (1, g, c // g) + (1,) * (x.ndim - 2)
         mul = torch.rsqrt(var + self.eps) * self.weight.float().reshape(shape)

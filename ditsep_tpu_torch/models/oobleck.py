@@ -170,7 +170,11 @@ def _init_wn(v: Tensor, g: Tensor, bias: Optional[Tensor], fan_in: int,
 
 class ResidualUnit(nn.Module):
     """act -> dilated k=7 conv -> act -> k=1 conv, plus the input
-    (``layers`` 0-3)."""
+    (``layers`` 0-3). ``flax_names``: the JAX package's child names (for
+    ``models.weights.params_from_jax`` with a model)."""
+
+    flax_names = {"act_0": "layers.0.act", "conv_0": "layers.1",
+                  "act_1": "layers.2.act", "conv_1": "layers.3"}
 
     def __init__(self, channels: int, dilation: int, use_snake: bool,
                  dtype: Optional[torch.dtype] = None):
@@ -190,6 +194,10 @@ class EncoderBlock(nn.Module):
     """Residual units of dilation 1, 3, 9, act, strided k = 2s conv
     (``layers`` 0-4)."""
 
+    flax_names = {"res_0": "layers.0", "res_1": "layers.1",
+                  "res_2": "layers.2", "act": "layers.3.act",
+                  "down": "layers.4"}
+
     def __init__(self, in_ch: int, out_ch: int, stride: int, use_snake: bool,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -206,6 +214,10 @@ class EncoderBlock(nn.Module):
 class DecoderBlock(nn.Module):
     """act, upsampling by ``stride`` (transposed k = 2s conv, or nearest +
     conv), residual units of dilation 1, 3, 9 (``layers`` 0-4)."""
+
+    flax_names = {"act": "layers.0.act", "up": "layers.1",
+                  "res_0": "layers.2", "res_1": "layers.3",
+                  "res_2": "layers.4"}
 
     def __init__(self, in_ch: int, out_ch: int, stride: int, use_snake: bool,
                  use_nearest_upsample: bool = False,
@@ -243,6 +255,17 @@ class OobleckEncoder(nn.Module):
                    WNConv1d(cm[-1] * channels, latent_dim, 3, padding=1,
                             dtype=dtype)]
         self.layers = nn.Sequential(*layers)
+        n = len(strides)
+        self.flax_names = {"stem": "layers.0", "act": f"layers.{n + 1}.act",
+                           "head": f"layers.{n + 2}",
+                           **{f"block_{i}": f"layers.{i + 1}"
+                              for i in range(n)}}
+        self.hop_length = math.prod(strides)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for m in self.modules():
+            if isinstance(m, (SnakeBeta, WNConv1d, WNConvTranspose1d)):
+                m.reset_parameters(generator)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.layers(x)

@@ -5,8 +5,10 @@ the long-audio codec), a Haar wavelet cascade, time-to-channel patching
 and a PQMF filter bank. Each has ``encode`` / ``decode`` on (B, C, T),
 ``downsampling_ratio`` and ``encoded_channels``.
 
-The pretrained DAC pretransform needs ``models/codecs.py``, which is not
-ported yet (ROADMAP A16.3b): ``DACPretransform`` raises.
+``DACPretransform`` composes the port's DAC encoder and decoder
+(models/codecs.py) with ``DACResidualVQ``: the pretrained descript codec's
+architecture, its weights seeded (no DAC checkpoint is in the repository);
+``tokenize`` / ``decode_tokens`` carry the token LM's discrete codes.
 """
 from __future__ import annotations
 
@@ -193,9 +195,66 @@ class PQMFPretransform(nn.Module):
 
 
 class DACPretransform(nn.Module):
-    """The pretrained DAC pretransform: needs ``models/codecs.py``."""
+    """The DAC pretransform: ``encoder`` (a ``DACEncoderWrapper``),
+    ``decoder`` (a ``DACDecoderWrapper``) and ``quantizer`` (a
+    ``DACResidualVQ``), frozen unless ``enable_grad``. Audio (B, C, T),
+    latents (B, D, Tl), codes (B, Q, Tl)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DACPretransform needs models/codecs.py, not ported yet (ROADMAP "
-            "A16.3b)")
+    is_discrete = True
+
+    def __init__(self, encoder: nn.Module, decoder: nn.Module,
+                 quantizer: nn.Module, scale: float = 1.0,
+                 quantize_on_decode: bool = True, enable_grad: bool = False,
+                 io_channels: int = 1):
+        super().__init__()
+        self.encoder, self.decoder, self.quantizer = (encoder, decoder,
+                                                      quantizer)
+        self.scale, self.quantize_on_decode = scale, quantize_on_decode
+        self.io_channels = io_channels
+        self.requires_grad_(enable_grad)
+
+    @property
+    def downsampling_ratio(self) -> int:
+        return self.encoder.hop_length
+
+    @property
+    def encoded_channels(self) -> int:
+        if self.encoder.latent_dim is not None:
+            return self.encoder.latent_dim
+        return self.encoder.d_model * 2 ** len(self.encoder.strides)
+
+    @property
+    def num_quantizers(self) -> int:
+        return self.quantizer.n_codebooks
+
+    @property
+    def codebook_size(self) -> int:
+        return self.quantizer.codebook_size
+
+    def _quantize(self, lat: Tensor) -> Tensor:
+        return self.quantizer(lat.transpose(1, 2))[0].transpose(1, 2)
+
+    def encode(self, x: Tensor) -> Tensor:
+        """(B, C, T) -> (B, D, Tl) over ``scale``; quantized here unless
+        ``quantize_on_decode``."""
+        lat = self.encoder(x)
+        if not self.quantize_on_decode:
+            lat = self._quantize(lat)
+        return lat / self.scale
+
+    def decode(self, z: Tensor) -> Tensor:
+        """(B, D, Tl) -> (B, C, T)."""
+        lat = z * self.scale
+        if self.quantize_on_decode:
+            lat = self._quantize(lat)
+        return self.decoder(lat)
+
+    def tokenize(self, x: Tensor) -> Tensor:
+        """(B, C, T) -> integer codes (B, Q, Tl)."""
+        return self.quantizer(self.encoder(x).transpose(1, 2))[1].transpose(
+            1, 2)
+
+    def decode_tokens(self, tokens: Tensor) -> Tensor:
+        """Codes (B, Q, Tl) -> audio (B, C, T)."""
+        lat = self.quantizer.from_codes(tokens.transpose(1, 2))
+        return self.decoder(lat.transpose(1, 2))

@@ -17,8 +17,12 @@ order of the module's trainable parameters, under ``ema.shadow_params``
 
 ``import_dit_params`` loads a stable-audio DiffusionTransformer
 state_dict (port of ditsep_tpu/models/torch_import.py:417-520) by a
-rename to the port's flax names. The DAU1d importer goes with its model
-(ROADMAP A16.3b); ``utils/hub.py`` downloads, and is not ported.
+rename to the port's flax names. ``import_dau1d_params`` loads a
+dance-diffusion DiffusionAttnUnet1D state_dict (port of
+ditsep_tpu/models/torch_import.py:337-415) through the JAX package's own
+key map into the flax layout, then ``params_from_jax``;
+``dau1d_reference_state`` is its inverse. ``utils/hub.py`` downloads, and
+is not ported.
 """
 from __future__ import annotations
 
@@ -193,3 +197,85 @@ def dit_reference_state(model: nn.Module) -> Dict[str, torch.Tensor]:
             key = f"transformer.layers.{parts[1][6:]}.{rest}"
         out[key] = value.detach().clone()
     return out
+
+
+# -------------------------------------------------------------------------
+# DAU1d (dance-diffusion DiffusionAttnUnet1D)
+# -------------------------------------------------------------------------
+# SkipBlock.main of the reference: [down, conv, attn, conv, attn, conv,
+# attn, inner, conv, attn, conv, attn, conv, attn, up]
+_DAU_CONVS = (("pre0", 1), ("pre1", 3), ("pre2", 5), ("post0", 8),
+              ("post1", 10), ("post2", 12))
+_DAU_ATTNS = (("attn0", 2), ("attn1", 4), ("attn2", 6), ("attn3", 9),
+              ("attn4", 11), ("attn5", 13))
+_DAU_TOP = (("stem0", "net.0"), ("stem1", "net.1"), ("stem2", "net.2"),
+            ("head0", "net.4"), ("head1", "net.5"), ("head2", "net.6"))
+# a ResConvBlock's main: [conv, GroupNorm, GELU, conv, GroupNorm, GELU]
+_DAU_RES = (("conv1/kernel", "main.0.weight"), ("conv1/bias", "main.0.bias"),
+            ("norm1/scale", "main.1.weight"), ("norm1/bias", "main.1.bias"),
+            ("conv2/kernel", "main.3.weight"), ("conv2/bias", "main.3.bias"),
+            ("norm2/scale", "main.4.weight"), ("norm2/bias", "main.4.bias"),
+            ("skip/kernel", "skip.weight"))
+_DAU_ATTN = (("norm/scale", "norm.weight"), ("norm/bias", "norm.bias"),
+             ("qkv_proj/kernel", "qkv_proj.weight"),
+             ("qkv_proj/bias", "qkv_proj.bias"),
+             ("out_proj/kernel", "out_proj.weight"),
+             ("out_proj/bias", "out_proj.bias"))
+
+
+def _dau1d_key_map(model: nn.Module) -> Dict[str, str]:
+    """Every flax path of ``model`` (a DiffusionAttnUnet1D) that the JAX
+    importer may fill -> its reference key (the learned ``down`` / ``up``
+    where the reference has them)."""
+    out = {"timestep_embed": "timestep_embed.weight"}
+    for name, ref in _DAU_TOP:
+        out.update({f"{name}/{f}": f"{ref}.{r}" for f, r in _DAU_RES})
+    level, prefix, ref = getattr(model, "inner", None), "inner", "net.3.main"
+    while level is not None:
+        for name, idx in _DAU_CONVS:
+            out.update({f"{prefix}/{name}/{f}": f"{ref}.{idx}.{r}"
+                        for f, r in _DAU_RES})
+        if not isinstance(level.attn0, nn.Identity):
+            for name, idx in _DAU_ATTNS:
+                out.update({f"{prefix}/{name}/{f}": f"{ref}.{idx}.{r}"
+                            for f, r in _DAU_ATTN})
+        for leaf, tleaf in (("kernel", "weight"), ("bias", "bias")):
+            out[f"{prefix}/down/{leaf}"] = f"{ref}.0.{tleaf}"
+            out[f"{prefix}/up/{leaf}"] = f"{ref}.14.{tleaf}"
+        level = getattr(level, "inner", None)
+        prefix, ref = f"{prefix}/inner", f"{ref}.7.main"
+    return out
+
+
+def import_dau1d_params(model: nn.Module, state_dict: Mapping[str, Any]
+                        ) -> nn.Module:
+    """Load a reference DiffusionAttnUnet1D state_dict into the port's
+    ``DiffusionAttnUnet1D``, strictly, and return it: each key mapped as
+    the JAX package's importer maps it (conv weights (out, in, k) to flax
+    (k, in, out)), then ``params_from_jax``. FIR resampling has no
+    parameters; learned resampling convs load where present."""
+    from ditsep_tpu_torch.models.weights import params_from_jax
+
+    flat = {}
+    for path, ref in _dau1d_key_map(model).items():
+        if ref in state_dict:
+            a = state_dict[ref]
+            a = (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                 else np.asarray(a))
+            flat[path] = a.transpose(2, 1, 0) if path.endswith(
+                "kernel") else a
+    return load_state(model, params_from_jax(flat, model))
+
+
+def dau1d_reference_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The inverse of ``import_dau1d_params``: the port's parameters as a
+    reference DiffusionAttnUnet1D state_dict."""
+    from ditsep_tpu_torch.models.weights import params_to_jax
+
+    flat, keys = params_to_jax(model), _dau1d_key_map(model)
+    missing = sorted(set(flat) - set(keys))
+    if missing:
+        raise KeyError(f"parameters without a reference key: {missing}")
+    return {keys[p]: torch.from_numpy(np.ascontiguousarray(
+        a.transpose(2, 1, 0) if p.endswith("kernel") else a))
+        for p, a in flat.items()}

@@ -20,9 +20,22 @@ NaN), and a softmax in the logits' dtype.
 the JAX package's field: parameters stay float32 and are cast, with the
 input, to ``dtype``; LayerNorm statistics stay float32, as flax's.
 
-The KV cache (``cache`` / ``cache_index`` / ``init_cache``) and
-``conformer=True`` serve only the token LM, which is not ported: they
-raise naming ROADMAP A16.3b.
+The KV cache serves the token LM's decode (models/lm.py):
+``ContinuousTransformer.init_cache`` preallocates one (B, H, S_max, Dh)
+key and value tensor a layer, a cached call writes its new keys and
+values into them in place at ``cache_index`` (a Python int, so the decode
+loop never syncs the host) and attends to every slot at or before each
+query's position, the rest masked with ``finfo.min`` as in JAX; the RoPE
+table spans the whole cache and is sliced at ``cache_index``.
+
+``ConformerModule`` (``conformer=True``) convolves only the tokens of the
+call: in a cached decode its 'SAME' depthwise conv and its GroupNorm see
+the new token alone, so a cached decode with the conformer differs from
+the full pass, in the JAX package as here.
+
+``Conv1d`` is flax's ``nn.Conv`` (explicit, possibly uneven padding) in
+torch's NCW layout, with flax's initialiser from a generator, for the
+conformer and the 1-D U-Nets; their GroupNorm is ``layers.GroupNorm``.
 """
 from __future__ import annotations
 
@@ -33,11 +46,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ditsep_tpu_torch.models.layers import GroupNorm
+
 Tensor = torch.Tensor
-
-_LM_ONLY = ("{} serves the token LM, which is not ported yet (ROADMAP "
-            "A16.3b: models/lm.py with the KV cache and the conformer)")
-
 
 def rotary_freqs(seq_len: int, rot_dim: int, base: float = 10000.0,
                  interpolation_factor: float = 1.0) -> Tensor:
@@ -143,6 +154,38 @@ class LayerNorm(nn.Module):
         return ((x32 - mean) * mul + self.bias.float()).to(dt)
 
 
+class Conv1d(nn.Conv1d):
+    """flax's ``nn.Conv`` over NCW: ``padding`` a (left, right) pair (flax's
+    explicit padding, which may be uneven), computing in ``dtype``; flax's
+    initialisers (lecun normal over fan_in = in / groups x k, zero
+    bias)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, *,
+                 stride: int = 1, padding: Tuple[int, int] = (0, 0),
+                 groups: int = 1, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         groups=groups, bias=bias)
+        self.pad, self.compute_dtype = tuple(padding), dtype
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        fan_in = self.weight.shape[1] * self.weight.shape[2]
+        with torch.no_grad():
+            self.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: Tensor) -> Tensor:
+        dt = _compute_dtype(x, self.weight, self.compute_dtype)
+        left, right = self.pad
+        pad = left
+        if left != right:
+            x, pad = F.pad(x, (left, right)), 0
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv1d(x.to(dt), self.weight.to(dt), b, stride=self.stride,
+                        padding=pad, groups=self.groups)
+
+
 class LayerScale(nn.Module):
     """x * gamma, gamma (dim,) initialised to ones."""
 
@@ -195,18 +238,20 @@ class Attention(nn.Module):
                  dim_out: Optional[int] = None, causal: bool = False,
                  zero_init_output: bool = True, qk_norm: str = "none",
                  sliding_window: Tuple[int, int] = (-1, -1),
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 dim_in: Optional[int] = None):
         super().__init__()
         self.dim, self.dim_heads = dim, dim_heads
         self.cross = dim_context is not None
         self.causal, self.qk_norm = causal, qk_norm
         self.sliding_window = tuple(sliding_window)
         self.compute_dtype = dtype
+        dim_in = dim_in or dim  # the query input's width (flax infers it)
         if self.cross:
-            self.to_q = Dense(dim, dim, bias=False, dtype=dtype)
+            self.to_q = Dense(dim_in, dim, bias=False, dtype=dtype)
             self.to_kv = Dense(dim_context, dim * 2, bias=False, dtype=dtype)
         else:
-            self.to_qkv = Dense(dim, dim * 3, bias=False, dtype=dtype)
+            self.to_qkv = Dense(dim_in, dim * 3, bias=False, dtype=dtype)
         if qk_norm == "ln":
             self.q_norm = LayerNorm(dim_heads, 1e-6, dtype)
             self.k_norm = LayerNorm(dim_heads, 1e-6, dtype)
@@ -218,9 +263,13 @@ class Attention(nn.Module):
     def forward(self, x: Tensor, context: Optional[Tensor] = None,
                 mask: Optional[Tensor] = None,
                 rotary_pos_emb: Optional[Tensor] = None,
-                cache=None, cache_index=None) -> Tensor:
-        if cache is not None or cache_index is not None:
-            raise NotImplementedError(_LM_ONLY.format("The KV cache"))
+                cache: Optional[Tuple[Tensor, Tensor]] = None,
+                cache_index: Optional[int] = None):
+        """The attended output; with ``cache`` (the layer's (k, v), each
+        (B, H, S_max, Dh)) and ``cache_index`` (the absolute position of
+        x's first token, an int), an incremental decode: x's keys and
+        values are written into the cache in place, and (out, cache)
+        returns."""
         if self.cross:
             q = self.to_q(x)
             k, v = self.to_kv(context).chunk(2, dim=-1)
@@ -239,6 +288,9 @@ class Attention(nn.Module):
                                              keepdim=True).clamp_min(1e-12)
             k = k / torch.linalg.vector_norm(k, dim=-1,
                                              keepdim=True).clamp_min(1e-12)
+        if cache is not None:
+            return self._cached(x, q, k, v, rotary_pos_emb, cache,
+                                cache_index)
         if rotary_pos_emb is not None and not self.cross:
             q = apply_rotary_pos_emb(q, rotary_pos_emb)
             k = apply_rotary_pos_emb(k, rotary_pos_emb)
@@ -270,6 +322,50 @@ class Attention(nn.Module):
             out = out.masked_fill(~mask.to(torch.bool)[:, :, None], 0.0)
         return out
 
+    def _cached(self, x, q, k, v, rotary_pos_emb, cache, cache_index: int):
+        if self.cross or cache_index is None:
+            raise ValueError("the KV cache is for self-attention and needs "
+                             "cache_index")
+        qn = q.shape[2]
+        if rotary_pos_emb is not None:
+            # the table spans the cache: the rows at the new positions
+            freqs = rotary_pos_emb[cache_index:cache_index + qn]
+            q = apply_rotary_pos_emb(q, freqs)
+            k = apply_rotary_pos_emb(k, freqs)
+        k_cache, v_cache = cache
+        k_cache[:, :, cache_index:cache_index + qn] = k.to(k_cache.dtype)
+        v_cache[:, :, cache_index:cache_index + qn] = v.to(v_cache.dtype)
+        logits = torch.matmul(q, k_cache.to(q.dtype).transpose(-1, -2)) * (
+            self.dim_heads ** -0.5)
+        qpos = cache_index + torch.arange(qn, device=q.device)[:, None]
+        kpos = torch.arange(k_cache.shape[2], device=q.device)[None, :]
+        logits = logits.masked_fill(kpos > qpos, torch.finfo(logits.dtype).min)
+        out = torch.matmul(logits.softmax(dim=-1), v_cache.to(logits.dtype))
+        out = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
+        return self.to_out(out), (k_cache, v_cache)
+
+
+class ConformerModule(nn.Module):
+    """The conformer conv block over (B, T, C): LayerNorm, ``pointwise_1``,
+    a GLU (``glu``: a * sigmoid(gate)), a 17-tap depthwise conv with
+    'SAME' padding, GroupNorm(1) over (T, C), SiLU, ``pointwise_2``. Only
+    the tokens of the call enter the conv and the norm."""
+
+    def __init__(self, dim: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.in_norm = LayerNorm(dim, 1e-6, dtype)
+        self.pointwise_1 = Dense(dim, dim, dtype=dtype)
+        self.glu = Dense(dim, 2 * dim, dtype=dtype)
+        self.depthwise = Conv1d(dim, dim, 17, padding=(8, 8), groups=dim,
+                                dtype=dtype)
+        self.mid_norm = GroupNorm(1, dim, 1e-6, dtype)
+        self.pointwise_2 = Dense(dim, dim, dtype=dtype)
+
+    def forward(self, x: Tensor) -> Tensor:
+        a, gate = self.glu(self.pointwise_1(self.in_norm(x))).chunk(2, -1)
+        h = self.depthwise((a * torch.sigmoid(gate)).transpose(1, 2))
+        return self.pointwise_2(F.silu(self.mid_norm(h)).transpose(1, 2))
+
 
 class TransformerBlock(nn.Module):
     """Pre-norm block: self-attention, optional cross-attention,
@@ -289,8 +385,6 @@ class TransformerBlock(nn.Module):
                  ff_mult: float = 4.0, norm_eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if conformer:
-            raise NotImplementedError(_LM_ONLY.format("conformer=True"))
         zero_init = zero_init_branch_outputs and not layer_scale
         self.dim, self.cross_attend = dim, cross_attend
         self.adaln = bool(global_cond_dim)
@@ -314,6 +408,9 @@ class TransformerBlock(nn.Module):
                 dim, dim_heads=dim_heads, dim_context=dim_context or dim,
                 zero_init_output=zero_init, qk_norm=qk_norm, dtype=dtype)
             self.cross_attn_scale = scale()
+        self.conformer = ConformerModule(dim, dtype) if conformer else None
+        if conformer:
+            self.conformer_scale = scale()
         self.ff = FeedForward(dim, mult=ff_mult, zero_init_output=zero_init,
                               dtype=dtype)
         self.ff_scale = scale()
@@ -326,31 +423,51 @@ class TransformerBlock(nn.Module):
                 self.to_scale_shift_gate.normal_(0.0, self.dim ** -0.5,
                                                  generator=generator)
 
-    def _cross(self, x, context, context_mask):
-        if context is None or not self.cross_attend:
-            return x
-        return x + self.cross_attn_scale(self.cross_attn(
-            self.cross_attend_norm(x), context=context, mask=context_mask))
+    def _cross_conformer(self, x, context, context_mask):
+        if context is not None and self.cross_attend:
+            x = x + self.cross_attn_scale(self.cross_attn(
+                self.cross_attend_norm(x), context=context,
+                mask=context_mask))
+        if self.conformer is not None:
+            x = x + self.conformer_scale(self.conformer(x))
+        return x
 
     def forward(self, x: Tensor, context: Optional[Tensor] = None,
                 global_cond: Optional[Tensor] = None,
                 mask: Optional[Tensor] = None,
                 context_mask: Optional[Tensor] = None,
-                rotary_pos_emb: Optional[Tensor] = None) -> Tensor:
+                rotary_pos_emb: Optional[Tensor] = None,
+                cache: Optional[Tuple[Tensor, Tensor]] = None,
+                cache_index: Optional[int] = None):
+        """x (B, T, dim) -> (B, T, dim); with ``cache`` (this layer's (k,
+        v)) an incremental decode at ``cache_index`` (no key mask), which
+        returns (x, cache)."""
+        new_cache = None
+
+        def self_attn(h):
+            nonlocal new_cache
+            if cache is None:
+                return self.self_attn(h, mask=mask,
+                                      rotary_pos_emb=rotary_pos_emb)
+            h, new_cache = self.self_attn(h, rotary_pos_emb=rotary_pos_emb,
+                                          cache=cache,
+                                          cache_index=cache_index)
+            return h
+
         if self.adaln and global_cond is not None:
             ssg = (self.to_scale_shift_gate + global_cond)[:, None, :]
             (scale_self, shift_self, gate_self, scale_ff, shift_ff,
              gate_ff) = ssg.chunk(6, dim=-1)
-            h = self.pre_norm(x) * (1 + scale_self) + shift_self
-            h = self.self_attn(h, mask=mask, rotary_pos_emb=rotary_pos_emb)
+            h = self_attn(self.pre_norm(x) * (1 + scale_self) + shift_self)
             x = x + self.self_attn_scale(h * torch.sigmoid(1 - gate_self))
-            x = self._cross(x, context, context_mask)
+            x = self._cross_conformer(x, context, context_mask)
             h = self.ff(self.ff_norm(x) * (1 + scale_ff) + shift_ff)
-            return x + self.ff_scale(h * torch.sigmoid(1 - gate_ff))
-        x = x + self.self_attn_scale(self.self_attn(
-            self.pre_norm(x), mask=mask, rotary_pos_emb=rotary_pos_emb))
-        x = self._cross(x, context, context_mask)
-        return x + self.ff_scale(self.ff(self.ff_norm(x)))
+            x = x + self.ff_scale(h * torch.sigmoid(1 - gate_ff))
+        else:
+            x = x + self.self_attn_scale(self_attn(self.pre_norm(x)))
+            x = self._cross_conformer(x, context, context_mask)
+            x = x + self.ff_scale(self.ff(self.ff_norm(x)))
+        return x if cache is None else (x, new_cache)
 
 
 class ContinuousTransformer(nn.Module):
@@ -394,8 +511,17 @@ class ContinuousTransformer(nn.Module):
         if dim_out is not None:
             self.project_out = Dense(dim, dim_out, bias=False, dtype=dtype)
 
-    def init_cache(self, batch: int, max_len: int, dtype=torch.float32):
-        raise NotImplementedError(_LM_ONLY.format("init_cache"))
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32,
+                   device=None) -> Tuple:
+        """Per-layer (k, v) caches of ``max_len`` positions, zeros of (B,
+        H, max_len, Dh), allocated once (on the parameters' device by
+        default); a cached call writes into them in place."""
+        if device is None:
+            device = next(self.parameters()).device
+        shape = (batch, self.dim // self.dim_heads, max_len, self.dim_heads)
+        return tuple((torch.zeros(shape, dtype=dtype, device=device),
+                      torch.zeros(shape, dtype=dtype, device=device))
+                     for _ in range(self.depth))
 
     def layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.depth)]
@@ -413,9 +539,12 @@ class ContinuousTransformer(nn.Module):
                 global_cond: Optional[Tensor] = None,
                 context: Optional[Tensor] = None,
                 context_mask: Optional[Tensor] = None,
-                return_info: bool = False, cache=None, cache_index=None):
-        if cache is not None or cache_index is not None:
-            raise NotImplementedError(_LM_ONLY.format("The KV cache"))
+                return_info: bool = False, cache: Optional[Tuple] = None,
+                cache_index: Optional[int] = None):
+        """(B, T, dim_in) -> (B, T', dim_out) (with ``return_info`` also
+        each layer's hidden states); with ``cache`` (``init_cache``'s) and
+        ``cache_index`` an incremental decode, which returns (x,
+        caches)."""
         batch, seq = x.shape[:2]
         if hasattr(self, "project_in"):
             x = self.project_in(x)
@@ -432,21 +561,32 @@ class ContinuousTransformer(nn.Module):
                     else prepend_mask.to(torch.bool),
                     ones(seq) if mask is None else mask.to(torch.bool)],
                     dim=-1)
-        rope = self.rope(x.shape[1], x.device) if self.rotary else None
+        # decode: the table spans the absolute cache positions
+        rope_len = x.shape[1] if cache is None else cache[0][0].shape[2]
+        rope = self.rope(rope_len, x.device) if self.rotary else None
         if global_cond is not None and self.global_cond_dim:
             global_cond = self.global_embed_out(F.silu(
                 self.global_embed_in(global_cond)))
         else:
             global_cond = None
         info = {"hidden_states": []}
-        for block in self.layers():
-            x = block(x, context=context, global_cond=global_cond,
-                      mask=mask, context_mask=context_mask,
-                      rotary_pos_emb=rope)
+        new_caches = []
+        for i, block in enumerate(self.layers()):
+            if cache is not None:
+                x, c = block(x, context=context, global_cond=global_cond,
+                             context_mask=context_mask, rotary_pos_emb=rope,
+                             cache=cache[i], cache_index=cache_index)
+                new_caches.append(c)
+            else:
+                x = block(x, context=context, global_cond=global_cond,
+                          mask=mask, context_mask=context_mask,
+                          rotary_pos_emb=rope)
             if return_info:
                 info["hidden_states"].append(x)
         if hasattr(self, "project_out"):
             x = self.project_out(x)
+        if cache is not None:
+            return x, tuple(new_caches)
         return (x, info) if return_info else x
 
 
@@ -454,13 +594,24 @@ def reset_transformer_parameters(module: nn.Module,
                                  generator: Optional[torch.Generator] = None
                                  ) -> None:
     """(Re)initialise every submodule of ``module`` that has
-    ``reset_parameters``, in module order, from ``generator``."""
+    ``reset_parameters``, in module order, from ``generator`` (a nested
+    ``Seeded`` module's leaves once, through this walk)."""
     for m in module.modules():
-        if m is not module and hasattr(m, "reset_parameters"):
+        if (m is not module and not isinstance(m, Seeded)
+                and hasattr(m, "reset_parameters")):
             m.reset_parameters(generator)
 
 
-__all__ = ["Attention", "ContinuousTransformer", "Dense", "FeedForward",
-           "LayerNorm", "LayerScale", "TransformerBlock",
+class Seeded(nn.Module):
+    """A module whose ``reset_parameters(generator)`` re-initialises every
+    submodule (``reset_transformer_parameters``)."""
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        reset_transformer_parameters(self, generator)
+
+
+__all__ = ["Attention", "ConformerModule", "ContinuousTransformer", "Conv1d",
+           "Dense", "FeedForward", "LayerNorm", "LayerScale",
+           "Seeded", "TransformerBlock",
            "apply_rotary_pos_emb", "reset_transformer_parameters",
            "rotary_freqs", "sliding_window_mask"]

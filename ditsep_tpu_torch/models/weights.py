@@ -22,6 +22,18 @@ Fourier features' ``weight``) copied under its own name. A ``params``
 level anywhere in a path (a conditioner's variables under its name) is
 dropped.
 
+Given the ``model``, ``params_from_jax(flat, model)`` walks its module
+tree beside each flax path, so a module may name its children otherwise
+than flax: a module's ``flax_names`` maps a flax child name to its own
+(dotted) path. The Oobleck blocks reused by the codecs do so (their
+reference ``nn.Sequential`` layout: ``res_0`` -> ``layers.0``, ``down`` ->
+``layers.4``, ``act_0`` -> ``layers.0.act``...). A weight-normed conv's
+``v`` / ``g`` become ``weight_v`` (WIO (k, in, out) <-> (out, in, k), a
+transposed conv's (k, out, in) <-> (in, out, k)) and ``weight_g`` ((n,)
+<-> (n, 1, 1)); SnakeBeta's ``alpha`` / ``beta``, the DAU1d's
+``timestep_embed`` and ``snake_a_{c}`` keep their names.
+``params_to_jax(model)`` walks the same way back.
+
 The OobleckVAE has a bridge of its own (``oobleck_params_from_jax`` /
 ``oobleck_params_to_jax``, a copy of ditsep_tpu/models/torch_import.py:
 151-205's key map and its inverse): the flax tree (``encoder/stem/v``,
@@ -40,6 +52,7 @@ to ``discs.{i}.convs.{j}.weight_v`` / ``weight_g`` / ``bias``
 from __future__ import annotations
 
 import os
+import re
 
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -81,7 +94,15 @@ def _to_torch_layout(a: np.ndarray, leaf: str) -> np.ndarray:
 
 # flax leaves outside ``flax_path_to_torch_key``'s map that keep a name of
 # their own in the port (the stable-audio models')
-_OWN_NAME_LEAVES = ("to_scale_shift_gate", "gamma", "weight")
+_OWN_NAME_LEAVES = ("to_scale_shift_gate", "gamma", "weight", "alpha",
+                    "beta", "timestep_embed")
+_OWN_NAME_PREFIXES = ("codebook_", "snake_a_")
+# a weight-normed conv's flax leaves and the port's
+_WN_LEAVES = {"v": "weight_v", "g": "weight_g", "bias": "bias"}
+
+
+def _own_name(leaf: str) -> bool:
+    return leaf in _OWN_NAME_LEAVES or leaf.startswith(_OWN_NAME_PREFIXES)
 
 
 def _torch_key(path: Tuple[str, ...]) -> Optional[str]:
@@ -91,26 +112,78 @@ def _torch_key(path: Tuple[str, ...]) -> Optional[str]:
     leaf = path[-1]
     if leaf == "embedding":
         leaf = "weight"
-    elif not (leaf in _OWN_NAME_LEAVES or leaf.startswith("codebook_")):
+    elif not _own_name(leaf):
         return None
     return ".".join(path[:-1] + (leaf,))
 
 
-def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """``{"a/b/c": array}`` JAX parameters -> ``{torch_key: tensor}``. An
-    OobleckVAE's tree (every key under ``encoder/`` or ``decoder/``, the
-    factory's autoencoder) goes through ``oobleck_params_from_jax``."""
+def _flax_names(module: nn.Module) -> Dict[str, str]:
+    return getattr(module, "flax_names", None) or {}
+
+
+def _is_wn_conv(module: nn.Module) -> bool:
+    from ditsep_tpu_torch.models.oobleck import WNConv1d, WNConvTranspose1d
+    return isinstance(module, (WNConv1d, WNConvTranspose1d))
+
+
+def _walk_from_jax(model: nn.Module, path: Tuple[str, ...], key: str):
+    """A flax path (without its leaf) -> (the module's dotted path, the
+    module), through each module's ``flax_names``; an NCSN++'s
+    ``all_modules_i`` is ``all_modules.i``. A tree with or without the
+    score model's ``backbone`` walks from the model's backbone or past the
+    tree's (``load_state`` adds or strips the prefix). A segment that names
+    no submodule raises, naming the parameter's ``key``."""
+    mod, parts = model, []
+    first = _flax_names(model).get(path[0], path[0]) if path else None
+    if path and not hasattr(model, first.split(".")[0]):
+        if path[0] == "backbone":
+            path = path[1:]
+        elif isinstance(getattr(model, "backbone", None), nn.Module):
+            mod = model.backbone
+    for p in path:
+        name = _flax_names(mod).get(p, p)
+        if re.fullmatch(r"all_modules_\d+", name):
+            name = "all_modules." + name[len("all_modules_"):]
+        try:
+            mod = mod.get_submodule(name)
+        except AttributeError as e:
+            raise KeyError(f"JAX parameter {key!r}: {type(mod).__name__} "
+                           f"has no submodule {name!r}") from e
+        parts.append(name)
+    return parts, mod
+
+
+def params_from_jax(flat: Mapping[str, np.ndarray],
+                    model: Optional[nn.Module] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """``{"a/b/c": array}`` JAX parameters -> ``{torch_key: tensor}``.
+    Given ``model``, each path is walked through its modules (their
+    ``flax_names``; weight-normed convs' ``v`` / ``g``). Without one, an
+    OobleckVAE's tree (every key under ``encoder/`` or ``decoder/``) goes
+    through ``oobleck_params_from_jax``, as with an OobleckVAE ``model``."""
     paths = {key: tuple(p for p in key.split("/") if p != "params")
              for key in flat}
-    if paths and all(p[0] in ("encoder", "decoder") for p in paths.values()):
+    if isinstance(model, OobleckVAE) or (model is None and paths and all(
+            p[0] in ("encoder", "decoder") for p in paths.values())):
         return oobleck_params_from_jax(flat)
     out = {}
     for key, arr in flat.items():
-        path = paths[key]
-        tkey = _torch_key(path)
+        path, a = paths[key], np.asarray(arr)
+        parts, owner = path[:-1], None
+        if model is not None:
+            parts, owner = _walk_from_jax(model, path[:-1], key)
+        if owner is not None and _is_wn_conv(owner):
+            leaf = _WN_LEAVES.get(path[-1])
+            tkey = None if leaf is None else ".".join(parts + [leaf])
+            if path[-1] == "v":
+                a = a.transpose(2, 1, 0)
+            elif path[-1] == "g":
+                a = a.reshape(-1, 1, 1)
+        else:
+            tkey = _torch_key(tuple(parts) + path[-1:])
+            a = _to_torch_layout(a, path[-1])
         if tkey is None:
             raise KeyError(f"JAX parameter {key!r} has no torch counterpart")
-        a = _to_torch_layout(np.asarray(arr), path[-1])
         out[tkey] = torch.from_numpy(np.ascontiguousarray(a))
     return out
 
@@ -143,9 +216,18 @@ def params_to_jax(model) -> Dict[str, np.ndarray]:
         parts = key.split(".")
         leaf = parts[-1]
         a = t.detach().float().cpu().numpy()
+        if module is not None:
+            path, owner = _walk_to_jax(module, parts[:-1])
+            if _is_wn_conv(owner):
+                wn = {v: k for k, v in _WN_LEAVES.items()}
+                if leaf == "weight_v":
+                    a = a.transpose(2, 1, 0)
+                elif leaf == "weight_g":
+                    a = a.reshape(-1)
+                out["/".join(path + [wn[leaf]])] = np.ascontiguousarray(a)
+                continue
         if leaf == "weight":
             if module is not None:
-                owner = module.get_submodule(".".join(parts[:-1]))
                 kind = next((k for cls, k in _weight_kinds()
                              if isinstance(owner, cls)), None)
                 what = f"a weight of {type(owner).__name__}"
@@ -165,21 +247,45 @@ def params_to_jax(model) -> Dict[str, np.ndarray]:
             elif kind == "dense":
                 leaf, a = "kernel", a.T
         elif not (leaf in ("bias", "W", "b")
-                  or (module is not None and (
-                      leaf in _OWN_NAME_LEAVES
-                      or leaf.startswith("codebook_")))):
+                  or (module is not None and _own_name(leaf))):
             raise KeyError(f"{key} has no JAX counterpart")
-        path = []
-        i = 0
-        while i < len(parts) - 1:
+        if module is None:
+            path = []
+            i = 0
+            while i < len(parts) - 1:
+                if parts[i] == "all_modules":
+                    path.append(f"all_modules_{parts[i + 1]}")
+                    i += 2
+                else:
+                    path.append(parts[i])
+                    i += 1
+        out["/".join(path + [leaf])] = np.ascontiguousarray(a)
+    return out
+
+
+def _walk_to_jax(model: nn.Module, parts: List[str]):
+    """A module's dotted path -> (its flax path, the module): at each
+    module the longest run of parts that its ``flax_names`` gives a flax
+    name takes that name; ``all_modules.{i}`` is ``all_modules_{i}``."""
+    mod, path, i = model, [], 0
+    while i < len(parts):
+        inv = {v: k for k, v in _flax_names(mod).items()}
+        for j in range(len(parts), i, -1):
+            if ".".join(parts[i:j]) in inv:
+                path.append(inv[".".join(parts[i:j])])
+                mod = mod.get_submodule(".".join(parts[i:j]))
+                i = j
+                break
+        else:
             if parts[i] == "all_modules":
                 path.append(f"all_modules_{parts[i + 1]}")
+                mod = mod.get_submodule(f"all_modules.{parts[i + 1]}")
                 i += 2
             else:
                 path.append(parts[i])
+                mod = mod.get_submodule(parts[i])
                 i += 1
-        out["/".join(path + [leaf])] = np.ascontiguousarray(a)
-    return out
+    return path, mod
 
 
 def save_params_npz(path: str, model) -> None:
@@ -201,9 +307,8 @@ def load_params_npz(path: str, model: nn.Module) -> nn.Module:
     score model or a bare NCSNpp; an OobleckVAE reads the VAE's tree."""
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
-    state = (oobleck_params_from_jax(flat) if isinstance(model, OobleckVAE)
-             else params_from_jax(flat))
-    return load_state(model, state, source=f"checkpoint {path}")
+    return load_state(model, params_from_jax(flat, model),
+                      source=f"checkpoint {path}")
 
 
 def load_state(model: nn.Module, state: Mapping, *, strict: bool = True,

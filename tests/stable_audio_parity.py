@@ -1,5 +1,6 @@
 """Shared helpers of the stable-audio parity tests (tests/test_torch_{
-transformer,dit,conditioners,bottleneck,generation}.py): flatten a flax
+transformer,dit,conditioners,bottleneck,generation,lm,codecs,unet1d,
+dau1d}.py): flatten a flax
 tree, redraw its leaves from a seed so that no zero-initialised layer hides
 a difference, and carry it into a port module through
 ``params_from_jax``."""
@@ -64,8 +65,9 @@ def redraw(tree, seed: int, scale: float = 0.3):
 
 def load_jax(module: torch.nn.Module, jax_tree) -> torch.nn.Module:
     """Load a flax tree (with or without ``params``) into ``module``,
-    strictly, and return it in eval mode."""
-    load_state(module, params_from_jax(flat(jax_tree)))
+    strictly (each path walked through the module's ``flax_names``), and
+    return it in eval mode."""
+    load_state(module, params_from_jax(flat(jax_tree), module))
     return module.eval()
 
 

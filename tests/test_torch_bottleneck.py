@@ -291,8 +291,37 @@ def test_chunked_codec():
 
 
 def test_dac_pretransform_raises():
-    with pytest.raises(NotImplementedError, match="A16.3b"):
-        tp.DACPretransform()
+    """The DAC pretransform, which raised before the codecs were ported:
+    a token round trip (``tokenize`` then ``decode_tokens``) against
+    JAX's, codes exact, audio at the VAE bar."""
+    from ditsep_tpu.models import codecs as jc
+    from ditsep_tpu_torch.models import codecs as tc
+    enc_kw = dict(d_model=2, strides=(2,))
+    dec_kw = dict(latent_dim=4, channels=4, rates=(2,))
+    q_kw = dict(input_dim=4, n_codebooks=2, codebook_size=6, codebook_dim=3)
+    lat = jnp.zeros((1, 3, 4))
+    params = {"encoder": redraw(init_shapes(jc.DACEncoderWrapper(**enc_kw),
+                                            jnp.zeros((1, 6, 1))), 1),
+              "decoder": redraw(init_shapes(jc.DACDecoderWrapper(**dec_kw),
+                                            lat), 2),
+              "quantizer": redraw(init_shapes(jb.DACResidualVQ(**q_kw),
+                                              lat), 3, scale=1.0)}
+    jpre = jp.DACPretransform(encoder=jc.DACEncoderWrapper(**enc_kw),
+                              decoder=jc.DACDecoderWrapper(**dec_kw),
+                              quantizer=jb.DACResidualVQ(**q_kw),
+                              params=params)
+    parts = [load_jax(m, params[k]) for m, k in (
+        (tc.DACEncoderWrapper(**enc_kw), "encoder"),
+        (tc.DACDecoderWrapper(**dec_kw), "decoder"),
+        (tb.DACResidualVQ(**q_kw), "quantizer"))]
+    tpre = tp.DACPretransform(*parts)
+    x = _x((2, 1, 16), 4)
+    codes = jax.jit(jpre.tokenize)(jnp.asarray(x))
+    with torch.no_grad():
+        got = tpre.tokenize(_t(x))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(codes))
+        _close(tpre.decode_tokens(got), jax.jit(jpre.decode_tokens)(codes),
+               VAE_BAR)
 
 
 def test_bottleneck_params_cross_both_ways():

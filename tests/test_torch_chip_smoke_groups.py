@@ -168,3 +168,80 @@ def test_generation_phase_rehearsed_on_the_cpu(smoke, monkeypatch,
         assert imp["bit_equal"]
     finally:
         torch.set_num_threads(n)
+
+
+def test_kernels_line_lists_the_stable_models_path(smoke):
+    """The stable_models phase's path runs no kernel: every kernel lists
+    it with 0 launches; the phase is in group 2, before mesh."""
+    zero = {k: 0 for k in ("fir_down2d", "fir_up2d", "fba_fwd", "fba_bwd",
+                           "conv3x3_9tap", "conv3x3_async_halo")}
+    line = smoke.kernels_line({"stable_launches": zero}, torch)
+    assert all(k["launches_by_path"]["stable_lm_full"] == 0
+               for k in line if "launches_by_path" in k)
+    g2 = smoke.GROUPS[2]
+    assert g2.index("phase_stable_models") < g2.index("phase_mesh")
+
+
+def test_stable_models_configs(smoke):
+    """The full-width LM has MusicGen-small's widths (about 0.42 B
+    parameters, counted on the meta device) over DAC 44 kHz's 9 codebooks
+    of 1024 (hop 512, latent 1024); DAU1d's config is the reference
+    class's defaults (stereo, depth 14)."""
+    from ditsep_tpu_torch.models.factory import (
+        create_model_from_config, create_pretransform_from_config)
+    with torch.device("meta"):
+        lm, pattern = create_model_from_config(smoke.LM_FULL)
+        pre = create_pretransform_from_config(
+            smoke.LM_FULL["model"]["pretransform"])
+        dau = create_model_from_config(smoke.DAU_FULL)
+    n = sum(p.numel() for p in lm.parameters())
+    assert 0.40e9 < n < 0.44e9
+    assert (lm.dim, lm.depth, lm.num_heads, lm.n_quantizers,
+            lm.codebook_size) == (1024, 24, 16, 9, 1024)
+    assert pattern.extra_steps == 8
+    assert (pre.downsampling_ratio, pre.encoded_channels,
+            pre.num_quantizers, pre.codebook_size) == (512, 1024, 9, 1024)
+    assert smoke.LM_FULL_LENGTH * pre.downsampling_ratio == 88064
+    assert (dau.io_channels, dau.depth) == (2, 14)
+
+
+def test_stable_models_phase_rehearsed_on_the_cpu(smoke, monkeypatch):
+    """The phase's parts on the CPU (CUDA calls patched to no-ops, the
+    profiler's replay run once unprofiled): the small configs' card-vs-CPU
+    checks (both the CPU here), /api/lm's WAV and codes equal to the
+    direct calls, the LM path with a tiny LM over the DAC 44 kHz codec
+    (5 frames), DAU1d at a tiny width and its importer; every launch
+    count 0."""
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    monkeypatch.setattr(smoke, "profile_replay", lambda run: {
+        "nfe": run(), "wall_ms": 0.0, "device_busy_ms": 0.0,
+        "idle_share": None, "top": []})
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        ctx = {"card": "CPU", "bandwidth": 3.35e12}
+        par = smoke.stable_parity(ctx, device="cpu")
+        assert set(par["card_vs_cpu_rel"]) == set(par["bars"])
+        http = smoke.stable_http(ctx, device="cpu")
+        assert http["codes"]["shape"] == [1, 4, 16]
+        tiny = {**smoke.LM_FULL, "model": {
+            **smoke.LM_FULL["model"], "lm": {"config": {
+                "n_quantizers": 9, "codebook_size": 1024, "embed_dim": 32,
+                "depth": 2, "num_heads": 2}}}}
+        full = smoke.stable_lm_full(ctx, tiny, 5, device="cpu")
+        assert full["decode_step_s"]["n"] == (smoke.LM_FULL_REQUESTS
+                                              * (5 + 8 - 1))
+        assert full["cached_vs_full_rel"] <= 1e-4
+        assert not any(full["launches"].values())
+        dau = smoke.stable_dau(ctx, {"model_type": "diffusion_uncond",
+                                     "model": {"type": "DAU1d", "config": {
+                                         "depth": 3, "n_attn_layers": 1,
+                                         "channels": [8, 8, 32],
+                                         "strides": [2, 2]}}}, 64,
+                               device="cpu")
+        assert len(dau["step_s"]) == smoke.DAU_STEPS
+        assert dau["importer"]["bit_equal"]
+    finally:
+        torch.set_num_threads(n)

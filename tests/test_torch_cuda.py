@@ -1173,3 +1173,41 @@ def test_full_width_dit_on_card_matches_cpu(cuda_device):
     assert got.shape == want.shape == (1, 64, 1024)
     err = (got.cpu() - want).abs().max() / want.abs().max()
     assert err <= 1e-3, float(err)
+
+
+@pytest.mark.cuda
+def test_full_width_lm_cached_step_matches_full_pass(cuda_device):
+    """The token LM at MusicGen-small's widths (1024 x 24 layers, 16
+    heads, 9 codebooks of 1024, 0.42 B parameters), seeded, its
+    zero-initialised layers redrawn: the last of 40 cached decode steps
+    (one token a step into the preallocated cache) against one full
+    uncached pass over the same prefix on the card, within 1e-4 of
+    max|ref|, TF32 off."""
+    from ditsep_tpu_torch.models.factory import create_model_from_config
+
+    from chip_smoke import LM_FULL, lm_teacher_forced, nonzero_
+
+    with torch.device(cuda_device):
+        lm, pattern = create_model_from_config(
+            LM_FULL, torch.Generator(device=cuda_device).manual_seed(0))
+    nonzero_(lm, 1)
+    lm.eval()
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    codes = torch.randint(0, 1024, (1, 9, 32), generator=g,
+                          device=cuda_device)
+    grid = pattern.apply(codes)
+    bos = torch.full((1, 9, 1), lm.special_token, device=cuda_device)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            cached = lm_teacher_forced(lm, grid, {}, 1.0)[:, :, -1]
+            full = lm(torch.cat([bos, grid[..., :-1]], dim=-1))[:, :, -1]
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    assert grid.shape[-1] == 40 and cached.shape == (1, 9, 1024)
+    err = (cached - full).abs().max() / full.abs().max()
+    assert err <= 1e-4, float(err)

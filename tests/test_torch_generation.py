@@ -216,6 +216,17 @@ def test_prepare_audio():
 
 
 def test_factory_dispatch_and_refusals():
+    """Every branch of the factory builds (the codecs, the DAC
+    pretransform, the LM, the diffusion autoencoder, DAU1d and the adp
+    U-Nets among them), unknown types are refused, and
+    ``generate_diffusion_cond``
+    runs the 'adp_cfg_1d' U-Net from the factory against JAX's on JAX's
+    noise (JAX's adapter refuses the ``scale_phi`` that its generator
+    passes every model: the JAX side drops it)."""
+    from ditsep_tpu.models import factory as jf
+    from ditsep_tpu_torch.models import (codecs, dau1d, diffusion_ae, lm,
+                                         pretransforms, unet1d)
+    from stable_audio_parity import init_shapes, load_jax, redraw
     vae = tf.create_model_from_config(
         {"model_type": "autoencoder",
          "model": {"encoder": {"type": "oobleck", "config": {
@@ -242,17 +253,100 @@ def test_factory_dispatch_and_refusals():
         tf.create_bottleneck_from_config({"type": bn, "config": {}})
     tf.create_bottleneck_from_config(
         {"type": "dithered_fsq", "config": {"dim": 4, "levels": 5}})
-    for cfg in ({"model_type": "lm", "model": {}},
-                {"model_type": "diffusion_autoencoder", "model": {}},
-                {"model_type": "diffusion_uncond",
-                 "model": {"type": "DAU1d"}},
+    codec_cfgs = {
+        "dac": ({"d_model": 2, "strides": [2], "latent_dim": 4},
+                {"latent_dim": 4, "channels": 4, "rates": [2]}),
+        "seanet": ({"dimension": 4, "n_filters": 2, "ratios": [2],
+                    "norm": "weight_norm", "causal": False},
+                   {"dimension": 4, "n_filters": 2, "ratios": [2],
+                    "final_activation": None}),
+        "local_attn": ({"in_channels": 1, "out_channels": 4,
+                        "embed_dims": [4], "heads": [2], "depths": [1],
+                        "ratios": [2], "local_attn_window_size": 4},
+                       {"in_channels": 4, "out_channels": 1,
+                        "embed_dims": [4], "heads": [2], "depths": [1],
+                        "ratios": [2], "local_attn_window_size": 4}),
+        "taae": ({"in_channels": 1, "channels": 4, "latent_dim": 4,
+                  "c_mults": [1], "strides": [2], "transformer_depths": [1]},
+                 {"out_channels": 1, "channels": 4, "latent_dim": 4,
+                  "c_mults": [1], "strides": [2],
+                  "transformer_depths": [1]})}
+    for kind, (enc, dec) in codec_cfgs.items():
+        ae = tf.create_model_from_config({"model_type": "autoencoder",
+                                          "model": {
+            "encoder": {"type": kind, "config": enc},
+            "decoder": {"type": kind, "config": dec},
+            "bottleneck": {"type": "tanh"}, "latent_dim": 4}})
+        assert isinstance(ae, codecs.GenericAudioAutoencoder)
+        with torch.no_grad():
+            assert ae(torch.zeros(1, 1, 8))[0].shape == (1, 1, 8)
+    with torch.device("meta"):
+        pre = tf.create_pretransform_from_config({"type": "dac_pretrained"})
+    assert isinstance(pre, pretransforms.DACPretransform)
+    assert (pre.downsampling_ratio, pre.encoded_channels,
+            pre.num_quantizers) == (512, 1024, 9)
+    model, pattern = tf.create_model_from_config({"model_type": "lm",
+                                                  "model": {"lm": {
+        "codebook_pattern": "unroll", "config": {
+            "n_quantizers": 2, "codebook_size": 8, "embed_dim": 8,
+            "depth": 1, "num_heads": 2}}}})
+    assert isinstance(model, lm.AudioLM)
+    assert isinstance(pattern, lm.UnrolledPattern)
+    dae = tf.create_model_from_config({
+        "model_type": "diffusion_autoencoder", "model": {
+            "latent_dim": 2, "downsampling_ratio": 4, "io_channels": 1,
+            "encoder": {"type": "oobleck", "config": {
+                "channels": 2, "c_mults": [1], "strides": [4],
+                "latent_dim": 2}},
+            "diffusion": {"type": "dit", "config": {
+                "io_channels": 3, "embed_dim": 8, "depth": 1,
+                "num_heads": 2}}}})
+    assert isinstance(dae, diffusion_ae.DiffusionAutoencoder)
+    dau = tf.create_model_from_config({"model_type": "diffusion_uncond",
+                                       "model": {"type": "DAU1d", "config": {
+                                           "io_channels": 1, "depth": 2,
+                                           "channels": [4, 4],
+                                           "strides": [2]}}})
+    assert isinstance(dau, dau1d.DiffusionAttnUnet1D)
+    unet_cfg = {"in_channels": 2, "channels": 4, "multipliers": [1, 2],
+                "factors": [2], "num_blocks": [1], "attentions": [0, 1],
+                "context_embedding_features": 6,
+                "context_embedding_max_length": 4, "attention_heads": 2,
+                "attention_features": 4}
+    adp = tf.create_model_from_config({"model_type": "diffusion_uncond",
+                                       "model": {"type": "adp_uncond_1d",
+                                                 "config": unet_cfg}})
+    assert isinstance(adp, unet1d.UNetCondAdapter)
+    for cfg in ({"model_type": "nope"},
+                {"model_type": "diffusion_uncond", "model": {"type": "x"}},
                 {"model_type": "autoencoder", "model": {
-                    "encoder": {"type": "dac", "config": {}},
-                    "decoder": {"type": "dac", "config": {}}}}):
-        with pytest.raises(NotImplementedError, match="A16.3b"):
+                    "encoder": {"type": "x"}, "decoder": {"type": "dac"}}}):
+        with pytest.raises(NotImplementedError):
             tf.create_model_from_config(cfg)
-    with pytest.raises(NotImplementedError, match="A16.3b"):
-        tf.create_pretransform_from_config({"type": "dac_pretrained"})
-    with pytest.raises(NotImplementedError, match="A16.3b"):
-        tf.create_diffusion_cond_from_config(
-            {"model": {"diffusion": {"type": "adp_cfg_1d"}}})
+    with pytest.raises(NotImplementedError):
+        tf.create_pretransform_from_config({"type": "audiocraft_pretrained"})
+
+    cond_cfg = {"model_type": "diffusion_cond", "model": {"diffusion": {
+        "type": "adp_cfg_1d", "cross_attention_cond_ids": ["prompt"],
+        "config": unet_cfg}}}
+    net, routing, _ = tf.create_model_from_config(cond_cfg)
+    jnet = jf.create_model_from_config(cond_cfg)[0]
+    emb = np.random.default_rng(0).standard_normal((1, 3, 6)).astype(
+        np.float32)
+    params = redraw(init_shapes(jnet, jnp.zeros((1, 2, 16)), jnp.zeros((1,)),
+                                cross_attn_cond=jnp.asarray(emb)), 1)
+    load_jax(net, params)
+    kw = {"cross_attn_cond": emb, "cross_attn_cond_mask": np.ones((1, 3),
+                                                                  bool)}
+    want = jg.generate_diffusion_cond(
+        lambda x, t, scale_phi, **k: jnet.apply(params, x, t, **k), KEY,
+        steps=3, cfg_scale=2.5, batch_size=1, sample_size=16, io_channels=2,
+        cond_inputs={k: jnp.asarray(v) for k, v in kw.items()})
+    noise = _t(jax.random.normal(jax.random.split(KEY)[0], (1, 2, 16)))
+    with torch.no_grad():
+        got = tg.generate_diffusion_cond(
+            net, steps=3, cfg_scale=2.5, batch_size=1, sample_size=16,
+            io_channels=net.io_channels,
+            cond_inputs={k: _t(v) for k, v in kw.items()},
+            diffusion_objective=net.diffusion_objective, noise=noise)
+    assert max_rel(got, want) <= 1e-3

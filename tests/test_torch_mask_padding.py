@@ -105,6 +105,38 @@ def test_masked_group_norm_matches_flax(valid):
                     jnp.asarray(x)), 1e-5)
 
 
+@pytest.mark.parametrize("shape,groups,plain", [
+    ((1, 4, 70000), 1, True),     # one row of 280,000 values
+    ((2, 64, 8, 9), 32, False),   # 64 short rows
+    ((1, 32, 5, 7), 8, False),    # few rows, short
+])
+def test_unmasked_group_norm_matches_flax_both_ways(monkeypatch, shape,
+                                                   groups, plain):
+    """Unmasked, the port's GroupNorm takes plain reductions for a few
+    long rows and ``F.group_norm`` otherwise; both give flax's
+    ``GroupNorm`` (channels last there) within 1e-5 abs."""
+    import flax.linen as fnn
+    rng = np.random.default_rng(groups)
+    x = (3.0 * rng.standard_normal(shape) + 1.5).astype(np.float32)
+    c = shape[1]
+    scale = rng.standard_normal(c).astype(np.float32)
+    bias = rng.standard_normal(c).astype(np.float32)
+    last = np.moveaxis(x, 1, -1)
+    want = fnn.GroupNorm(num_groups=groups, epsilon=1e-6).apply(
+        {"params": {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}},
+        jnp.asarray(last))
+    port = L.GroupNorm(groups, c, 1e-6)
+    port.load_state_dict({"weight": torch.from_numpy(scale),
+                          "bias": torch.from_numpy(bias)})
+    library = []
+    real = L.F.group_norm
+    monkeypatch.setattr(L.F, "group_norm",
+                        lambda *a, **k: library.append(1) or real(*a, **k))
+    got = port(torch.from_numpy(x))
+    assert bool(library) is not plain
+    _close(got.movedim(1, -1), want, 1e-5)
+
+
 def test_masked_attention_matches_jax():
     b, c, h, w = 2, 16, 4, 8
     rng = np.random.default_rng(3)

@@ -209,13 +209,49 @@ def test_return_info_hidden_states():
     assert info["hidden_states"][-1].shape == out.shape
 
 
-def test_lm_only_paths_raise():
-    """The KV cache and the conformer serve the token LM (A16.3b)."""
-    m = tt.ContinuousTransformer(16, 1, dim_heads=8)
-    x = torch.zeros(1, 3, 16)
-    with pytest.raises(NotImplementedError, match="A16.3b"):
-        m.init_cache(1, 8)
-    with pytest.raises(NotImplementedError, match="A16.3b"):
-        m(x, cache=((x, x),), cache_index=0)
-    with pytest.raises(NotImplementedError, match="A16.3b"):
-        tt.ContinuousTransformer(16, 1, dim_heads=8, conformer=True)
+@pytest.mark.parametrize("part", ["cache", "conformer"])
+def test_lm_only_paths_raise(part):
+    """The token LM's parts, which raised before the LM was ported,
+    against JAX: ``cache``, a causal RoPE stack's cached decode (a
+    two-token prefill, then one token a step, written in place at
+    ``cache_index`` into the preallocated cache) step by step against
+    JAX's cached decode and against the full pass; ``conformer``, the
+    conformer block (alone, and in a layer-scaled block)."""
+    dim, n = 32, 6
+    x = _x((2, n, dim), 11)
+    if part == "conformer":
+        c = _x((2, 9, dim), 12)
+        _check(jt.ConformerModule(), tt.ConformerModule(dim), [c], {})
+        _check(jt.TransformerBlock(dim, dim_heads=8, conformer=True,
+                                   layer_scale=True),
+               tt.TransformerBlock(dim, dim_heads=8, conformer=True,
+                                   layer_scale=True),
+               [c], {"rotary_pos_emb": np.asarray(jt.rotary_freqs(9, 4))})
+        return
+    common = dict(dim_heads=8, causal=True, zero_init_branch_outputs=False)
+    jmod = jt.ContinuousTransformer(dim, 2, **common)
+    tmod = tt.ContinuousTransformer(dim, 2, **common)
+    params = redraw(init_shapes(jmod, jnp.asarray(x)), 13)
+    load_jax(tmod, params)
+    step = jax.jit(lambda p, a, c, i: jmod.apply(p, a, cache=c,
+                                                 cache_index=i))
+    jcache, tcache = jmod.init_cache(2, n + 1), tmod.init_cache(2, n + 1)
+    spans = [(0, 2)] + [(i, i + 1) for i in range(2, n)]
+    got, want = [], []
+    for a, b in spans:
+        out, jcache = step(params, jnp.asarray(x[:, a:b]), jcache,
+                           jnp.asarray(a, jnp.int32))
+        want.append(np.asarray(out))
+        with torch.no_grad():
+            out, tcache = tmod(torch.from_numpy(x[:, a:b]), cache=tcache,
+                               cache_index=a)
+        got.append(out)
+        assert out.shape == (2, b - a, dim)
+    got = torch.cat(got, dim=1)
+    assert max_rel(got, np.concatenate(want, axis=1)) <= MODEL_BAR
+    with torch.no_grad():
+        full = tmod(torch.from_numpy(x))
+    assert max_rel(got, full) <= MODEL_BAR
+    # the caches are the ones allocated, written in place
+    assert tcache[0][0].shape == (2, 4, n + 1, 8)
+    assert not tcache[0][0][:, :, n:].any()

@@ -22,7 +22,10 @@ from ditsep_tpu_torch.configs import (
     build_diffsep_trainer, build_latent_trainer, diffsep, latent_diffsep_ouve,
     override,
 )
-from ditsep_tpu_torch.models.weights import params_to_jax
+from ditsep_tpu_torch.models.transformer import ContinuousTransformer
+from ditsep_tpu_torch.models.weights import (
+    load_state, params_from_jax, params_to_jax,
+)
 from ditsep_tpu_torch.utils.checkpoint import CheckpointManager
 from test_torch_latent import TINY as LATENT_TINY
 from test_torch_train import TINY
@@ -147,3 +150,25 @@ def test_params_to_jax_names_a_modules_weights_by_type(run):
     for odd in (torch.nn.LayerNorm(4), torch.nn.ConvTranspose2d(2, 2, 3)):
         with pytest.raises(KeyError, match=type(odd).__name__):
             params_to_jax(torch.nn.Sequential(odd))
+
+
+def test_params_from_jax_names_the_flax_path_it_cannot_walk(run):
+    """Given the model, a flax path whose segment names no submodule
+    raises with that path; an NCSN++ tree (``all_modules_i``, without the
+    ``backbone`` of the score model's own tree) still loads into the
+    score model."""
+    model = ContinuousTransformer(16, 1, dim_heads=8)
+    flat = params_to_jax(model)
+    load_state(model, params_from_jax(flat, model))
+    key = next(k for k in flat if k.startswith("layer_0/"))
+    bad = key.replace("layer_0/", "layer_7/", 1)
+    with pytest.raises(KeyError, match=bad):
+        params_from_jax({**flat, bad: flat[key]}, model)
+    score = run[0].model
+    tree = {k.split("/", 1)[1]: v for k, v in params_to_jax(score).items()
+            if k.startswith("backbone/")}
+    assert any(k.startswith("all_modules_") for k in tree)
+    before = {k: v.clone() for k, v in score.state_dict().items()}
+    load_state(score, params_from_jax(tree, score))
+    assert all(torch.equal(v, before[k])
+               for k, v in score.state_dict().items())

@@ -1,9 +1,10 @@
 """The port's stdlib web demo (ditsep_tpu_torch.interface) on the CPU,
 mirroring tests/test_web_interface.py: a live ThreadingHTTPServer over
 localhost driven with urllib. The separation, autoencoder and generation
-routes answer with the bytes of the direct backend calls; the LM route
-answers 404 "backend not loaded", the LM not being ported (ROADMAP
-A16.3b).
+routes answer with the bytes of the direct backend calls, the LM route
+too (WAV through a DAC pretransform's ``decode_tokens``, or JSON codes
+without one); a route whose backend was not given answers 404 "backend not
+loaded".
 
 Against the JAX package: the WAV codec (``encode_wav`` byte-equal,
 ``decode_wav`` equal on 8-, 16- and 32-bit input) and
@@ -240,16 +241,65 @@ def test_generation_and_autoencoder_routes_match_direct_calls(full_server,
     assert np.isfinite(decode_wav(got)[0]).all()
 
 
-@pytest.mark.parametrize("path,body", [
-    ("/api/lm", json.dumps({"length": 4, "top_k": 4}).encode()),
-])
-def test_unloaded_backend_routes_404(full_server, path, body):
-    """The LM backend is not ported (ROADMAP A16.3b): its route answers
-    404 on a server with every other backend."""
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(full_server, path, body)
-    assert e.value.code == 404
-    assert b"backend not loaded" in e.value.read()
+def _lm_app(decoder: bool):
+    """A seeded 3-codebook LM from the factory, with a small DAC
+    pretransform's ``decode_tokens`` (codebooks of 16) or none."""
+    from ditsep_tpu_torch.interface import LMApp
+    from ditsep_tpu_torch.models import bottleneck, codecs, pretransforms
+    from ditsep_tpu_torch.models.factory import create_model_from_config
+
+    lm, _ = create_model_from_config({"model_type": "lm", "model": {"lm": {
+        "config": {"n_quantizers": 3, "codebook_size": 16, "embed_dim": 16,
+                   "depth": 1, "num_heads": 2}}}})
+    decode = None
+    if decoder:
+        g = torch.Generator().manual_seed(3)
+        parts = [codecs.DACEncoderWrapper(d_model=2, strides=(2,)),
+                 codecs.DACDecoderWrapper(latent_dim=4, channels=4,
+                                          rates=(2,)),
+                 bottleneck.DACResidualVQ(4, n_codebooks=3, codebook_size=16,
+                                          codebook_dim=2)]
+        for m in parts:
+            m.reset_parameters(g)
+        decode = pretransforms.DACPretransform(*parts).decode_tokens
+    return LMApp(lm=lm.eval(), decode_tokens=decode, fs=8000)
+
+
+@pytest.mark.parametrize("case", ["wav", "codes", "unloaded"])
+def test_unloaded_backend_routes_404(server, case):
+    """/api/lm answers 200 with the direct ``LMApp.process`` call's WAV
+    bytes (a decoder given) or its codes as JSON (none), at the same seed;
+    on a server built without an LM (``server``: separation only) it
+    answers 404 "backend not loaded"."""
+    body = json.dumps({"length": 4, "top_k": 4, "temperature": 0.8,
+                       "seed": 3}).encode()
+    if case == "unloaded":
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(server, "/api/lm", body)
+        assert e.value.code == 404
+        assert b"backend not loaded" in e.value.read()
+        return
+    app = _lm_app(decoder=case == "wav")
+    srv = DemoServer(lm=app, port=0).start()
+    try:
+        info = json.loads(urllib.request.urlopen(_url(srv, "/api/info"),
+                                                 timeout=30).read())
+        assert info["lm"] is True
+        with _post(srv, "/api/lm", body) as r:
+            assert r.status == 200
+            got = r.read()
+            ctype = r.headers["Content-Type"]
+    finally:
+        srv.close()
+    direct = app.process(length=4, top_k=4, temperature=0.8, seed=3)
+    if case == "wav":
+        assert ctype == "audio/wav"
+        assert direct.shape == (1, 1, 8)
+        assert got == encode_wav(direct.reshape(-1), 8000)
+    else:
+        assert ctype == "application/json"
+        assert direct.shape == (1, 3, 4)
+        assert json.loads(got) == {"codes": direct.tolist()}
 
 
 def test_generate_cond_prompt_string_fails_cleanly(full_server):
