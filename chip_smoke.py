@@ -4,10 +4,10 @@
     python3 chip_smoke.py [--group 1|2] [--phase NAME ...]
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, all at once) and runs twenty-nine phases, each printing
+nvcc per source, all at once) and runs thirty phases, each printing
 JSON lines and, after it, ``{"phase": NAME, "phase_s": seconds}``; any
 failure raises and the exit code is non-zero. ``--group 1`` runs phases
-2-16 and ``--group 2`` phases 17-29 (``GROUPS``: each group fits one
+2-16 and ``--group 2`` phases 17-30 (``GROUPS``: each group fits one
 900 s chip call); ``--phase`` runs the named phases alone:
 
 1. device   -- card name and power limit (nvidia-smi), kernel build time;
@@ -81,9 +81,10 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                buckets, runtime and launches of each, the masked ones held
                to the SI-SDR bars of PERF.md;
 10. evaluate -- the same CLI at the flagship width (diffsep_icassp, seeded
-               random weights) over 12 items, batch 4, N=30, unmasked and
-               masked: the reference schema, finite metrics, runtime of
-               each mode and the host seconds of the metrics;
+               random weights) over 4 items, batch 4, N=30, unmasked and
+               masked, without warm-up calls: the reference schema,
+               finite metrics, runtime of each mode and the host seconds
+               of the metrics;
 11. longform -- ``cli.separate --chunk-seconds 4 --overlap-seconds 1`` at the
                flagship width on one 14 s file: its length and its windows'
                launches;
@@ -96,7 +97,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                and 'sde'), enhancement (PriorMix, PC with ald2, 16 kHz),
                ab2 on diffsep and ``ode_sample`` rk4 on diffsep_ouve; then
                each family at its config's full width through
-               ``cli.separate`` on 3 written WAVs: diffsep_ouve and
+               ``cli.separate`` on 2 written WAVs: diffsep_ouve and
                diffsep_sb (nf=64, 8.415 s at 8 kHz, NFE 60 / 30),
                enhancement (nf=128, 3 s at 16 kHz, NFE 60) and
                diffsep_icassp ``--sampler ab2`` (NFE 30): NFE, peak
@@ -195,13 +196,13 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                8 over HTTP, one wave each (utt/s, wave latency, p50 / p95,
                occupancy from /v1/stats, batches, peak GiB, launches =
                batches x 60 x 18); one wave at 8 with pipeline_depth=1 and
-               one with the int16 wire; /metrics parsed once;
+               one with the int16 wire (N=5); /metrics parsed once;
 25. serving_stream -- two concurrent /v1/stream sessions of 10 s on the
                same engine, pushed in real time in 0.5 s blocks, 4 s
                windows with 1 s overlap: emitted = pushed, the windows
                sharing batches, each response's wait; then ``cli.separate
                --chunk-seconds 4 --overlap-seconds 1
-               --streaming-block-seconds 0.5`` on one 10 s file;
+               --streaming-block-seconds 0.5`` on one 10 s file (N=10);
 26. serving_latent -- ``build_engine(latent=True)`` on latent_diffsep_ouve
                at full width behind the API: the 65,536-sample bucket,
                concurrency 4 and 8, launches = batches x 60 x 6;
@@ -240,8 +241,8 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                LMApp(...))``: /api/lm's WAV (and, without a decoder, its
                JSON codes) equal to the direct call's; the token LM at
                MusicGen-small's widths (1024 x 24 layers, 16 heads) over
-               DAC 44 kHz's 9 x 1024 codes, seeded, through ``LMApp``: 2
-               requests of 172 frames (180 cached LM calls each, top-k
+               DAC 44 kHz's 9 x 1024 codes, seeded, through ``LMApp``: a
+               request of 172 frames (180 cached LM calls, top-k
                250), the prefill, a decode step's median and spread,
                frames per second, ``decode_tokens``, the request, peak
                GiB, 16 profiled decode steps' idle share, a step's byte
@@ -250,17 +251,37 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                (stereo, depth 14), 8 sampler steps of 65,536 samples, one
                step profiled, and its importer bit-equal to the
                ``params_from_jax`` load;
-29. mesh    -- data parallelism (``ditsep_tpu_torch.parallel``) in child
+29. stable_train -- the stable-audio training path, which no kernel of
+               the port lies on (every launch count 0): card vs CPU (TF32
+               off, the card's draws) on small configs, two steps each of
+               ``DiffusionTrainer`` (a DiT 64 wide with cross-attention,
+               CFG dropout, inpainting and a padding mask),
+               ``DiffAETrainer``, ``LMTrainer`` (the clip on) and a VAE-GAN
+               gen + disc pair with a DAC and with an Oobleck
+               discriminator, at the train-step bars, while
+               ``cli.train_stable``'s children start: at full width, one a
+               model type, started together, one training at a time (the
+               LM at MusicGen-small's widths over DAC 44 kHz's codes,
+               batch 4 x 172 frames, 4 steps; DAU1d at its defaults, batch 2 x
+               65,536, 3 steps; the Stable Audio Open 1.0 VAE against
+               DAC's published discriminator, batch 2 x 65,536, 4 steps),
+               one demo each: s a step, peak GiB, the losses' first and
+               last, 0 failed media calls; ``DiffusionTrainer`` on the
+               conditional DiT at Stable Audio Open 1.0's widths (1.09 B
+               parameters), batch 1, 2 steps;
+30. mesh    -- data parallelism (``ditsep_tpu_torch.parallel``) in child
                processes on 127.0.0.1, each under a hard timeout, TF32
                off and deterministic cuDNN: ``cli.train_diffsep`` at the
                flagship width (batch 6 x 40,960, 2 steps, a validation)
                under ``python -m torch.distributed.run --nproc-per-node
                1 ... --mesh`` (NCCL, world size 1) against the same run
                without --mesh, losses, validation and EMA export bit
-               for bit, the step times and peak memory of both; then
-               ``cli.evaluate --mesh`` on 2 items; then two gloo ranks
-               sharing cuda:0: two train steps of the nf=32 checkpoint
-               on a batch of 4 split 2 + 2 against one process at the
+               for bit, the step times and peak memory of both (the two
+               started together, one on the card at a time), and
+               ``cli.evaluate --mesh`` on 1 item; beside that child and
+               before the train children take the card, two gloo ranks
+               sharing cuda:0: two train steps of the nf=32 checkpoint on
+               a batch of 4 split 2 + 2 against one process at the
                train-step bars, and ``evaluate_dataset`` on 3 items
                against one process.
 
@@ -272,7 +293,8 @@ and training CLIs, the media phase's training, evaluate and separate
 CLIs and its API callback, the imported checkpoint's separations, each
 serving
 warmup and level, the stream sessions and the streaming CLI, the
-generation and stable_models paths; the mesh phase's children count their
+generation, stable_models and stable_train paths (the stable_train
+children count their own); the mesh phase's children count their
 own) and read just after it. The script
 then prints the ``kernels`` JSON line (all six kernels; a group run, the
 launches of the paths it ran), and as its last line
@@ -310,7 +332,7 @@ CKPT_LAUNCHES_PER_FORWARD = 9
 CKPT_OVERRIDES = ["model.score_model.nf=32",
                   "model.score_model.ch_mult=(1,1,2,2)",
                   "model.score_model.attn_resolutions=(32,)"]
-EVAL_TRAINED_ITEMS, EVAL_ITEMS, EVAL_BATCH = 8, 12, 4
+EVAL_TRAINED_ITEMS, EVAL_ITEMS, EVAL_BATCH = 8, 4, 4
 SI_SDR_BAR_DB, MASKED_RUNS_APART_DB = 8.5, 1.0  # the bars of PERF.md §2
 # the latent path's bf16 stems against its f32 (TF32 convs) stems, same
 # weights and draws, by SI-SDR, the worst item and source (PERF.md §2;
@@ -348,7 +370,8 @@ GROUPS = {
     2: ("phase_latent_kernel", "phase_latent_parity", "phase_latent_flagship",
         "phase_latent_train", "phase_ldm_parity", "phase_ldm_train",
         "phase_serving_parity", "phase_serving", "phase_serving_latent",
-        "phase_generation", "phase_stable_models", "phase_mesh"),
+        "phase_generation", "phase_stable_models", "phase_stable_train",
+        "phase_mesh"),
 }
 
 
@@ -1621,10 +1644,11 @@ def phase_evaluate_trained(ctx):
 
 def phase_evaluate(ctx):
     """cli.evaluate at the flagship width, seeded random weights, unmasked
-    and masked."""
+    and masked, without warm-up calls (evaluate_trained runs them)."""
     base = ["--config", "diffsep_icassp", "--synthetic",
             "--synthetic-items", str(EVAL_ITEMS), "--eval-batch-size",
-            str(EVAL_BATCH), "--sampler-N", str(N_STEPS), "--seed", "0"]
+            str(EVAL_BATCH), "--sampler-N", str(N_STEPS), "--seed", "0",
+            "--no-warmup"]
     runs = {name: run_evaluate([*extra, *base], LAUNCHES_PER_FORWARD)
             for name, extra in (("unmasked", []),
                                 ("masked", ["--mask-padding"]))}
@@ -1782,7 +1806,7 @@ FAMILY_CLI_RUNS = (("diffsep_ouve", "pc", FLAGSHIP_SAMPLES, 8000, 60),
                    ("diffsep_sb", None, FLAGSHIP_SAMPLES, 8000, 30),
                    ("enhancement", "pc", 48000, 16000, 60),
                    ("diffsep_icassp", "ab2", FLAGSHIP_SAMPLES, 8000, 30))
-FAMILY_FILES = 3  # the calls after the first give the steady state
+FAMILY_FILES = 2  # the call after the first gives the steady state
 
 
 def phase_families(ctx):
@@ -2845,30 +2869,37 @@ LDM_PARITY_LR = 1.0   # the schedule's first rates are 1e-3 lr: above ulps
 LDM_PARITY_SAMPLES = 8192  # 128 latent frames at hop 64
 LDM_CACHE_ITEMS, LDM_LEN_S, LDM_BATCH = 8, 5.12, 4  # 40,960 samples
 LDM_STEPS, LDM_RESUME_STEPS = 6, 8  # gen on even steps, disc on odd
-LDM_TIMED_STEPS, LDM_PROFILED_STEPS = 10, 3  # of each kind, after warm-up
+LDM_TIMED_STEPS, LDM_PROFILED_STEPS = 5, 3  # of each kind, after warm-up
 AE_SAMPLES, AE_BATCH = 247808, 2  # oobleck_finetune sample_size
-AE_TIMED_STEPS = 10  # of each kind, after a warm gen + disc pair
+AE_TIMED_STEPS = 5  # of each kind, after a warm gen + disc pair
+
+
+CLIP_ADAMW = {"b1": 0.8, "b2": 0.99, "weight_decay": 1e-3}
 
 
 def group_worst(cpu: dict, card: dict, rate, clip: float,
-                decay=None) -> dict:
+                decay=None, adam: dict = CLIP_ADAMW) -> dict:
     """One parameter group's steps, the card's against the CPU's after
     each: the train-step bars at the applied rates (the sum over the
     steps of 1e-3 * rate where the CPU gradient is significant, 2 * rate
     elsewhere) plus twice the part the two devices' gradients explain
-    through float64 clip + AdamW (b1 0.8, b2 0.99, wd 1e-3); the EMA the
-    same times (1 - decay) plus 2 ulps. Returns the worst ratios (<= 1
-    passes). The gradients themselves are held by ``grads_worst``."""
+    through float64 clip + AdamW (``adam``: b1, b2, weight_decay;
+    ``ClipAdamW``'s by default); the EMA the same times (1 - decay) plus 2
+    ulps. Buffers (no gradient) are left out. Returns the worst ratios
+    (<= 1 passes). The gradients themselves are held by
+    ``grads_worst``."""
     import numpy as np
     worst = {"param_over_bar": 0.0, "ema_over_bar": 0.0}
     for n in range(1, len(cpu["steps"]) + 1):
         h_cpu = [s["grads"] for s in cpu["steps"][:n]]
         h_card = [s["grads"] for s in card["steps"][:n]]
         rates = [rate(i) for i in range(n)]
-        a, b = (adam_f64(cpu["p0"], h, rates, clip, b1=0.8, b2=0.99,
-                         weight_decay=1e-3) for h in (h_cpu, h_card))
+        a, b = (adam_f64(cpu["p0"], h, rates, clip, **adam)
+                for h in (h_cpu, h_card))
         ref, got = cpu["steps"][n - 1], card["steps"][n - 1]
         for k, want in ref["params"].items():
+            if k not in h_cpu[0]:
+                continue
             sig = np.ones(want.shape, bool)
             for g in h_cpu:
                 top = max(np.abs(x).max() for x in g.values())
@@ -2905,23 +2936,20 @@ def grads_of(loss, module) -> dict:
 
 def hinge_term_scales(disc, reals, fakes) -> dict:
     """Each discriminator leaf's scale for a disc step's gradient: the
-    larger max of the gradients of its two terms, the reals' hinge mean
-    and the fakes' (each averaged over the scales, as the loss is). With
-    every hinge active the loss is linear in the logits and the two
-    terms nearly cancel: on ldm_parity's seeded discriminators a conv
+    larger max of the gradients of its two terms, the reals' and the
+    fakes' (``discriminator_loss_terms``: the hinge's, or DAC's and
+    BigVGAN's least-squares, each averaged over the scales, as the loss
+    is). With every hinge active the loss is linear in the logits and the
+    two terms nearly cancel: on ldm_parity's seeded discriminators a conv
     bias's gradient is 15 to 110 times smaller than either term's (CPU,
     float64). What the two devices' conv accumulation orders round, and a
     leaky ReLU whose input lies within that rounding of 0, is a share of
     the terms, not of their difference."""
     import numpy as np
-    import torch.nn.functional as F
-    logits_real, _ = disc(reals)
-    logits_fake, _ = disc(fakes)
-    n = len(logits_real)
-    real = grads_of(sum(F.relu(1.0 - s).mean() for s in logits_real) / n,
-                    disc)
-    fake = grads_of(sum(F.relu(1.0 + s).mean() for s in logits_fake) / n,
-                    disc)
+    from ditsep_tpu_torch.models.discriminators import (
+        discriminator_loss_terms)
+    real, fake = (grads_of(term, disc) for term in
+                  discriminator_loss_terms(disc, reals, fakes))
     return {k: float(max(np.abs(real[k]).max(), np.abs(fake[k]).max()))
             for k in real}
 
@@ -3079,7 +3107,6 @@ def phase_ldm_parity(ctx):
     import torch
     from ditsep_tpu_torch.configs import latent_diffsep_ouve, override
     from ditsep_tpu_torch.training import auraloss
-    from ditsep_tpu_torch.training.autoencoder import AutoencoderTrainer
     from ditsep_tpu_torch.training.ldm import LDMTrainer
     from ditsep_tpu_torch.training.schedules import inverse_lr_schedule
 
@@ -3113,34 +3140,27 @@ def phase_ldm_parity(ctx):
             res["disc"] = [a.cpu().numpy() for a in logits
                            + [f for fm in fmaps for f in fm]]
             tr = latent_trainer(cfg, device)
-            ae_vae = copy.deepcopy(tr.vae)  # the finetune moves tr's
+            if device == "cpu":
+                ae_vae = copy.deepcopy(tr.vae)  # the finetune moves tr's
             ldm = LDMTrainer(latent_trainer=tr, disc=disc, lr=LDM_PARITY_LR)
             res["ldm"] = ldm_parity_steps(ldm, batches, device)
-            ae = AutoencoderTrainer(
-                vae=ae_vae, disc=seeded_disc(1, device, **LDM_PARITY_DISC),
-                lr=LDM_PARITY_LR, disc_lr=2 * LDM_PARITY_LR,
-                latent_mask_ratio=0.3)
-            res["ae"] = ae_parity_steps(ae, ae_reals, ae_draws, device)
             out[device] = res
             if device == "cpu":
-                cpu_ldm, cpu_ae = ldm, ae
-            del tr, ae_vae, ldm, ae, disc
+                cpu_ldm = ldm
+            del tr, ldm, disc
         # the CPU's gradients at the card's parameters before each step,
         # a disc step's on the card's fakes: the discriminator's gradient
         # is held alone, the decoder's round trip by the gen steps
         tn = torch.from_numpy
-        fakes = {w: [None if f is None else tn(f)
-                     for f in out["cuda"][w]["fakes"]] for w in ("ldm", "ae")}
-        replay = {
-            "ldm": replay_grads(
-                {"decoder": cpu_ldm.vae.decoder, "disc": cpu_ldm.disc},
-                out["cuda"]["ldm"]["pre"], lambda n: ldm_step_grads(
-                    cpu_ldm, n, tn(batches[n][0]), tn(batches[n][1]),
-                    fakes["ldm"][n])),
-            "ae": replay_grads(
-                {"vae": cpu_ae.vae, "disc": cpu_ae.disc},
-                out["cuda"]["ae"]["pre"], lambda n: ae_step_grads(
-                    cpu_ae, n, tn(ae_reals), ae_draws, fakes["ae"][n]))}
+        fakes = [None if f is None else tn(f)
+                 for f in out["cuda"]["ldm"]["fakes"]]
+        replay = replay_grads(
+            {"decoder": cpu_ldm.vae.decoder, "disc": cpu_ldm.disc},
+            out["cuda"]["ldm"]["pre"], lambda n: ldm_step_grads(
+                cpu_ldm, n, tn(batches[n][0]), tn(batches[n][1]), fakes[n]))
+        ae = ae_card_vs_cpu("ae", ae_vae, seeded_disc(
+            1, "cpu", **LDM_PARITY_DISC), ae_reals, ae_draws, "cuda",
+            latent_mask_ratio=0.3)
     cpu, card = out["cpu"], out["cuda"]
     f32k, f64k = str(torch.float32), str(torch.float64)
     (l_cpu, g_cpu), (l_card, g_card) = cpu[f32k], card[f32k]
@@ -3156,43 +3176,39 @@ def phase_ldm_parity(ctx):
     disc_rel = max(float(np.abs(a - c).max() / np.abs(c).max())
                    for a, c in zip(card["disc"], cpu["disc"]))
     check(disc_rel <= 1e-5, f"discriminator card vs CPU {disc_rel}")
-    steps = {}
-    for what, trainer in (("ldm", cpu_ldm), ("ae", cpu_ae)):
-        # the hinge's gradient: with every hinge active a difference of
-        # two nearly equal means (conv_post's bias exactly 0), its bar a
-        # share of the terms (hinge_term_scales)
-        worst = {"gen": 0.0, "disc": 0.0}
-        for n, ((want, scale), got) in enumerate(zip(replay[what],
-                                                     card[what]["grads"])):
-            kind = "disc" if trainer.use_disc_this_step(n) else "gen"
-            worst[kind] = max(worst[kind], grads_worst(
-                want, got, f"{what} step {n} at the card's parameters",
-                scale=scale))
-        steps[what] = {"grad_over_bar": worst}
-    for what, lr_of in (("ldm", {"decoder": LDM_PARITY_LR,
-                                 "disc": 2 * LDM_PARITY_LR}),
-                        ("ae", {"vae": LDM_PARITY_LR,
-                                "disc": 2 * LDM_PARITY_LR})):
-        loss_rel = max(abs(a - c) / abs(c) for a, c in zip(
-            card[what]["losses"], cpu[what]["losses"]))
-        check(loss_rel <= 1e-4, f"{what} losses card vs CPU {loss_rel}")
-        steps[what]["loss_rel"] = loss_rel
-        for group, lr in lr_of.items():
-            clip = 1.0 if what == "ldm" else np.inf  # the VAE-GAN's: none
-            worst = group_worst(
-                cpu[what]["groups"][group], card[what]["groups"][group],
-                inverse_lr_schedule(lr), clip,
-                decay=0.9999 if group in ("decoder", "vae") else None)
-            check(worst["param_over_bar"] <= 1 and worst["ema_over_bar"] <= 1,
-                  f"{what} {group} steps card vs CPU: {worst}")
-            steps[what][group] = worst
+    # the hinge's gradient: with every hinge active a difference of two
+    # nearly equal means (conv_post's bias exactly 0), its bar a share of
+    # the terms (hinge_term_scales)
+    worst = {"gen": 0.0, "disc": 0.0}
+    for n, ((want, scale), got) in enumerate(zip(replay,
+                                                 card["ldm"]["grads"])):
+        kind = "disc" if cpu_ldm.use_disc_this_step(n) else "gen"
+        worst[kind] = max(worst[kind], grads_worst(
+            want, got, f"ldm step {n} at the card's parameters",
+            scale=scale))
+    steps = {"ldm": {"grad_over_bar": worst}}
+    loss_rel = max(abs(a - c) / abs(c) for a, c in zip(
+        card["ldm"]["losses"], cpu["ldm"]["losses"]))
+    check(loss_rel <= 1e-4, f"ldm losses card vs CPU {loss_rel}")
+    steps["ldm"]["loss_rel"] = loss_rel
+    for group, lr in (("decoder", LDM_PARITY_LR),
+                      ("disc", 2 * LDM_PARITY_LR)):
+        worst = group_worst(
+            cpu["ldm"]["groups"][group], card["ldm"]["groups"][group],
+            inverse_lr_schedule(lr), 1.0,
+            decay=0.9999 if group == "decoder" else None)
+        check(worst["param_over_bar"] <= 1 and worst["ema_over_bar"] <= 1,
+              f"ldm {group} steps card vs CPU: {worst}")
+        steps["ldm"][group] = worst
+    steps["ae"] = {k: v for k, v in ae.items() if k != "losses_card"}
     emit({"phase": "ldm_parity", "config": "latent_parity's (VAE channels "
           "32, hop 64, latent 16), seeded weights; discriminator filters 8, "
           "n_ffts (1024, 256); MRSTFT: the ldm config's 7 resolutions, "
           "perceptual", "samples": t, "batch": b, "tf32": False,
           "lr": LDM_PARITY_LR, "mrstft": mrstft,
           "disc_max_rel_err": disc_rel, "steps": steps,
-          "losses_card": {k: card[k]["losses"] for k in ("ldm", "ae")},
+          "losses_card": {"ldm": card["ldm"]["losses"],
+                          "ae": ae["losses_card"]},
           "tolerance": "MRSTFT 1e-5 relative, its gradient 1e-5 of max "
           "plus twice the CPU's own float32 error against float64; the "
           "discriminator 1e-5 of max; losses 1e-4 relative; each step's "
@@ -3210,7 +3226,7 @@ def phase_ldm_train(ctx):
     cache_latents on 8 synthetic 5.12 s items at N = 30 (fir_down2d's
     launches), cli.train_ldm --use-disc at batch 4 for 6 steps (peak
     memory), then --resume to 8; cli.validate_vae over the seeded and the
-    finetuned VAE; the steady rates from 10 gen and 10 disc steps after a
+    finetuned VAE; the steady rates from 5 gen and 5 disc steps after a
     warm pair, alternating, each timed alone, then 3 gen steps under the
     profiler; then AutoencoderTrainer gen and disc steps at the VAE's
     sample_size of 247,808 samples, batch 2, timed the same way."""
@@ -3328,7 +3344,7 @@ def phase_ldm_train(ctx):
         result["validate_vae"] = rows
 
         # the steady rates: after a warm gen + disc pair (cuDNN's set-up),
-        # 10 steps of each kind, alternating as train_ldm does; then 3 gen
+        # 5 steps of each kind, alternating as train_ldm does; then 3 gen
         # steps under the profiler
         trainer = train_ldm.build_ldm_trainer(
             cfg, build_latent_trainer(cfg, device="cuda", seed=0),
@@ -3453,7 +3469,9 @@ SERVE_PARITY_LENGTHS, SERVE_PARITY_N, SERVE_PARITY_SEED = (7000, 6500,
                                                           7600), 5, 7
 SERVE_LEVELS, SERVE_WAVES, SERVE_MAX_BATCH = (1, 4, 8), 1, 8
 SERVE_WAIT_MS = 100.0
+SERVE_VARIANT_N = 5               # the variant engines' PC steps (NFE 10)
 STREAM_S, STREAM_BLOCK_S, STREAMS = 10.0, 0.5, 2  # CHUNK_S, OVERLAP_S too
+STREAM_CLI_N = 10                 # the streaming CLI's PC steps (NFE 20)
 LATENT_SERVE_LEVELS = (4, 8)
 LATENT_BUCKET = 65536             # 16 VAE hops of 2048
 
@@ -3630,8 +3648,9 @@ def phase_serving(ctx):
     through cli.serve_api's build_engine behind SeparationAPIServer:
     every batch size warmed, then concurrency 1, 4 and 8 over HTTP, one
     wave each; one wave at 8 with pipeline_depth=1 and one with the int16
-    wire, each on an engine of its own; /metrics parsed once. Then the
-    serving_stream phase on the same engine."""
+    wire, each on an engine of its own (N = SERVE_VARIANT_N); /metrics
+    parsed once. Then the serving_stream phase on the same engine and the
+    streaming CLI."""
     from ditsep_tpu_torch.cli.serve_api import build_engine
     from ditsep_tpu_torch.configs import diffsep_icassp
     from ditsep_tpu_torch.scripts import serving_bench as sb
@@ -3664,7 +3683,8 @@ def phase_serving(ctx):
                          ("wire_int16", {"wire_int16": True})):
             veng = build_engine(diffsep_icassp(), device="cuda",
                                 max_batch=SERVE_MAX_BATCH,
-                                max_wait_ms=SERVE_WAIT_MS, seed=0, **kw)
+                                max_wait_ms=SERVE_WAIT_MS, seed=0,
+                                sampler_N=SERVE_VARIANT_N, **kw)
             with api_server(veng) as (_, vclient):
                 variants[name] = serve_level(
                     veng, vclient, SERVE_MAX_BATCH, 1, lengths,
@@ -3679,7 +3699,7 @@ def phase_serving(ctx):
               "max_batch": SERVE_MAX_BATCH, "max_wait_ms": SERVE_WAIT_MS,
               "tf32_conv": True, "warmup": warm,
               "levels": {str(k): v for k, v in levels.items()},
-              "variants_at_8": variants,
+              "variants_at_8": variants, "variants_N": SERVE_VARIANT_N,
               "wave_s_at_8": {"default": default["wave_latency_s_mean"],
                               **{k: v["wave_latency_s_mean"]
                                  for k, v in variants.items()}},
@@ -3798,8 +3818,9 @@ def phase_serving_stream(ctx, eng, client):
 
 def cli_separate_streaming(ctx):
     """cli.separate --chunk-seconds --overlap-seconds
-    --streaming-block-seconds at the flagship width on one STREAM_S file:
-    finite stems of its length, launches windows x NFE x 18."""
+    --streaming-block-seconds at the flagship width on one STREAM_S file,
+    N = STREAM_CLI_N: finite stems of its length, launches windows x NFE x
+    18."""
     import shutil
 
     import numpy as np
@@ -3819,7 +3840,7 @@ def cli_separate_streaming(ctx):
     reset_counts()
     t0 = time.perf_counter()
     nfe = cli.main(["--config", "diffsep_icassp", "--input", str(inp),
-                    "--output", str(outp), "--sampler-N", str(N_STEPS),
+                    "--output", str(outp), "--sampler-N", str(STREAM_CLI_N),
                     "--chunk-seconds", str(CHUNK_S), "--overlap-seconds",
                     str(OVERLAP_S), "--streaming-block-seconds",
                     str(STREAM_BLOCK_S), "--seed", "0"])
@@ -3832,7 +3853,7 @@ def cli_separate_streaming(ctx):
     full = (n - int(CHUNK_S * FS)) // hop + 1
     windows = full + ((full - 1) * hop + int(CHUNK_S * FS) < n)
     want = LAUNCHES_PER_FORWARD * nfe * windows
-    check(nfe == 2 * N_STEPS and launches["fir_down2d"] == want
+    check(nfe == 2 * STREAM_CLI_N and launches["fir_down2d"] == want
           and all(v == 0 for k, v in launches.items() if k != "fir_down2d"),
           f"streaming CLI launches {launches}, want fir_down2d {want}")
     for src in ("s0", "s1"):
@@ -3843,7 +3864,7 @@ def cli_separate_streaming(ctx):
     ctx["serve_launches"]["cli_separate_streaming"] = launches["fir_down2d"]
     emit({"phase": "serving_stream_cli", "samples": n, "chunk_s": CHUNK_S,
           "overlap_s": OVERLAP_S, "block_s": STREAM_BLOCK_S,
-          "windows": windows, "N": N_STEPS, "seconds": wall_s,
+          "windows": windows, "N": STREAM_CLI_N, "seconds": wall_s,
           "launches": launches["fir_down2d"], "launches_want": want,
           "card": ctx["card"]})
 
@@ -4341,7 +4362,7 @@ LM_FULL = {"model_type": "lm", "sample_rate": 44100, "model": {
            "config": {"n_quantizers": 9, "codebook_size": 1024,
                       "embed_dim": 1024, "depth": 24, "num_heads": 16}}}}
 LM_FULL_LENGTH = 172               # frames: 88,064 samples, 2.0 s
-LM_FULL_REQUESTS, LM_FULL_TOP_K = 2, 250
+LM_FULL_REQUESTS, LM_FULL_TOP_K = 1, 250
 LM_PROFILE_STEPS = 16
 # the small LM held card against CPU: 4 codebooks of 32, cross-attention,
 # prepend and global conditioning, CFG 3
@@ -4821,17 +4842,549 @@ def phase_stable_models(ctx):
     torch.cuda.empty_cache()
 
 
+# the stable-audio training phase: small trainers card vs CPU (AdamW at a
+# constant rate: steps well above float32's resolution), then the
+# full-width children and the full-width DiT step
+STABLE_PARITY_LR = 1e-3
+STABLE_DIT_SMALL = dict(io_channels=4, embed_dim=64, depth=2, num_heads=4,
+                        cond_token_dim=16, input_concat_dim=5)
+STABLE_LM_SMALL = dict(n_quantizers=4, codebook_size=32, dim=64, depth=2,
+                       num_heads=4)
+STABLE_AE_VAE = dict(in_channels=1, channels=8, c_mults=(1, 2),
+                     strides=(2, 4), latent_dim=4)
+STABLE_AE_SAMPLES = 2048
+STABLE_AE_DISCS = {  # DAC: one of its MPDs (1024 wide), one MRD
+    "dac": {"type": "dac", "config": {"periods": [2],
+                                      "fft_sizes": [512]}},
+    "oobleck": {"type": "oobleck", "config": {"capacity": 8}}}
+# the full-width children: config, batch, sample_size, steps, demo_every
+SAO_AE = {"model_type": "autoencoder", "sample_rate": 44100, "model": {
+    "encoder": {"type": "oobleck", "config": {**SAO_VAE, "latent_dim": 128}},
+    "decoder": {"type": "oobleck", "config": {
+        **{k: v for k, v in SAO_VAE.items() if k != "in_channels"},
+        "out_channels": 2, "latent_dim": 64}},
+    "bottleneck": {"type": "vae"}, "latent_dim": 64},
+    "training": {"learning_rate": 1.5e-4, "loss_configs": {
+        "discriminator": {"type": "dac", "config": {
+            "periods": [2, 3, 5, 7, 11], "fft_sizes": [2048, 1024, 512]}}},
+        "demo": {"max_num_sample": 1}}}
+STABLE_CHILDREN = {
+    "lm": ({**LM_FULL, "training": {"learning_rate": 1e-4,
+                                    "demo": {"num_demos": 1}}},
+           4, 352256, 4, 3),
+    "diffusion_uncond": ({**DAU_FULL, "sample_rate": 44100, "training": {
+        "learning_rate": 1e-4, "demo": {"demo_steps": DAU_STEPS,
+                                        "num_demos": 1}}},
+        2, 65536, 3, 2),
+    "autoencoder": (SAO_AE, 2, 65536, 4, 2),
+}
+STABLE_DIT_STEPS = 2
+# a child's hook: each train / gen / disc step and each demo timed between
+# synchronizations (the steps with their losses), and at exit the
+# kernels' launch counts and the peak memory, in a file of the hook's
+# directory. The children start at once; from its first step a child
+# holds a file lock (``card_lock``'s) until it exits, so that one trains
+# while the others start and load (their start-up is most of a child's
+# wall time)
+STABLE_HOOK = """
+import atexit, fcntl, json, os, time
+import torch
+from ditsep_tpu_torch.training import demo
+from ditsep_tpu_torch.training.autoencoder import AutoencoderTrainer
+from ditsep_tpu_torch.training.diffusion import DiffusionTrainer
+from ditsep_tpu_torch.training.lm import LMTrainer
+_cuda = torch.cuda.is_available()
+_rec = {"step_s": [], "kinds": [], "losses": [], "demo_s": []}
+_lock = open(os.environ["CHIP_SMOKE_HOOK_OUT"] + "/../card.lock", "a")
+
+
+def _sync():
+    if _cuda:
+        torch.cuda.synchronize()
+
+
+def _timed(kind, real):
+    def step(self, state, *args, **kw):
+        if not _rec["step_s"]:  # the card to itself from the first step
+            t0 = time.perf_counter()
+            fcntl.flock(_lock, fcntl.LOCK_EX)
+            _rec["lock_wait_s"] = time.perf_counter() - t0
+        _sync()
+        t0 = time.perf_counter()
+        state, met = real(self, state, *args, **kw)
+        _sync()
+        _rec["step_s"].append(time.perf_counter() - t0)
+        _rec["kinds"].append(kind)
+        _rec["losses"].append(float(met.get(
+            "train/loss", met.get("train/discriminator_loss"))))
+        return state, met
+    return step
+
+
+def _timed_demo(real):
+    def call(self, *args, **kw):
+        _sync()
+        t0 = time.perf_counter()
+        real(self, *args, **kw)
+        _sync()
+        _rec["demo_s"].append(time.perf_counter() - t0)
+    return call
+
+
+for _cls, _name, _kind in ((DiffusionTrainer, "train_step", "train"),
+                           (LMTrainer, "train_step", "train"),
+                           (AutoencoderTrainer, "gen_step", "gen"),
+                           (AutoencoderTrainer, "disc_step", "disc")):
+    setattr(_cls, _name, _timed(_kind, getattr(_cls, _name)))
+for _cls in (demo.AutoencoderDemoCallback, demo.DiffusionDemoCallback,
+             demo.LMDemoCallback):
+    _cls.__call__ = _timed_demo(_cls.__call__)
+
+
+def _dump():
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+    _rec["launches"] = {n: getattr(ck, w).launches for n, w in (
+        ("fir_down2d", "fir_down2d"), ("fir_up2d", "fir_up2d"),
+        ("fba_fwd", "fused_bias_act_fwd"), ("fba_bwd", "fused_bias_act_bwd"),
+        ("conv3x3_9tap", "conv3x3_9tap"),
+        ("conv3x3_async_halo", "conv3x3_async_halo"))}
+    _rec["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                        if _cuda else None)
+    path = os.path.join(os.environ["CHIP_SMOKE_HOOK_OUT"],
+                        f"{os.getpid()}.json")
+    with open(path, "w") as f:
+        json.dump(_rec, f)
+
+
+atexit.register(_dump)
+"""
+
+
+def role_draws(spec: dict, generator) -> dict:
+    """Draws by role on ``generator``'s device: name -> (shape, 'uniform'
+    | 'normal') or (shape, 'int', low, high)."""
+    import torch
+    out, dev = {}, generator.device
+    for name, (shape, kind, *bounds) in spec.items():
+        if kind == "uniform":
+            out[name] = torch.rand(shape, generator=generator, device=dev)
+        elif kind == "normal":
+            out[name] = torch.randn(shape, generator=generator, device=dev)
+        else:
+            out[name] = torch.randint(*bounds, shape, generator=generator,
+                                      device=dev)
+    return out
+
+
+def trainer_steps(trainer, n_steps: int, args_of, device) -> dict:
+    """``n_steps`` steps of a diffusion, DiffAE or LM trainer, step n on
+    ``args_of(device, n)`` (the loss's and the step's positional and
+    keyword arguments): the initial parameters (``p0``); before each
+    step the parameters (``pre``) and the gradient there; after it the
+    parameters and the EMA; the losses."""
+    import torch
+    state = trainer.init_state()
+    run = {"p0": snapshot(state.model), "pre": [], "steps": [],
+           "losses": []}
+    for n in range(n_steps):
+        args, kw = args_of(device, n)
+        run["pre"].append({"model": snapshot(state.model)})
+        with torch.enable_grad():
+            grads = grads_of(trainer.loss(*args, model=state.model, **kw),
+                             state.model)
+        state, met = trainer.train_step(state, *args, **kw)
+        run["losses"].append(met["train/loss"].item())
+        run["steps"].append({"grads": grads, "params": snapshot(state.model),
+                             "ema": snapshot(state.ema)})
+    return run
+
+
+def trainer_card_vs_cpu(name: str, trainers: dict, args_of, adam: dict,
+                        clip: float, device: str) -> dict:
+    """Two steps of ``trainers`` ({"cpu": ..., device: ...}, the same
+    weights) on the same inputs and draws: each step's gradient leaf by
+    leaf (``grads_worst``; the CPU's taken at the card's parameters before
+    the step), the losses 1e-4 relative, the parameters and the EMA at
+    the train-step bars (``group_worst``, the constant rate)."""
+    import torch
+    runs = {dev: trainer_steps(tr, 2, args_of, dev)
+            for dev, tr in trainers.items()}
+    cpu_tr, card = trainers["cpu"], runs[device]
+
+    def step_grads(n):
+        args, kw = args_of("cpu", n)
+        with torch.enable_grad():
+            return grads_of(cpu_tr.loss(*args, model=cpu_tr.model, **kw),
+                            cpu_tr.model)
+    replay = replay_grads({"model": cpu_tr.model}, card["pre"], step_grads)
+    out = {"grad_over_bar": max(
+        grads_worst(want, got["grads"], f"{name} step {n}")
+        for n, (want, got) in enumerate(zip(replay, card["steps"])))}
+    out["loss_rel"] = max(abs(a - c) / abs(c) for a, c in zip(
+        card["losses"], runs["cpu"]["losses"]))
+    check(out["loss_rel"] <= 1e-4, f"{name} losses: {out}")
+    out.update(group_worst(runs["cpu"], card, lambda n: trainers[
+        "cpu"].lr, clip, decay=cpu_tr.ema_decay, adam=adam))
+    check(out["param_over_bar"] <= 1 and out["ema_over_bar"] <= 1,
+          f"{name} steps card vs CPU: {out}")
+    out["losses_card"] = card["losses"]
+    return out
+
+
+def ae_card_vs_cpu(name: str, vae, disc, reals, draws, device: str,
+                   loss_cfg=None, latent_mask_ratio: float = 0.0) -> dict:
+    """A gen + disc step pair of the VAE-GAN trainer (copies of ``vae`` and
+    ``disc``, ClipAdamW at lr ``LDM_PARITY_LR``, the discriminator's twice
+    that) on ``reals`` (numpy) with ``draws`` (numpy, a dict a step), on
+    the card and on the CPU: each step's gradient against the CPU's at the
+    card's parameters (a disc step's on the card's fakes, its bar a share
+    of the larger of its two terms, ``hinge_term_scales``), the losses
+    1e-4, the parameters at the train-step bars."""
+    import copy
+
+    import torch
+    from ditsep_tpu_torch.training.autoencoder import AutoencoderTrainer
+    from ditsep_tpu_torch.training.schedules import inverse_lr_schedule
+
+    kw = {} if loss_cfg is None else {"loss_cfg": loss_cfg}
+    trainers, out = {}, {}
+    for dev in ("cpu", device):
+        trainers[dev] = AutoencoderTrainer(
+            vae=copy.deepcopy(vae).to(dev), disc=copy.deepcopy(disc).to(dev),
+            lr=LDM_PARITY_LR, disc_lr=2 * LDM_PARITY_LR,
+            latent_mask_ratio=latent_mask_ratio, **kw)
+        out[dev] = ae_parity_steps(trainers[dev], reals, draws, dev)
+    cpu_ae, card = trainers["cpu"], out[device]
+    tn = torch.from_numpy
+    fakes = [None if f is None else tn(f) for f in card["fakes"]]
+    replay = replay_grads({"vae": cpu_ae.vae, "disc": cpu_ae.disc},
+                          card["pre"], lambda n: ae_step_grads(
+                              cpu_ae, n, tn(reals), draws, fakes[n]))
+    res = {"grad_over_bar": {"gen": 0.0, "disc": 0.0}}
+    for n, ((want, scale), got) in enumerate(zip(replay, card["grads"])):
+        kind = "disc" if cpu_ae.use_disc_this_step(n) else "gen"
+        res["grad_over_bar"][kind] = max(res["grad_over_bar"][kind],
+                                         grads_worst(
+            want, got, f"{name} step {n} at the card's parameters",
+            scale=scale))
+    res["loss_rel"] = max(abs(a - c) / abs(c) for a, c in zip(
+        card["losses"], out["cpu"]["losses"]))
+    check(res["loss_rel"] <= 1e-4, f"{name} losses card vs CPU {res}")
+    for group, lr in (("vae", LDM_PARITY_LR), ("disc", 2 * LDM_PARITY_LR)):
+        worst = group_worst(out["cpu"]["groups"][group],
+                            card["groups"][group], inverse_lr_schedule(lr),
+                            math.inf, decay=0.9999 if group == "vae"
+                            else None)
+        check(worst["param_over_bar"] <= 1 and worst["ema_over_bar"] <= 1,
+              f"{name} {group} steps card vs CPU: {worst}")
+        res[group] = worst
+    res["losses_card"] = card["losses"]
+    return res
+
+
+def stable_ae_case(disc_cfg: dict, g) -> dict:
+    """``ae_card_vs_cpu``'s arguments for the small VAE (seeded) against
+    the ``disc_cfg`` discriminator (seeded), reals and draws from ``g``."""
+    import torch
+    from ditsep_tpu_torch.models.discriminators import (
+        create_discriminator_from_config)
+    from ditsep_tpu_torch.models.oobleck import OobleckVAE
+    from ditsep_tpu_torch.training.autoencoder import AutoencoderLossConfig
+
+    b, t = 2, STABLE_AE_SAMPLES
+    tl = t // math.prod(STABLE_AE_VAE["strides"])
+    reals = 0.3 * torch.randn(b, 1, t, generator=g, device=g.device)
+    draws = [{"enc_z": torch.randn(b, STABLE_AE_VAE["latent_dim"], tl,
+                                   generator=g, device=g.device)
+              .cpu().numpy()} for _ in range(2)]
+    vae = OobleckVAE(**STABLE_AE_VAE)
+    vae.reset_parameters(torch.Generator().manual_seed(61))
+    disc = create_discriminator_from_config(disc_cfg, sample_rate=FS)
+    disc.reset_parameters(torch.Generator().manual_seed(62))
+    return {"vae": vae, "disc": disc, "reals": reals.cpu().numpy(),
+            "draws": draws, "loss_cfg": AutoencoderLossConfig(
+                fft_sizes=(512, 128), hop_sizes=(128, 32), sample_rate=FS)}
+
+
+def stable_train_parity(ctx, device: str = "cuda",
+                        discs: dict = STABLE_AE_DISCS) -> dict:
+    """(1) The new trainers on small configs on the card and on the CPU
+    with the same weights and the card's draws, TF32 off, two steps each:
+    ``DiffusionTrainer`` (a DiT 64 wide: cross-attention conditioning with
+    CFG dropout 0.5, inpainting, a padding mask), ``DiffAETrainer`` (the
+    small diffusion autoencoder), ``LMTrainer`` (4 codebooks of 32, the
+    clip on), the VAE-GAN with a DAC and with an Oobleck discriminator.
+    Every launch count 0."""
+    import copy
+
+    import torch
+    from ditsep_tpu_torch.models.dit import DiffusionTransformer
+    from ditsep_tpu_torch.models.factory import create_model_from_config
+    from ditsep_tpu_torch.models.lm import AudioLM
+    from ditsep_tpu_torch.training.diffusion import (
+        INT32_MAX, CondRouting, DiffAETrainer, DiffusionTrainer)
+    from ditsep_tpu_torch.training.lm import LMTrainer
+
+    g = torch.Generator(device=device).manual_seed(50)
+
+    def pair(module, seed):
+        """``module`` (seeded on the CPU) with its zero layers redrawn,
+        and a copy of it on the device."""
+        nonzero_(module, seed)
+        return {"cpu": module, device: copy.deepcopy(module).to(device)}
+
+    def seeded(module, seed):
+        module.reset_parameters(torch.Generator().manual_seed(seed))
+        return module
+
+    def on(dev, a):
+        return a.to(dev) if isinstance(a, torch.Tensor) else a
+
+    out = {}
+    reset_counts()
+    with full_f32():
+        b, c, t, segs = 2, 4, 32, 4
+        spec = {"t": ((b,), "uniform"), "noise": ((b, c, t), "normal"),
+                "cfg_cross": ((b, 1, 1), "uniform"),
+                "cfg_prepend": ((b, 1, 1), "uniform"),
+                "mask_type": ((b,), "int", 0, 3),
+                "n_segments": ((b,), "int", 1, segs + 1),
+                "seg_len": ((b, segs), "int", 0, INT32_MAX),
+                "seg_start": ((b, segs), "int", 0, INT32_MAX),
+                "causal_len": ((b,), "int", 0, INT32_MAX)}
+        draws = [role_draws(spec, g) for _ in range(2)]
+        x0 = [torch.randn(b, c, t, generator=g, device=device)
+              for _ in range(2)]
+        mask = torch.ones(b, 5, dtype=torch.bool)
+        mask[0, 3:] = False
+        prompt = (torch.randn(b, 5, 16, generator=g, device=device), mask)
+        padding = torch.ones(b, t, dtype=torch.bool)
+        padding[1, 20:] = False
+        routing = CondRouting(cross_attn_cond_ids=("prompt",),
+                              input_concat_ids=("inpaint_mask",
+                                                "inpaint_masked_input"))
+        nets = pair(seeded(DiffusionTransformer(**STABLE_DIT_SMALL), 51), 52)
+        out["diffusion"] = trainer_card_vs_cpu(
+            "DiffusionTrainer", {dev: DiffusionTrainer(
+                model=m, routing=routing, inpaint=True, cfg_dropout_prob=0.5,
+                max_mask_segments=segs, lr=STABLE_PARITY_LR)
+                for dev, m in nets.items()},
+            lambda dev, n: ((on(dev, x0[n]), {"prompt": tuple(
+                on(dev, a) for a in prompt)}, on(dev, padding)),
+                {"draws": {k: on(dev, v) for k, v in draws[n].items()}}),
+            {"b1": 0.9, "b2": 0.999, "weight_decay": 1e-3}, math.inf,
+            device)
+
+        aes = pair(create_model_from_config(
+            DIFFAE_SMALL, torch.Generator().manual_seed(53)), 54)
+        audio = [0.3 * torch.randn(b, 1, 64, generator=g, device=device)
+                 for _ in range(2)]
+        ae_draws = [role_draws({"t": ((b,), "uniform"),
+                                "noise": ((b, 1, 64), "normal")}, g)
+                    for _ in range(2)]
+        out["diffae"] = trainer_card_vs_cpu(
+            "DiffAETrainer", {dev: DiffAETrainer(
+                model=m, lr=STABLE_PARITY_LR) for dev, m in aes.items()},
+            lambda dev, n: ((on(dev, audio[n]),), {"draws": {
+                k: on(dev, v) for k, v in ae_draws[n].items()}}),
+            {"b1": 0.9, "b2": 0.999, "weight_decay": 1e-3}, math.inf,
+            device)
+
+        lms = pair(seeded(AudioLM(**STABLE_LM_SMALL), 55), 56)
+        tokens = [torch.randint(0, 32, (b, 4, 16), generator=g,
+                                device=device) for _ in range(2)]
+        out["lm"] = trainer_card_vs_cpu(
+            "LMTrainer", {dev: LMTrainer(model=m, lr=STABLE_PARITY_LR,
+                                         clip_grad_norm=0.5)
+                          for dev, m in lms.items()},
+            lambda dev, n: ((on(dev, tokens[n]),), {}),
+            {"b1": 0.9, "b2": 0.95, "weight_decay": 0.1}, 0.5, device)
+
+        for name, cfg in discs.items():
+            out[f"vaegan_{name}"] = ae_card_vs_cpu(
+                f"VAE-GAN {name}", device=device, **stable_ae_case(cfg, g))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out["launches"] = counts()
+    check(not any(out["launches"].values()),
+          f"stable_train parity launches {out['launches']}")
+    return out
+
+
+def loss_trend(kinds: list, losses: list) -> dict:
+    """Per step kind (train, gen, disc): its first and last loss, all
+    finite."""
+    out = {}
+    for kind in dict.fromkeys(kinds):
+        ls = [v for k, v in zip(kinds, losses) if k == kind]
+        check(all(math.isfinite(v) for v in ls), f"{kind} losses {ls}")
+        out[kind] = {"first": ls[0], "last": ls[-1], "n": len(ls)}
+    return out
+
+
+def stable_train_cli(ctx, children: dict = STABLE_CHILDREN,
+                     cpu: bool = False, root: Path = REPO / "build",
+                     while_starting=None) -> dict:
+    """(2) ``python -m ditsep_tpu_torch.cli.train_stable`` in a child a
+    model type, started at once, with STABLE_HOOK (one child trains at a
+    time): each step timed between synchronizations, one demo
+    (``--demo-every``), the final JSON with 0 failed media calls, finite
+    losses, every launch count 0, the peak memory. ``cpu`` adds --cpu
+    (the CPU rehearsal); the children's files go in a temporary directory
+    under ``root``; ``while_starting`` runs as ``run_children``'s."""
+    out = {}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        tmp = Path(tmp)
+        hook = tmp / "hook"
+        hook.mkdir()
+        (hook / "sitecustomize.py").write_text(STABLE_HOOK)
+        cmds = {}
+        for name, (cfg, batch, size, steps, demo) in children.items():
+            path = tmp / f"{name}.json"
+            path.write_text(json.dumps(cfg))
+            cmds[name] = (
+                ["-m", "ditsep_tpu_torch.cli.train_stable", "--model-config",
+                 str(path), "--workdir", str(tmp / name), "--batch-size",
+                 str(batch), "--sample-size", str(size), "--max-steps",
+                 str(steps), "--demo-every", str(demo)]
+                + (["--cpu"] if cpu else []))
+        results = run_children(cmds, hook, tmp, while_starting)
+        for name, (cfg, batch, size, steps, demo) in children.items():
+            res = results[name]
+            (rec,) = res["recs"]
+            final = json.loads(res["stdout"].strip().splitlines()[-1])
+            check(final["steps"] == steps and final["media_failures"] == 0
+                  and all(math.isfinite(v) for v in final["final"].values()),
+                  f"{name}: final {final}")
+            check(len(rec["step_s"]) == steps and len(rec["demo_s"]) == 1
+                  and not any(rec["launches"].values()), f"{name}: {rec}")
+            out[name] = {"batch": batch, "sample_size": size,
+                         "step_s": rec["step_s"], "kinds": rec["kinds"],
+                         "trend": loss_trend(rec["kinds"], rec["losses"]),
+                         "demo_s": rec["demo_s"],
+                         "peak_gib": rec["peak_gib"],
+                         "launches": rec["launches"], "final": final,
+                         "lock_wait_s": rec["lock_wait_s"],
+                         "wall_s": res["wall_s"]}
+    return out
+
+
+def stable_dit_full(ctx, cfg: dict = SAO_FULL,
+                    sample_size: int = SAO_SAMPLE_SIZE,
+                    device: str = "cuda") -> dict:
+    """(3) ``DiffusionTrainer`` on the conditional DiT at Stable Audio Open
+    1.0's widths (seeded, its zero layers redrawn; the generation phase's
+    seeded prompt embedding and seconds through the conditioners), batch
+    1 of the latent length, CFG dropout 0.1 from a card generator:
+    STABLE_DIT_STEPS steps on the same draws (t, noise, dropout: the
+    generator reseeded before each), so that the losses differ by the
+    updates alone, each timed between synchronizations, the losses
+    finite, the peak memory, every launch count 0."""
+    import torch
+    from ditsep_tpu_torch.training.diffusion import DiffusionTrainer
+
+    torch.cuda.reset_peak_memory_stats()
+    app = generation_app(cfg, sample_size, device, seed=70)
+    conf = cfg["model"]["conditioning"]
+    prompt_len = conf["configs"][0]["config"]["max_length"]
+    with torch.no_grad():
+        cond = app.conditioner(gen_inputs(prompt_len, conf["cond_dim"], 71))
+    trainer = DiffusionTrainer(model=app.model, routing=app.routing)
+    g = torch.Generator(device=device).manual_seed(72)
+    latents = torch.randn(1, app.io_channels, sample_size
+                          // app.pretransform.downsampling_ratio,
+                          generator=g, device=device)
+    state = trainer.init_state()
+    out = {"params": sum(p.numel() for p in app.model.parameters()),
+           "latent_shape": list(latents.shape), "step_s": [], "losses": []}
+    reset_counts()
+    for _ in range(STABLE_DIT_STEPS):
+        g.manual_seed(73)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = trainer.train_step(state, latents, cond, generator=g)
+        out["losses"].append(met["train/loss"].item())
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+    out["launches"] = counts()
+    check(not any(out["launches"].values()),
+          f"full-width DiT step launches {out['launches']}")
+    check(all(math.isfinite(v) for v in out["losses"]),
+          f"full-width DiT losses {out['losses']}")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def phase_stable_train(ctx):
+    """The stable-audio training path, which no kernel of the port lies on
+    (every count 0): (1) the new trainers card vs CPU on small configs,
+    (2) ``cli.train_stable`` at full width for the LM, DAU1d and the
+    Stable Audio Open VAE against the DAC discriminator, (3) the
+    conditional DiT's step at Stable Audio Open 1.0's widths. (1) runs
+    while (2)'s children start. Each line carries its part's seconds
+    (``part_s``; (2)'s includes (1)'s)."""
+    import torch
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return {**out, "part_s": time.perf_counter() - t0}
+
+    par = {}
+    cli = timed(stable_train_cli, ctx, STABLE_CHILDREN, False, REPO / "build",
+                lambda _: par.update(timed(stable_train_parity, ctx)))
+    emit({"phase": "stable_train_parity", "config": "DiT 64 wide, 2 "
+          "layers (cross-attention + CFG dropout 0.5, inpainting, a padding "
+          "mask); the diffusion autoencoder of stable_models; AudioLM 4 x "
+          f"32, clip 0.5 (AdamW lr {STABLE_PARITY_LR}); the VAE-GAN (VAE "
+          "8 channels, hop 8) with DAC (period 2, MRD 512) and "
+          f"Oobleck discriminators (ClipAdamW lr {LDM_PARITY_LR}); TF32 off, "
+          "the card's draws on the CPU, two steps each", **par,
+          "tolerance": TRAIN_PARITY_TOLERANCE + "; the CPU's gradient at "
+          "the card's parameters before each step; a disc step's on the "
+          "card's fakes, 1e-3 of the larger of its two terms' gradients "
+          "where that is larger; parameters plus the part float64 AdamW "
+          "explains", "card": ctx["card"]})
+    emit({"phase": "stable_train_cli", "config": "cli.train_stable: the LM "
+          "at MusicGen-small's widths over DAC 44 kHz's 9 x 1024 codes, "
+          "batch 4 x 172 frames; DAU1d at its defaults, batch 2 x 65,536 "
+          "stereo; the Stable Audio Open 1.0 VAE (128 channels, strides 2, "
+          "4, 4, 8, 8, 64 latents, stereo, 44.1 kHz) against the DAC "
+          "discriminator (periods 2, 3, 5, 7, 11; fft 2048, 1024, 512; "
+          "five bands), batch 2 x 65,536; seeded", **cli,
+          "card": ctx["card"]})
+    torch.cuda.empty_cache()
+    dit = timed(stable_dit_full, ctx)
+    emit({"phase": "stable_train_dit", "config": "DiffusionTrainer on "
+          "Stable Audio Open 1.0's DiT (1536 x 24, cond 768), seeded, "
+          "batch 1 x 1,024 latent frames, the generation phase's seeded "
+          "conditioning", **dit, "card": ctx["card"]})
+    torch.cuda.empty_cache()
+    ctx["stable_train_launches"] = {
+        "stable_train_parity": par["launches"],
+        **{f"stable_train_cli_{k}": v["launches"] for k, v in cli.items()
+           if k != "part_s"},
+        "stable_train_dit": dit["launches"]}
+
+
 MESH_STEPS, MESH_ITEMS = 2, 12     # one epoch of 2 steps at batch 6
 MESH_VAL_N = 3                     # the validation's PC steps in both runs
-MESH_EVAL_ITEMS, MESH_GLOO_ITEMS = 2, 3
-MESH_CHILD_TIMEOUT_S = 240
+MESH_EVAL_ITEMS, MESH_GLOO_ITEMS = 1, 3
+MESH_CHILD_TIMEOUT_S = 300  # all of a run_children call's children
+LOCK = "card.lock"  # in the children's root: see STABLE_HOOK, MESH_HOOK
 MESH_EVAL_TOL = 1e-3  # abs, every number of the gloo JSONs but runtime
 # a child's hook: TF32 off and deterministic cuDNN, each train step and
 # its gradient all-reduce timed (synchronized), and at exit its kernels'
 # launch counts, those times, the losses and the peak memory, in a file
-# of the hook's directory
+# of the hook's directory. The children start at once; from its first
+# use of CUDA a child holds a file lock (``card_lock``'s) until it exits,
+# so that one works on the card while the others import: no other child
+# holds device memory while one trains (the cuDNN algorithm a convolution
+# gets may depend on the memory left, and plain and --mesh must match
+# bit for bit)
 MESH_HOOK = """
-import atexit, json, os, sys, time
+import atexit, fcntl, json, os, sys, time
 import torch
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -4841,6 +5394,17 @@ from ditsep_tpu_torch import parallel
 from ditsep_tpu_torch.training.diffsep import DiffSepTrainer
 _rec = {"step_s": [], "losses": [], "all_reduce_s": []}
 _step, _all_reduce = DiffSepTrainer.train_step, parallel.all_reduce_grads_
+_lazy_init = torch.cuda._lazy_init
+_lock = open(os.environ["CHIP_SMOKE_HOOK_OUT"] + "/../card.lock", "a")
+_t_hook = time.perf_counter()
+
+
+def _held_lazy_init():
+    if "lock_wait_s" not in _rec:
+        t0 = time.perf_counter()
+        fcntl.flock(_lock, fcntl.LOCK_EX)
+        _rec["lock_wait_s"] = time.perf_counter() - t0
+    _lazy_init()
 
 
 def _timed(self, state, batch, **kw):
@@ -4862,6 +5426,7 @@ def _timed_all_reduce(grads, mesh):
 
 DiffSepTrainer.train_step = _timed
 parallel.all_reduce_grads_ = _timed_all_reduce
+torch.cuda._lazy_init = _held_lazy_init
 
 
 def _dump():
@@ -4875,6 +5440,7 @@ def _dump():
         ("conv3x3_async_halo", "conv3x3_async_halo"))}
     _rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     _rec["rank"] = int(os.environ.get("RANK", "-1"))
+    _rec["process_s"] = time.perf_counter() - _t_hook
     path = os.path.join(os.environ["CHIP_SMOKE_HOOK_OUT"],
                         f"{os.getpid()}.json")
     with open(path, "w") as f:
@@ -4885,27 +5451,78 @@ atexit.register(_dump)
 """
 
 
-def run_child(cmd: list, hook_dir: Path, out_dir: Path) -> dict:
-    """Run ``cmd`` (a python command line) from the repository with the
-    hook, under a hard timeout; returns its hook records (one a process
-    that loaded the kernels) and wall seconds. A non-zero exit fails."""
+def child_env(hook_dir: Path, out_dir: Path) -> dict:
+    """A child's environment: the hook's directory and the repository on
+    PYTHONPATH, the hook's output directory (made)."""
     import os
-    import subprocess
     out_dir.mkdir(parents=True, exist_ok=True)
-    env = {**os.environ, "PYTHONPATH": f"{hook_dir}:{REPO}",
-           "CHIP_SMOKE_HOOK_OUT": str(out_dir),
-           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    return {**os.environ, "PYTHONPATH": f"{hook_dir}:{REPO}",
+            "CHIP_SMOKE_HOOK_OUT": str(out_dir),
+            "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+@contextlib.contextmanager
+def card_lock(path: Path):
+    """The file lock that a hook's children take from their first step
+    (``root / LOCK`` of ``run_children``): held, no child works on the
+    card."""
+    import fcntl
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
+def run_children(cmds: dict, hook_dir: Path, root: Path,
+                 while_starting=None, unlocked: tuple = ()) -> dict:
+    """Start every ``cmds`` child (name -> a python command line) at once
+    from the repository with the hook, their output in files under
+    ``root``, and wait for all under one hard timeout (every child killed
+    on it). ``while_starting`` (a callable, given the children's
+    processes by name) runs meanwhile holding ``card_lock``, so before any
+    child's first step but those named in ``unlocked`` (their hook's
+    lock is another file). Returns by name the seconds from the start to
+    its exit, the standard output and the hook's records; a non-zero
+    exit fails."""
+    import subprocess
+    procs, hook_out = {}, {}
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, *cmd], cwd=str(REPO), env=env,
-                          capture_output=True, text=True,
-                          timeout=MESH_CHILD_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"{' '.join(cmd[:6])}... exited "
-          f"{proc.returncode}: {proc.stderr[-3000:]}")
-    recs = [json.loads(p.read_text()) for p in sorted(out_dir.glob("*.json"))]
-    # the processes that launched kernels (not torch.distributed.run's)
-    return {"wall_s": wall,
-            "recs": [r for r in recs if sum(r["launches"].values())]}
+    for name, cmd in cmds.items():
+        out, err = (open(root / f"{name}.{k}", "w") for k in ("out", "err"))
+        hook_out[name] = (root / "unlocked" if name in unlocked
+                          else root) / f"hook_{name}"
+        procs[name] = subprocess.Popen(
+            [sys.executable, *cmd], cwd=str(REPO), stdout=out, stderr=err,
+            env=child_env(hook_dir, hook_out[name]))
+        out.close()
+        err.close()
+    done = {}
+    try:
+        if while_starting is not None:
+            with card_lock(root / LOCK):
+                while_starting(procs)
+        while len(done) < len(procs):
+            check(time.perf_counter() - t0 < MESH_CHILD_TIMEOUT_S,
+                  f"children {sorted(set(procs) - set(done))} still running "
+                  f"after {MESH_CHILD_TIMEOUT_S} s")
+            for name, proc in procs.items():
+                if name not in done and proc.poll() is not None:
+                    done[name] = time.perf_counter() - t0
+            time.sleep(0.1)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    res = {}
+    for name, proc in procs.items():
+        check(proc.returncode == 0, f"{' '.join(cmds[name][:6])}... exited "
+              f"{proc.returncode}: "
+              f"{(root / f'{name}.err').read_text()[-3000:]}")
+        res[name] = {"wall_s": done[name],
+                     "stdout": (root / f"{name}.out").read_text(),
+                     "recs": [json.loads(p.read_text()) for p in sorted(
+                         hook_out[name].glob("*.json"))]}
+    return res
 
 
 def torchrun(nproc: int, module: str) -> list:
@@ -4975,20 +5592,70 @@ def max_json_diff(a, b, path="") -> float:
     return 0.0
 
 
+def mesh_gloo(ctx, tmp: Path, launches: dict) -> None:
+    """The mesh phase's (b): two gloo ranks sharing cuda:0 against one
+    process, their files under ``tmp``, their launches into
+    ``launches``."""
+    import pickle
+
+    import torch
+    from ditsep_tpu_torch import parallel
+
+    batches, draws = train_parity_draws(4, 2, seed=13)
+    t0 = time.perf_counter()
+    parallel.launch(gloo_child, 2, str(tmp / "gloo"), batches, draws,
+                    device="cuda:0", backend="gloo",
+                    timeout_s=MESH_CHILD_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t0
+    ranks = [pickle.loads((tmp / f"gloo.{r}").read_bytes())
+             for r in range(2)]
+    one_steps, cfg = checkpoint_steps(parity_config(), "cuda", batches,
+                                      draws)
+    worst = train_parity_worst({"cpu": one_steps, "cuda":
+                                ranks[0]["steps"], "cfg": cfg},
+                               explain=False)
+    check(worst["param_over_bar"] <= 1 and worst["ema_over_bar"] <= 1,
+          f"two gloo ranks vs one process: {worst}")
+    one_eval = gloo_evaluate(None, str(tmp / "gloo_one"))
+    check(ranks[0]["eval"]["chunks"] == one_eval["chunks"],
+          f"chunks {ranks[0]['eval']['chunks']} {one_eval['chunks']}")
+    diff = max(max_json_diff(
+        json.loads((tmp / "gloo.json" / f"test{suffix}.json").read_text()),
+        json.loads((tmp / "gloo_one" / f"test{suffix}.json").read_text()))
+        for suffix in ("", "_summary"))
+    check(diff <= MESH_EVAL_TOL, f"gloo evaluate JSONs differ by {diff}")
+    launches["mesh_gloo"] = sum_launches(ranks)
+    emit({"phase": "mesh_gloo", "what": "two gloo ranks on cuda:0 "
+          "(torch.distributed, TF32 off): two train steps of "
+          f"{CKPT.name} (nf=32) on a batch of 4 x 1 s split 2 + 2, and "
+          f"evaluate_dataset on {MESH_GLOO_ITEMS} items of 1 s at batch "
+          "2 (N=5), each against one process on the card",
+          **{k: float(v) for k, v in worst.items()},
+          "tolerance": TRAIN_PARITY_TOLERANCE + f"; the evaluate JSONs "
+          f"{MESH_EVAL_TOL} abs on every number but runtime",
+          "eval_json_max_abs_diff": diff,
+          "eval_chunks": ranks[0]["eval"]["chunks"],
+          "losses": [h["loss"] for h in ranks[0]["steps"]["steps"]],
+          "wall_s": gloo_s, "launches": launches["mesh_gloo"],
+          "card": ctx["card"]})
+    torch.cuda.empty_cache()  # the card's memory to the children
+
+
 def phase_mesh(ctx):
     """Data parallelism (``ditsep_tpu_torch.parallel``) on the card.
     (a) ``cli.train_diffsep`` at the flagship width under
     ``torch.distributed.run`` with --mesh (NCCL, world size 1) against the
     same run without it: the losses, the validation and the EMA export
-    bit-equal, the step times apart (the all-reduce's cost), then
-    ``cli.evaluate --mesh``. (b) Two gloo ranks sharing cuda:0: two train
-    steps of the trained nf=32 checkpoint on a batch of 4 split 2 + 2
-    against one process at the train-step bars, and ``evaluate_dataset``
-    on 3 items against one process."""
-    import pickle
-
+    bit-equal, the step times apart (the all-reduce's cost); and
+    ``cli.evaluate --mesh``. (b) Two gloo ranks sharing cuda:0: two
+    train steps of the trained nf=32 checkpoint on a batch of 4 split 2 +
+    2 against one process at the train-step bars, and
+    ``evaluate_dataset`` on 3 items against one process (``mesh_gloo``).
+    The three children of (a) start together; (b) runs beside the
+    evaluate child while the train children import, and then these work
+    on the card one at a time (MESH_HOOK's lock, from a child's first use
+    of CUDA)."""
     import numpy as np
-    from ditsep_tpu_torch import parallel
 
     t_phase = time.perf_counter()
     launches = {}
@@ -5002,15 +5669,39 @@ def phase_mesh(ctx):
                  str(TRAIN_LEN_S), "--batch-size", str(TRAIN_BATCH),
                  "--max-steps", str(MESH_STEPS), "--override",
                  f"model.sampler.N={MESH_VAL_N}", "--workdir"]
-        runs = {}
-        for name, cmd in (
-                ("plain", ["-m", "ditsep_tpu_torch.cli.train_diffsep"]),
-                ("mesh", torchrun(1, "ditsep_tpu_torch.cli.train_diffsep")
-                 + ["--mesh"])):
-            runs[name] = run_child(cmd + train + [str(tmp / name)], hook,
-                                   tmp / f"hook_{name}")
-            check(len(runs[name]["recs"]) == 1, f"{name}: records "
-                  f"{runs[name]['recs']}")
+        mesh_cmd = torchrun(1, "ditsep_tpu_torch.cli.train_diffsep")
+        eval_cmd = torchrun(1, "ditsep_tpu_torch.cli.evaluate")
+        port = mesh_cmd.index("--master-port") + 1
+        while eval_cmd[port] == mesh_cmd[port]:
+            eval_cmd = torchrun(1, "ditsep_tpu_torch.cli.evaluate")
+
+        def gloo_then_evaluate(procs):
+            # the gloo part beside the evaluate child (neither's numbers
+            # depend on the other); then, evaluate done, the train
+            # children have the card to themselves one at a time
+            mesh_gloo(ctx, tmp, launches)
+            while procs["evaluate"].poll() is None:
+                check(time.perf_counter() - t_phase < MESH_CHILD_TIMEOUT_S,
+                      "the --mesh evaluate child still running")
+                time.sleep(0.1)
+
+        res = run_children({
+            "plain": ["-m", "ditsep_tpu_torch.cli.train_diffsep", *train,
+                      str(tmp / "plain")],
+            "mesh": [*mesh_cmd, "--mesh", *train, str(tmp / "mesh")],
+            "evaluate": [
+                *eval_cmd, "--mesh", "--config", "diffsep_icassp",
+                "--synthetic", "--synthetic-items", str(MESH_EVAL_ITEMS),
+                "--synthetic-len-s", "2.0", "--eval-batch-size", "2",
+                "--sampler-N", "5", "--no-warmup", "--out-dir",
+                str(tmp / "eval")]}, hook, tmp,
+            while_starting=gloo_then_evaluate, unlocked=("evaluate",))
+        # the processes that launched kernels (not torch.distributed.run's)
+        runs = {k: {"wall_s": r["wall_s"], "recs": [
+            rec for rec in r["recs"] if sum(rec["launches"].values())]}
+            for k, r in res.items()}
+        for name, r in runs.items():
+            check(len(r["recs"]) == 1, f"{name}: records {r['recs']}")
         plain, mesh = (runs[k]["recs"][0] for k in ("plain", "mesh"))
         check(mesh["rank"] == 0 and len(mesh["step_s"]) == MESH_STEPS,
               f"mesh run record {mesh}")
@@ -5018,10 +5709,10 @@ def phase_mesh(ctx):
               f"train losses {plain['losses']} vs {mesh['losses']}")
         vals = {k: [{m: v for m, v in json.loads(ln).items() if m != "time"}
                     for ln in open(tmp / k / "metrics.jsonl")]
-                for k in runs}
+                for k in ("plain", "mesh")}
         check(vals["plain"] == vals["mesh"] and len(vals["mesh"]) == 1,
               f"validations {vals}")
-        ema = {k: np.load(tmp / k / "ema.npz") for k in runs}
+        ema = {k: np.load(tmp / k / "ema.npz") for k in ("plain", "mesh")}
         check(sorted(ema["plain"].files) == sorted(ema["mesh"].files)
               and all(np.array_equal(ema["plain"][f], ema["mesh"][f])
                       for f in ema["plain"].files), "EMA exports differ")
@@ -5046,72 +5737,30 @@ def phase_mesh(ctx):
               / sum(mesh["step_s"][1:]),
               "peak_gib": {"plain": plain["peak_gib"],
                            "mesh": mesh["peak_gib"]},
-              "wall_s": {k: runs[k]["wall_s"] for k in runs},
+              "wall_s": {k: runs[k]["wall_s"] for k in ("plain", "mesh")},
+              "lock_wait_s": {k: runs[k]["recs"][0].get("lock_wait_s")
+                              for k in ("plain", "mesh")},
               "launches": mesh["launches"], "card": ctx["card"]})
-
-        ev = run_child(torchrun(1, "ditsep_tpu_torch.cli.evaluate") + [
-            "--mesh", "--config", "diffsep_icassp", "--synthetic",
-            "--synthetic-items", str(MESH_EVAL_ITEMS), "--synthetic-len-s",
-            "2.0", "--eval-batch-size", "2", "--sampler-N", "5",
-            "--no-warmup", "--out-dir", str(tmp / "eval")], hook,
-            tmp / "hook_eval")
         summary = json.loads(
             (tmp / "eval" / "librimix_test_summary.json").read_text())
         results = json.loads((tmp / "eval" / "librimix_test.json").read_text())
         check(summary["number"] == MESH_EVAL_ITEMS == len(results)
               and all(math.isfinite(summary[k]) for k in
                       ("si_sdr", "pesq", "stoi")), f"evaluate {summary}")
-        launches["mesh_evaluate_nccl"] = sum_launches(ev["recs"])
+        launches["mesh_evaluate_nccl"] = runs["evaluate"]["recs"][0][
+            "launches"]
         check(launches["mesh_evaluate_nccl"]["fir_down2d"] == (
             -(-MESH_EVAL_ITEMS // 2) * 10 * LAUNCHES_PER_FORWARD),
             f"evaluate launches {launches['mesh_evaluate_nccl']}")
         emit({"phase": "mesh_evaluate", "what": "python -m torch.distributed"
               ".run --nproc-per-node 1 -m ditsep_tpu_torch.cli.evaluate "
-              f"--mesh, diffsep_icassp seeded, {MESH_EVAL_ITEMS} items of 2 s,"
-              " batch 2, N=5", "summary": summary, "wall_s": ev["wall_s"],
-              "peak_gib": [r["peak_gib"] for r in ev["recs"]],
+              f"--mesh, diffsep_icassp seeded, {MESH_EVAL_ITEMS} item of 2 s,"
+              " batch 2, N=5", "summary": summary,
+              "process_s": runs["evaluate"]["recs"][0]["process_s"],
+              "peak_gib": runs["evaluate"]["recs"][0]["peak_gib"],
               "launches": launches["mesh_evaluate_nccl"],
               "card": ctx["card"]})
 
-        # (b) two gloo ranks sharing cuda:0
-        batches, draws = train_parity_draws(4, 2, seed=13)
-        t0 = time.perf_counter()
-        parallel.launch(gloo_child, 2, str(tmp / "gloo"), batches, draws,
-                        device="cuda:0", backend="gloo",
-                        timeout_s=MESH_CHILD_TIMEOUT_S)
-        gloo_s = time.perf_counter() - t0
-        ranks = [pickle.loads((tmp / f"gloo.{r}").read_bytes())
-                 for r in range(2)]
-        one_steps, cfg = checkpoint_steps(parity_config(), "cuda", batches,
-                                          draws)
-        worst = train_parity_worst({"cpu": one_steps, "cuda":
-                                    ranks[0]["steps"], "cfg": cfg},
-                                   explain=False)
-        check(worst["param_over_bar"] <= 1 and worst["ema_over_bar"] <= 1,
-              f"two gloo ranks vs one process: {worst}")
-        one_eval = gloo_evaluate(None, str(tmp / "gloo_one"))
-        check(ranks[0]["eval"]["chunks"] == one_eval["chunks"],
-              f"chunks {ranks[0]['eval']['chunks']} {one_eval['chunks']}")
-        diff = max(max_json_diff(
-            json.loads((tmp / "gloo.json" / f"test{suffix}.json")
-                       .read_text()),
-            json.loads((tmp / "gloo_one" / f"test{suffix}.json")
-                       .read_text())) for suffix in ("", "_summary"))
-        check(diff <= MESH_EVAL_TOL, f"gloo evaluate JSONs differ by {diff}")
-        launches["mesh_gloo"] = sum_launches(ranks)
-        emit({"phase": "mesh_gloo", "what": "two gloo ranks on cuda:0 "
-              "(torch.distributed, TF32 off): two train steps of "
-              f"{CKPT.name} (nf=32) on a batch of 4 x 1 s split 2 + 2, and "
-              f"evaluate_dataset on {MESH_GLOO_ITEMS} items of 1 s at batch "
-              "2 (N=5), each against one process on the card",
-              **{k: float(v) for k, v in worst.items()},
-              "tolerance": TRAIN_PARITY_TOLERANCE + f"; the evaluate JSONs "
-              f"{MESH_EVAL_TOL} abs on every number but runtime",
-              "eval_json_max_abs_diff": diff,
-              "eval_chunks": ranks[0]["eval"]["chunks"],
-              "losses": [h["loss"] for h in ranks[0]["steps"]["steps"]],
-              "wall_s": gloo_s, "launches": launches["mesh_gloo"],
-              "card": ctx["card"]})
     ctx["mesh_launches"] = launches
     emit({"phase": "mesh", "phase_total_s": time.perf_counter() - t_phase})
 
@@ -5151,6 +5800,8 @@ def kernels_line(ctx, torch) -> list:
             paths["generation_full"] = ctx["generation_launches"][kernel]
         if "stable_launches" in ctx:
             paths["stable_lm_full"] = ctx["stable_launches"][kernel]
+        paths.update({k: v[kernel] for k, v in
+                      ctx.get("stable_train_launches", {}).items()})
         return paths
 
     def main_count(paths: dict, key: str) -> int:

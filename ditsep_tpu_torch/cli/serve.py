@@ -7,7 +7,7 @@ Runs on the CUDA card unless --cpu is given.
         [--params X.npz] [--vae-config vae.json [--vae-params V.npz]] \\
         [--port 7860] [--cpu]
 
-The gradio shell (``--gradio``) is not ported yet (ROADMAP A16.4) and
+The gradio shell (``--gradio``) is not ported yet (ROADMAP A16.4b) and
 raises.
 """
 from __future__ import annotations
@@ -68,11 +68,11 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=7860)
     p.add_argument("--gradio", action="store_true",
                    help="the gradio widget shell (not ported yet, ROADMAP "
-                        "A16.4)")
+                        "A16.4b)")
     args = p.parse_args(argv)
     if args.gradio:
         raise NotImplementedError(
-            "--gradio is not ported yet (ROADMAP A16.4, interface/"
+            "--gradio is not ported yet (ROADMAP A16.4b, interface/"
             "gradio_ui.py)")
     device = "cpu" if args.cpu else "cuda"
     cfg = load_config(args.config, args.override)

@@ -263,7 +263,10 @@ def create_diffusion_cond_from_config(cfg: Dict[str, Any],
     ``include_pretransform``. The model is a DiffusionTransformer, its
     conditioning widths from the config (``cond_token_dim``,
     ``global_cond_dim``) as the JAX package reads them, or for 'adp_cfg_1d'
-    / 'adp_1d' the adp U-Net in a ``UNetCondAdapter``; seeded."""
+    / 'adp_1d' the adp U-Net in a ``UNetCondAdapter``; seeded. The DiT's
+    input-concat and prepend widths (the inpaint and prior models'
+    conditioning) come from the reference DiT's keys ``input_concat_dim``
+    and ``prepend_cond_dim``, which flax infers at the first call."""
     from ditsep_tpu_torch.training.diffusion import CondRouting
 
     model = cfg["model"]
@@ -281,6 +284,8 @@ def create_diffusion_cond_from_config(cfg: Dict[str, Any],
             cond_token_dim=dit_cfg.get("cond_token_dim", 0),
             global_cond_dim=dit_cfg.get("global_cond_dim", 0),
             project_cond_tokens=dit_cfg.get("project_cond_tokens", True),
+            input_concat_dim=dit_cfg.get("input_concat_dim", 0),
+            prepend_cond_dim=dit_cfg.get("prepend_cond_dim", 0),
             diffusion_objective=diff.get("diffusion_objective", "v")),
             generator)
     routing = CondRouting(

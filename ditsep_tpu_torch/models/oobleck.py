@@ -79,26 +79,29 @@ def _weight_norm(v: Tensor, g: Tensor, dtype: torch.dtype) -> Tensor:
 
 class WNConv1d(nn.Module):
     """Weight-normalized Conv1d: ``padding`` an int (symmetric), a (left,
-    right) pair, or None for dilation * (k - 1) // 2."""
+    right) pair, or None for dilation * (k - 1) // 2; ``groups`` as
+    Conv1d's."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, *,
                  stride: int = 1, dilation: int = 1, padding: Padding = None,
-                 bias: bool = True, dtype: Optional[torch.dtype] = None):
+                 bias: bool = True, dtype: Optional[torch.dtype] = None,
+                 groups: int = 1):
         super().__init__()
-        self.stride, self.dilation = stride, dilation
+        self.stride, self.dilation, self.groups = stride, dilation, groups
         if padding is None:
             padding = dilation * (kernel_size - 1) // 2
         self.padding = (padding if isinstance(padding, tuple)
                         else (padding, padding))
         self.compute_dtype = dtype
-        self.weight_v = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size))
+        self.weight_v = nn.Parameter(torch.empty(out_ch, in_ch // groups,
+                                                 kernel_size))
         self.weight_g = nn.Parameter(torch.empty(out_ch, 1, 1))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """v ~ U(+-1/sqrt(fan_in)), fan_in = in * k (torch's Conv1d default
-        and the JAX package's), g = ||v||, bias 0."""
+        """v ~ U(+-1/sqrt(fan_in)), fan_in = in / groups * k (torch's Conv1d
+        default and the JAX package's), g = ||v||, bias 0."""
         _init_wn(self.weight_v, self.weight_g, self.bias,
                  self.weight_v.shape[1] * self.weight_v.shape[2], generator)
 
@@ -111,7 +114,7 @@ class WNConv1d(nn.Module):
             x, pad = F.pad(x, (left, right)), 0
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv1d(x.to(dt), w, b, stride=self.stride, padding=pad,
-                        dilation=self.dilation)
+                        dilation=self.dilation, groups=self.groups)
 
 
 class WNConvTranspose1d(nn.Module):

@@ -30,7 +30,8 @@ reference ``nn.Sequential`` layout: ``res_0`` -> ``layers.0``, ``down`` ->
 ``layers.4``, ``act_0`` -> ``layers.0.act``...). A weight-normed conv's
 ``v`` / ``g`` become ``weight_v`` (WIO (k, in, out) <-> (out, in, k), a
 transposed conv's (k, out, in) <-> (in, out, k)) and ``weight_g`` ((n,)
-<-> (n, 1, 1)); SnakeBeta's ``alpha`` / ``beta``, the DAU1d's
+<-> (n, 1, 1)), a 2-D one's (the discriminators') HWIO <-> OIHW and (n,)
+<-> (n, 1, 1, 1); SnakeBeta's ``alpha`` / ``beta``, the DAU1d's
 ``timestep_embed`` and ``snake_a_{c}`` keep their names.
 ``params_to_jax(model)`` walks the same way back.
 
@@ -122,8 +123,20 @@ def _flax_names(module: nn.Module) -> Dict[str, str]:
 
 
 def _is_wn_conv(module: nn.Module) -> bool:
+    from ditsep_tpu_torch.models.discriminators import WNConv2d
     from ditsep_tpu_torch.models.oobleck import WNConv1d, WNConvTranspose1d
-    return isinstance(module, (WNConv1d, WNConvTranspose1d))
+    return isinstance(module, (WNConv1d, WNConvTranspose1d, WNConv2d))
+
+
+def _wn_v_to_torch(a: np.ndarray) -> np.ndarray:
+    """A weight-normed conv's flax ``v`` (k, in, out) / HWIO -> the port's
+    (out, in, k) / OIHW (a transposed conv's (k, out, in) -> (in, out,
+    k))."""
+    return a.transpose(2, 1, 0) if a.ndim == 3 else a.transpose(3, 2, 0, 1)
+
+
+def _wn_v_to_jax(a: np.ndarray) -> np.ndarray:
+    return a.transpose(2, 1, 0) if a.ndim == 3 else a.transpose(2, 3, 1, 0)
 
 
 def _walk_from_jax(model: nn.Module, path: Tuple[str, ...], key: str):
@@ -176,9 +189,9 @@ def params_from_jax(flat: Mapping[str, np.ndarray],
             leaf = _WN_LEAVES.get(path[-1])
             tkey = None if leaf is None else ".".join(parts + [leaf])
             if path[-1] == "v":
-                a = a.transpose(2, 1, 0)
+                a = _wn_v_to_torch(a)
             elif path[-1] == "g":
-                a = a.reshape(-1, 1, 1)
+                a = a.reshape((-1,) + (1,) * (owner.weight_v.ndim - 1))
         else:
             tkey = _torch_key(tuple(parts) + path[-1:])
             a = _to_torch_layout(a, path[-1])
@@ -221,7 +234,7 @@ def params_to_jax(model) -> Dict[str, np.ndarray]:
             if _is_wn_conv(owner):
                 wn = {v: k for k, v in _WN_LEAVES.items()}
                 if leaf == "weight_v":
-                    a = a.transpose(2, 1, 0)
+                    a = _wn_v_to_jax(a)
                 elif leaf == "weight_g":
                     a = a.reshape(-1)
                 out["/".join(path + [wn[leaf]])] = np.ascontiguousarray(a)

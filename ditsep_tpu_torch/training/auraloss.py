@@ -1,13 +1,13 @@
 """Spectral losses: the STFT and multi-resolution STFT losses with the
 perceptual A-weighting prefilter, and the PIT wrapper (port of
-ditsep_tpu/training/auraloss.py:25-140, 192-197; reference: the vendored
+ditsep_tpu/training/auraloss.py; reference: the vendored
 auraloss subset, src/stable_audio_tools/training/losses/auraloss.py and
 losses/losses.py:111-154).
 
 The STFT is ``ops.stft`` (``torch.stft``, the periodic Hann, zero padding
 at center); every loss takes (B, C, T) waveforms and returns a scalar.
-The mel and sum-and-difference losses go with the stable-audio factory
-(ROADMAP A16): nothing on the LDM or VAE-GAN path calls them.
+The log-mel and stereo sum-and-difference losses (JAX :144-190) complete
+the set.
 """
 from __future__ import annotations
 
@@ -149,6 +149,60 @@ def pit_min(loss_fn: Callable[[Tensor, Tensor], Tensor], est: Tensor,
         return losses.min()
     total = parallel.all_reduce_mean_(losses.detach().clone(), shard.mesh)
     return losses[torch.argmin(total)]
+
+
+@functools.lru_cache(maxsize=8)
+def mel_filterbank(fs: int, n_fft: int, n_mels: int, fmin: float = 0.0,
+                   fmax: Optional[float] = None) -> np.ndarray:
+    """Triangular mel filterbank (n_mels, n_fft // 2 + 1), float32, on the
+    HTK mel scale with bins floor((n_fft + 1) f / fs), as the JAX
+    package's."""
+    fmax = fmax or fs / 2
+
+    def hz_to_mel(f):
+        return 2595.0 * np.log10(1.0 + f / 700.0)
+
+    def mel_to_hz(m):
+        return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+
+    mels = np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels + 2)
+    bins = np.floor((n_fft + 1) * mel_to_hz(mels) / fs).astype(int)
+    fb = np.zeros((n_mels, n_fft // 2 + 1), np.float32)
+    for i in range(n_mels):
+        lo, ce, hi = bins[i], bins[i + 1], bins[i + 2]
+        if ce > lo:
+            fb[i, lo:ce] = (np.arange(lo, ce) - lo) / (ce - lo)
+        if hi > ce:
+            fb[i, ce:hi] = (hi - np.arange(ce, hi)) / (hi - ce)
+    return fb
+
+
+def mel_stft_loss(x: Tensor, y: Tensor, *, sample_rate: int = 8000,
+                  fft_size: int = 1024, hop_size: int = 256,
+                  n_mels: int = 80, eps: float = 1e-5) -> Tensor:
+    """L1 distance of the log mel power spectrograms (reference:
+    losses/losses.py MelSpectrogramLoss, auraloss MelSTFTLoss)."""
+    fb = torch.from_numpy(mel_filterbank(sample_rate, fft_size, n_mels)).to(
+        x.device, x.dtype)
+    mel_x = torch.einsum("mf,...ft->...mt", fb,
+                         _magnitude(x, fft_size, hop_size) ** 2)
+    mel_y = torch.einsum("mf,...ft->...mt", fb,
+                         _magnitude(y, fft_size, hop_size) ** 2)
+    return (torch.log(mel_x + eps) - torch.log(mel_y + eps)).abs().mean()
+
+
+def sum_and_difference_stft_loss(x: Tensor, y: Tensor, **kwargs) -> Tensor:
+    """The stereo sum / difference MRSTFT (reference: auraloss.py
+    SumAndDifferenceSTFTLoss): the mean of the MRSTFT of L + R and of
+    L - R; ``kwargs`` go to ``multi_resolution_stft_loss``. x, y:
+    (B, 2, T)."""
+    if x.shape[1] != 2:
+        raise ValueError(f"the sum / difference loss needs stereo input, "
+                         f"got {x.shape[1]} channels")
+    xs = (x[:, :1] + x[:, 1:], x[:, :1] - x[:, 1:])
+    ys = (y[:, :1] + y[:, 1:], y[:, :1] - y[:, 1:])
+    return 0.5 * (multi_resolution_stft_loss(xs[0], ys[0], **kwargs)
+                  + multi_resolution_stft_loss(xs[1], ys[1], **kwargs))
 
 
 def l1_loss(x: Tensor, y: Tensor) -> Tensor:

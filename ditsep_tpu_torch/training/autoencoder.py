@@ -22,9 +22,12 @@ batch's device), or from ``draws`` by role, in the port's layouts:
   JAX code's ``fold_in(key, 7)``).
 
 The default optimizers are AdamW(b1 0.8, b2 0.99, wd 1e-3) under the
-inverse-LR schedule; the VAE's clips only with ``clip_grad_norm`` > 0,
-the discriminator's never. The optimizers built from a config's
-``optimizer_configs`` go with the stable-audio factory (ROADMAP A16).
+inverse-LR schedule (``ClipAdamW``). ``vae_tx`` / ``disc_tx``, optimizers
+read from a config's ``optimizer_configs`` (``schedules.
+create_optimizer_from_config``), replace them. The VAE's clips only with
+``clip_grad_norm`` > 0 (a config's optimizer too, the clip first), the
+discriminator's never. The discriminator is any family of
+``models/discriminators.py``, through ``discriminator_loss``.
 """
 from __future__ import annotations
 
@@ -40,7 +43,9 @@ from ditsep_tpu_torch.models.discriminators import discriminator_loss
 from ditsep_tpu_torch.models.oobleck import OobleckVAE, vae_sample
 from ditsep_tpu_torch.training import auraloss
 from ditsep_tpu_torch.training.diffsep import Draws, _draw, ema_update_
-from ditsep_tpu_torch.training.schedules import ClipAdamW
+from ditsep_tpu_torch.training.schedules import (
+    ClipAdamW, OptimizerSpec, ScheduledOptimizer,
+)
 
 Tensor = torch.Tensor
 
@@ -68,10 +73,10 @@ class AutoencoderState:
 
     step: int
     vae: nn.Module
-    vae_optimizer: ClipAdamW
+    vae_optimizer: ScheduledOptimizer
     ema_vae: nn.Module
     disc: Optional[nn.Module] = None
-    disc_optimizer: Optional[ClipAdamW] = None
+    disc_optimizer: Optional[ScheduledOptimizer] = None
 
     def state_dict(self) -> dict:
         out = {"step": self.step, "vae": self.vae.state_dict(),
@@ -109,6 +114,18 @@ class AutoencoderTrainer:
     clip_grad_norm: float = 0.0
     latent_mask_ratio: float = 0.0
     teacher_vae: Optional[OobleckVAE] = None
+    vae_tx: Optional[OptimizerSpec] = None
+    disc_tx: Optional[OptimizerSpec] = None
+
+    def make_vae_optimizer(self, params) -> ScheduledOptimizer:
+        if self.vae_tx is not None:
+            return self.vae_tx.build(params, clip=self.clip_grad_norm)
+        return ClipAdamW(params, self.lr, clip=self.clip_grad_norm)
+
+    def make_disc_optimizer(self, params) -> ScheduledOptimizer:
+        if self.disc_tx is not None:
+            return self.disc_tx.build(params)
+        return ClipAdamW(params, self.disc_lr)
 
     def init_state(self) -> AutoencoderState:
         """A fresh state: the VAE and the discriminator trainable, the
@@ -118,13 +135,12 @@ class AutoencoderTrainer:
             self.teacher_vae.requires_grad_(False)
         state = AutoencoderState(
             step=0, vae=vae,
-            vae_optimizer=ClipAdamW(vae.parameters(), self.lr,
-                                    clip=self.clip_grad_norm),
+            vae_optimizer=self.make_vae_optimizer(vae.parameters()),
             ema_vae=copy.deepcopy(vae).requires_grad_(False))
         if self.disc is not None:
             state.disc = self.disc.requires_grad_(True)
-            state.disc_optimizer = ClipAdamW(self.disc.parameters(),
-                                             self.disc_lr)
+            state.disc_optimizer = self.make_disc_optimizer(
+                self.disc.parameters())
         return state
 
     def _mrstft(self, a: Tensor, b: Tensor) -> Tensor:

@@ -88,12 +88,14 @@ def _perms(n: int) -> List[Tuple[int, ...]]:
 
 
 def _draw(draws: Draws, name: str, shape: Sequence[int], kind: str,
-          generator: Optional[torch.Generator], device) -> Tensor:
+          generator: Optional[torch.Generator], device, low: int = 0,
+          high: Optional[int] = None) -> Tensor:
     """The raw draw ``name`` of batch-leading ``shape``: from ``draws`` when
-    given (every name a loss needs must be there), else a ``kind``
-    ("uniform" or "normal") draw from ``generator`` on ``device``. In a
-    shard of a global batch (``parallel.sharded``) both are the global
-    batch's draws, of which the shard keeps its rows."""
+    given (every name a loss needs must be there; kept on its device when
+    ``device`` is None), else a ``kind`` ("uniform", "normal", or "int" in
+    [low, high)) draw from ``generator`` on ``device``. In a shard of a
+    global batch (``parallel.sharded``) both are the global batch's draws,
+    of which the shard keeps its rows."""
     if draws is not None:
         if name not in draws:
             raise KeyError(f"draws has no {name!r} (has {sorted(draws)})")
@@ -104,11 +106,15 @@ def _draw(draws: Draws, name: str, shape: Sequence[int], kind: str,
         if tuple(a.shape) != want:
             raise ValueError(f"draws[{name!r}] has shape {tuple(a.shape)}, "
                              f"want {want}")
-        return parallel.take_rows(a).to(device)
+        a = parallel.take_rows(a)
+        return a if device is None else a.to(device)
     if kind == "uniform":
         fn = torch.rand
     elif kind == "normal":
         fn = torch.randn
+    elif kind == "int" and high is not None:
+        def fn(s, **kw):
+            return torch.randint(low, high, s, **kw)
     else:
         raise ValueError(f"no generator draw of kind {kind!r} for {name!r}")
     return parallel.draw_rows(

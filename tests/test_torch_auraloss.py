@@ -258,7 +258,7 @@ def test_clip_adamw_matches_optax(clip):
     opt = ClipAdamW(params, lr, clip=clip)
     rate = inverse_lr_schedule(lr)
     for n, g in enumerate(grads):
-        assert opt.adamw.param_groups[0]["lr"] == pytest.approx(rate(n),
+        assert opt.optimizer.param_groups[0]["lr"] == pytest.approx(rate(n),
                                                                 rel=1e-12)
         upd, st = tx.update({k: jnp.asarray(v) for k, v in g.items()}, st,
                             pj)

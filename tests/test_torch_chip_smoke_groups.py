@@ -245,3 +245,42 @@ def test_stable_models_phase_rehearsed_on_the_cpu(smoke, monkeypatch):
         assert dau["importer"]["bit_equal"]
     finally:
         torch.set_num_threads(n)
+
+
+def test_stable_train_phase_is_in_group_2_and_lists_its_paths(smoke):
+    """The stable_train phase runs no kernel: every kernel lists its paths
+    with 0 launches; it is in group 2, after stable_models and before
+    mesh."""
+    g2 = smoke.GROUPS[2]
+    assert (g2.index("phase_stable_models") < g2.index("phase_stable_train")
+            < g2.index("phase_mesh"))
+    zero = {k: 0 for k in ("fir_down2d", "fir_up2d", "fba_fwd", "fba_bwd",
+                           "conv3x3_9tap", "conv3x3_async_halo")}
+    paths = {"stable_train_parity": zero, "stable_train_cli_lm": zero,
+             "stable_train_dit": zero}
+    line = smoke.kernels_line({"stable_train_launches": paths}, torch)
+    assert all(k["launches_by_path"] == dict.fromkeys(paths, 0)
+               and k["launches"] == 0 for k in line
+               if "launches_by_path" in k)
+
+
+def test_stable_train_children_are_the_published_widths(smoke):
+    """The children's configs: the Stable Audio Open 1.0 VAE (157 M
+    parameters, hop 2048, 64 latents, stereo) against DAC's published
+    discriminator, counted on the meta device; the LM's 172 frames."""
+    from ditsep_tpu_torch.models.factory import create_model_from_config
+    from ditsep_tpu_torch.training.factory import create_trainer_from_config
+    cfg, batch, size, steps, demo = smoke.STABLE_CHILDREN["autoencoder"]
+    with torch.device("meta"):
+        vae = create_model_from_config(cfg)
+        tr = create_trainer_from_config(cfg, vae)
+    assert (vae.downsampling_ratio, vae.latent_dim, vae.out_channels) == (
+        2048, 64, 2)
+    assert 1.5e8 < sum(p.numel() for p in vae.parameters()) < 1.7e8
+    assert [m.period for m in tr.disc.mpds] == [2, 3, 5, 7, 11]
+    assert [m.window_length for m in tr.disc.mrds] == [2048, 1024, 512]
+    assert len(tr.disc.mrds[0].bands) == 5 and (batch, size) == (2, 65536)
+    lm_cfg, batch, size, steps, demo = smoke.STABLE_CHILDREN["lm"]
+    assert (batch, size // 2048, steps) == (4, 172, 4)
+    assert 0 < demo < steps
+

@@ -1211,3 +1211,68 @@ def test_full_width_lm_cached_step_matches_full_pass(cuda_device):
     assert grid.shape[-1] == 40 and cached.shape == (1, 9, 1024)
     err = (cached - full).abs().max() / full.abs().max()
     assert err <= 1e-4, float(err)
+
+
+@pytest.mark.cuda
+def test_stable_train_lm_step_on_card(cuda_device):
+    """``LMTrainer`` at MusicGen-small's widths (0.42 B parameters) takes
+    one step on the card (batch 2 x 64 frames): the loss and grad norm
+    finite, no kernel launched; the small LM's two steps (the clip on) on
+    the card against the CPU at the train-step bars, TF32 off
+    (chip_smoke.trainer_card_vs_cpu)."""
+    import copy
+
+    from ditsep_tpu_torch.models.factory import create_model_from_config
+    from ditsep_tpu_torch.models.lm import AudioLM
+    from ditsep_tpu_torch.training.lm import LMTrainer
+
+    from chip_smoke import (
+        LM_FULL, STABLE_LM_SMALL, counts, full_f32, nonzero_, reset_counts,
+        trainer_card_vs_cpu,
+    )
+
+    with torch.device(cuda_device):
+        lm, _ = create_model_from_config(
+            LM_FULL, torch.Generator(device=cuda_device).manual_seed(0))
+    nonzero_(lm, 1)
+    tr = LMTrainer(model=lm)
+    state = tr.init_state()
+    tokens = torch.randint(0, 1024, (2, 9, 64), device=cuda_device,
+                           generator=torch.Generator(
+                               device=cuda_device).manual_seed(2))
+    reset_counts()
+    state, met = tr.train_step(state, tokens)
+    assert math.isfinite(met["train/loss"].item())
+    assert math.isfinite(met["train/grad_norm"].item())
+    assert not any(counts().values())
+    del lm, tr, state
+    small = AudioLM(**STABLE_LM_SMALL)
+    small.reset_parameters(torch.Generator().manual_seed(3))
+    nonzero_(small, 4)
+    models = {"cpu": small, "cuda": copy.deepcopy(small).to(cuda_device)}
+    g = torch.Generator().manual_seed(5)
+    toks = [torch.randint(0, 32, (2, 4, 16), generator=g) for _ in range(2)]
+    with full_f32():
+        res = trainer_card_vs_cpu(
+            "LMTrainer", {d: LMTrainer(model=m, lr=1e-3, clip_grad_norm=0.5)
+                          for d, m in models.items()},
+            lambda dev, n: ((toks[n].to(dev),), {}),
+            {"b1": 0.9, "b2": 0.95, "weight_decay": 0.1}, 0.5, "cuda")
+    assert res["param_over_bar"] <= 1 and res["grad_over_bar"] <= 1
+
+
+@pytest.mark.cuda
+def test_stable_train_vae_dac_step_on_card(cuda_device):
+    """A VAE-GAN gen + disc step pair with DAC's discriminator (an MPD and
+    an MRD) on the card against the CPU with the card's draws, TF32 off
+    (chip_smoke.ae_card_vs_cpu): the gradients at the card's parameters,
+    the losses 1e-4, the parameters at the train-step bars."""
+    from chip_smoke import (STABLE_AE_DISCS, ae_card_vs_cpu, full_f32,
+                            stable_ae_case)
+
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    with full_f32():
+        res = ae_card_vs_cpu("VAE-GAN dac", device="cuda",
+                             **stable_ae_case(STABLE_AE_DISCS["dac"], g))
+    assert res["loss_rel"] <= 1e-4
+    assert max(res["grad_over_bar"].values()) <= 1

@@ -44,6 +44,9 @@ from ditsep_tpu_torch.models.weights import (
 )
 from ditsep_tpu_torch.training.ldm import LDMLossWeights, LDMTrainer
 from ditsep_tpu_torch.training.schedules import inverse_lr_schedule
+import stable_train_parity
+from stable_train_parity import check_grads
+from stable_train_parity import check_params as _check_params
 from test_torch_discriminators import _flat, seeded_disc_pair
 from test_torch_latent import D, TINY, _unflat
 
@@ -171,63 +174,11 @@ def test_gen_loss_matches_jax(case):
         assert abs(v.item() - ref) <= 1e-4 * abs(ref), (k, v.item(), ref)
 
 
-def _adamw_f64(p0, grads, rates, clip):
-    """optax's clip_by_global_norm + adamw(b1 0.8, b2 0.99, eps 1e-8, wd
-    1e-3) in float64 over a gradient history at the given rates: the
-    parameters after its last step."""
-    p = {k: v.astype(np.float64) for k, v in p0.items()}
-    m = {k: 0.0 for k in p}
-    v = {k: 0.0 for k in p}
-    for n, (g, lr) in enumerate(zip(grads, rates), start=1):
-        norm = np.sqrt(sum((a.astype(np.float64) ** 2).sum()
-                           for a in g.values()))
-        scale = 1.0 if norm < clip else clip / norm
-        for k in p:
-            gk = g[k].astype(np.float64) * scale
-            m[k] = 0.8 * m[k] + 0.2 * gk
-            v[k] = 0.99 * v[k] + 0.01 * gk ** 2
-            upd = (m[k] / (1 - 0.8 ** n)) / (
-                np.sqrt(v[k] / (1 - 0.99 ** n)) + 1e-8)
-            p[k] = p[k] - lr * (upd + 1e-3 * p[k])
-    return p
-
-
 def step_bars(hist_t, hist_j, p0, rates, clip):
-    """Per leaf, the bar of each element after len(hist_t) steps: the sum
-    over the steps of 1e-3 * rate where the gradient (the port's) was
-    significant in every step so far (at least 1e-3 of its leaf's largest,
-    the leaf's largest at least 1e-6 of all leaves'), 2 * rate elsewhere;
-    plus twice the difference float64 clip + AdamW makes of the two
-    gradient histories."""
-    a = _adamw_f64(p0, hist_j, rates, clip)
-    b = _adamw_f64(p0, hist_t, rates, clip)
-    bars = {}
-    for k in p0:
-        sig = np.ones(p0[k].shape, bool)
-        for g in hist_t:
-            top = max(np.abs(x).max() for x in g.values())
-            x = np.abs(g[k])
-            sig &= (x >= 1e-3 * x.max()) & (x.max() >= 1e-6 * top)
-        bars[k] = (np.where(sig, 1e-3 * sum(rates), 2 * sum(rates))
-                   + 2 * np.abs(a[k] - b[k]))
-    return bars
-
-
-def check_grads(got, want, what):
-    """A step's gradient leaf by leaf within 1e-3 of the reference leaf's
-    max|ref|, before any parameter bar: the explained part of the bars
-    comes from the two gradient histories, so only this check holds a
-    wrong gradient to account."""
-    assert set(got) == set(want), what
-    for k, w in want.items():
-        err = np.abs(got[k] - w).max()
-        assert err <= 1e-3 * np.abs(w).max(), (what, k, float(err))
-
-
-def _check_params(got, want, bars, what):
-    for k, w in want.items():
-        err = np.abs(got[k] - w)
-        assert (err <= bars[k]).all(), (what, k, float(err.max()))
+    """tests/stable_train_parity.py's bars at ClipAdamW's settings (b1 0.8,
+    b2 0.99, wd 1e-3) and the clip ``clip``."""
+    return stable_train_parity.step_bars(hist_t, hist_j, p0, rates,
+                                         clip=clip, b1=0.8, b2=0.99, wd=1e-3)
 
 
 def test_gen_disc_gen_steps_match_jax():

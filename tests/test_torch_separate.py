@@ -202,7 +202,7 @@ def test_cli_separate_on_cpu(tmp_path):
                                   "serve_api_mesh", "serve_gradio"])
 def test_unported_options_raise(what, tmp_path, monkeypatch):
     """What is not ported yet raises: the demo server's gradio shell
-    (A16.4). A mesh on either training CLI and on
+    (A16.4b). A mesh on either training CLI and on
     serve_api raises without a card and without --cpu (no fallback to the
     CPU). The latent CLI's demo callbacks, train_ldm's demo decodes and
     cli.evaluate's figures, once unported, now run (their flag alone
@@ -315,7 +315,9 @@ def test_port_imports_no_jax_and_nothing_of_ditsep_tpu(root):
             "ops/stft", "training/auraloss", "training/schedules",
             "models/discriminators", "training/ldm",
             "training/autoencoder", "utils/checkpoint", "cli/train_ldm",
-            "cli/validate_vae")} <= names
+            "cli/validate_vae", "training/diffusion", "training/lm",
+            "training/semantic", "training/factory", "training/demo",
+            "cli/train_stable")} <= names
     for path in paths:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
