@@ -4,10 +4,10 @@
     python3 chip_smoke.py [--group 1|2] [--phase NAME ...]
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, all at once) and runs thirty phases, each printing
+nvcc per source, all at once) and runs thirty-four phases, each printing
 JSON lines and, after it, ``{"phase": NAME, "phase_s": seconds}``; any
 failure raises and the exit code is non-zero. ``--group 1`` runs phases
-2-16 and ``--group 2`` phases 17-30 (``GROUPS``: each group fits one
+2-20 and ``--group 2`` phases 21-34 (``GROUPS``: each group fits one
 900 s chip call); ``--phase`` runs the named phases alone:
 
 1. device   -- card name and power limit (nvidia-smi), kernel build time;
@@ -81,12 +81,12 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                buckets, runtime and launches of each, the masked ones held
                to the SI-SDR bars of PERF.md;
 10. evaluate -- the same CLI at the flagship width (diffsep_icassp, seeded
-               random weights) over 4 items, batch 4, N=30, unmasked and
+               random weights) over 2 items, batch 4, N=30, unmasked and
                masked, without warm-up calls: the reference schema,
                finite metrics, runtime of each mode and the host seconds
                of the metrics;
 11. longform -- ``cli.separate --chunk-seconds 4 --overlap-seconds 1`` at the
-               flagship width on one 14 s file: its length and its windows'
+               flagship width on one 10 s file: its length and its windows'
                launches;
 12. upsample_2d -- ``ops.fir.upsample_2d`` on the card against the CPU at the
                flagship's 6 up-path shapes, within 1e-5 (TF32 off);
@@ -107,16 +107,16 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
 14. families_train -- ``cli.train_diffsep`` on the card: diffsep_sb (the EDM
                loss) at batch 6 x 40,960 samples and enhancement (PriorMix,
                init hack 4) at batch 4 x 3 s crops of a VCTK-layout
-               directory of synthetic WAVs, 3 steps each: steps/s, peak
+               directory of synthetic WAVs, 2 steps each: steps/s, peak
                memory, launches; then two EDM train steps at nf=32 on the
                card against the CPU with the same batches and draws, each
                step's gradient leaf by leaf within 1e-3 of its max|ref|;
 15. media   -- ``cli.train_diffsep --demo-every 1`` at the flagship
                width (diffsep_icassp, batch 6 x 40,960 samples, one step,
                a demo separation of the first two validation items, then
-               the validation and its media): fir_down2d's launches grow
-               by the demo's and validation's NFE x 18 (NFE from the
-               sampler's return), fir_up2d launches in the step, no
+               the validation and its media, PC N=5): fir_down2d's
+               launches grow by the demo's and validation's NFE x 18 (NFE
+               from the sampler's return), fir_up2d launches in the step, no
                callback or media call failed; the TensorBoard events read
                back where tensorboardX is installed (the demo/* and val/*
                audio with JAX's names and lengths, val/spectrograms with
@@ -138,32 +138,49 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                weights'; the full-width OobleckVAE from a weight_g /
                weight_v state dict, encode and decode equal to the
                .npz-loaded VAE's;
-17. latent_kernel -- fir_down2d and fir_up2d at every latent-U-Net shape
+17. sepformer -- the SepFormer baseline at sepformer-wsj02mix's widths,
+               seeded weights: ``ditsep_tpu_torch.cli.sepformer_baseline``
+               on 4 written mixtures of 2-8.415 s at 8 kHz (the stems
+               written, the parameter count, seconds a file, peak GiB, 0
+               launches), then a small SepFormer card vs CPU (TF32 off,
+               1e-3 relative);
+18. backbones -- the Conv-TasNet TCN at its defaults, DPTNet with LSTM and
+               with GRU, DiffuSE at 64 x 30: one forward each card vs CPU
+               (1e-3 relative) and its time; 0 launches;
+19. ncsnpp_options -- NCSN++'s DDPM blocks with FIR resampling and BigGAN
+               blocks with both pyramids 'residual', each a score model at
+               the flagship's width, one forward at batch 4 x 8.415 s in
+               f32 (ms, fir_down2d 12 launches a forward as the code
+               predicts), and at nf=16 card vs CPU (1e-3 relative);
+20. streaming_bench -- ``scripts/streaming_bench.py`` on 16 s of stream
+               (the flagship in bf16, N=30, 8 s windows): its JSON line and
+               fir_down2d's launches, 18 x the NFE of every window;
+21. latent_kernel -- fir_down2d and fir_up2d at every latent-U-Net shape
                (36 and 20 latent frames, batch 1, 4 and 16, f32 and bf16)
                against their plain versions bit for bit, fir_down2d on its
                scalar path (fir_up2d's vector path, at level 0 in f32,
                equal to its scalar one); their times there
                (``scripts/fir_timing.py --latent [--backward]``);
-18. latent_parity -- a small latent_diffsep_ouve (VAE 32 channels, hop 64,
+22. latent_parity -- a small latent_diffsep_ouve (VAE 32 channels, hop 64,
                16 latent channels; U-Net nf=32), seeded weights, on the
                card (TF32 off) against the CPU with the same draws: VAE
                encode (mode and sample), decode and ``separate_latent`` at
                N=3 within 1e-3 relative; two ``train_step_latent`` steps
                at the train-step bars;
-19. latent_flagship -- latent_diffsep_ouve at full width (VAE hop 2048, 64
+23. latent_flagship -- latent_diffsep_ouve at full width (VAE hop 2048, 64
                latent channels; U-Net nf=128), seeded weights:
-               ``cli.evaluate --latent`` on 8 synthetic 8.415 s items at
+               ``cli.evaluate --latent`` on 4 synthetic 8.415 s items at
                batch 4, N=30; ``separate_latent`` at batch 4 in f32 and
                bf16 with the same draws (the bf16 stems at least
                ``BF16_SI_SDR_BAR_DB`` from the f32 ones by SI-SDR, the
                worst item and source); one call split into VAE encode,
                sampler and VAE decode; one replayed at N=2 under the
                profiler;
-20. latent_train -- ``cli.train_diffsep_latent`` at the config's batch 16
+24. latent_train -- ``cli.train_diffsep_latent`` at the config's batch 16
                of 5 s crops, 4 steps and one validation (steps/s, peak
                memory, launches), then ``cli.cache_latents`` on 2 items
                at N=30;
-21. ldm_parity -- the small latent config of latent_parity with a
+25. ldm_parity -- the small latent config of latent_parity with a
                two-scale Encodec discriminator (filters 8), seeded weights,
                on the card (TF32 off) against the CPU with the same inputs
                and draws: the perceptual MRSTFT at the ldm config's 7
@@ -171,11 +188,11 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                and feature maps, gen -> disc -> gen ``LDMTrainer`` steps
                and an ``AutoencoderTrainer`` gen + disc pair at the
                train-step bars;
-22. ldm_train -- the decoder finetune at full width (the ldm config:
+26. ldm_train -- the decoder finetune at full width (the ldm config:
                VAE hop 2048, 64 latent channels, 78.1 M decoder
                parameters; the nf=128 latent U-Net): ``cli.cache_latents``
-               on 8 synthetic 5.12 s items at N=30 (fir_down2d's launches
-               = items x 60 x 6), ``cli.train_ldm --use-disc`` at batch 4
+               on 8 synthetic 5.12 s items at N=10 (fir_down2d's launches
+               = items x 20 x 6), ``cli.train_ldm --use-disc`` at batch 4
                x 2 sources x 40,960 samples for 6 steps (gen and disc
                steps timed apart, peak memory, no kernel launched), then
                ``--resume`` to 8 steps; ``cli.validate_vae`` over the
@@ -183,30 +200,30 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                device's idle share); ``AutoencoderTrainer`` gen and disc
                steps at the VAE's sample_size of 247,808 samples, batch 2
                (halved on running out of memory, and why);
-23. serving_parity -- ``cli.serve_api.build_engine`` on the trained nf=32
+27. serving_parity -- ``cli.serve_api.build_engine`` on the trained nf=32
                checkpoint, masked, TF32 off: three requests of different
                lengths in one bucket at max_batch 4 (a padded row); each
                served stem equals the same row of a direct
                ``trainer.separate`` on the padded batch bit for bit (the
                engine's generator seeded alike, and its draws replayed by
                ``pc_generator_noise``), and the card the CPU within 1e-3;
-24. serving -- the flagship behind ``SeparationAPIServer`` on 127.0.0.1
+28. serving -- the flagship behind ``SeparationAPIServer`` on 127.0.0.1
                (``scripts/serving_bench``'s lengths, one 65,153-sample
                bucket): every batch size warmed, then concurrency 1, 4 and
                8 over HTTP, one wave each (utt/s, wave latency, p50 / p95,
                occupancy from /v1/stats, batches, peak GiB, launches =
                batches x 60 x 18); one wave at 8 with pipeline_depth=1 and
                one with the int16 wire (N=5); /metrics parsed once;
-25. serving_stream -- two concurrent /v1/stream sessions of 10 s on the
+29. serving_stream -- two concurrent /v1/stream sessions of 8 s on the
                same engine, pushed in real time in 0.5 s blocks, 4 s
                windows with 1 s overlap: emitted = pushed, the windows
                sharing batches, each response's wait; then ``cli.separate
                --chunk-seconds 4 --overlap-seconds 1
-               --streaming-block-seconds 0.5`` on one 10 s file (N=10);
-26. serving_latent -- ``build_engine(latent=True)`` on latent_diffsep_ouve
+               --streaming-block-seconds 0.5`` on one 8 s file (N=10);
+30. serving_latent -- ``build_engine(latent=True)`` on latent_diffsep_ouve
                at full width behind the API: the 65,536-sample bucket,
                concurrency 4 and 8, launches = batches x 60 x 6;
-27. generation -- the stable-audio generation path, which no kernel of
+31. generation -- the stable-audio generation path, which no kernel of
                the port lies on (every launch count 0): a small config of
                Stable Audio Open's schema (Oobleck VAE pretransform, a
                t5-style prompt embedding and the two seconds conditioners,
@@ -227,7 +244,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                share, TFLOP/s, a bf16 step's distance from f32; and the
                DiT importer at full width, bit-equal to the same weights
                through ``params_from_jax``;
-28. stable_models -- the rest of the stable-audio models, which no kernel
+32. stable_models -- the rest of the stable-audio models, which no kernel
                of the port lies on (every launch count 0): card vs CPU
                (TF32 off, the card's draws) on small configs, an
                ``AudioLM`` (depth 2, width 64, 4 codebooks of 32,
@@ -251,7 +268,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                (stereo, depth 14), 8 sampler steps of 65,536 samples, one
                step profiled, and its importer bit-equal to the
                ``params_from_jax`` load;
-29. stable_train -- the stable-audio training path, which no kernel of
+33. stable_train -- the stable-audio training path, which no kernel of
                the port lies on (every launch count 0): card vs CPU (TF32
                off, the card's draws) on small configs, two steps each of
                ``DiffusionTrainer`` (a DiT 64 wide with cross-attention,
@@ -262,17 +279,17 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                ``cli.train_stable``'s children start: at full width, one a
                model type, started together, one training at a time (the
                LM at MusicGen-small's widths over DAC 44 kHz's codes,
-               batch 4 x 172 frames, 4 steps; DAU1d at its defaults, batch 2 x
+               batch 4 x 86 frames, 4 steps; DAU1d at its defaults, batch 2 x
                65,536, 3 steps; the Stable Audio Open 1.0 VAE against
                DAC's published discriminator, batch 2 x 65,536, 4 steps),
                one demo each: s a step, peak GiB, the losses' first and
                last, 0 failed media calls; ``DiffusionTrainer`` on the
                conditional DiT at Stable Audio Open 1.0's widths (1.09 B
                parameters), batch 1, 2 steps;
-30. mesh    -- data parallelism (``ditsep_tpu_torch.parallel``) in child
+34. mesh    -- data parallelism (``ditsep_tpu_torch.parallel``) in child
                processes on 127.0.0.1, each under a hard timeout, TF32
                off and deterministic cuDNN: ``cli.train_diffsep`` at the
-               flagship width (batch 6 x 40,960, 2 steps, a validation)
+               flagship width (batch 6 x 16,384, 2 steps, a validation)
                under ``python -m torch.distributed.run --nproc-per-node
                1 ... --mesh`` (NCCL, world size 1) against the same run
                without --mesh, losses, validation and EMA export bit
@@ -294,8 +311,9 @@ CLIs and its API callback, the imported checkpoint's separations, each
 serving
 warmup and level, the stream sessions and the streaming CLI, the
 generation, stable_models and stable_train paths (the stable_train
-children count their own); the mesh phase's children count their
-own) and read just after it. The script
+children count their own), the SepFormer CLI and its small parity, the
+backbones, each NCSN++ option config's forward and the streaming bench;
+the mesh phase's children count their own) and read just after it. The script
 then prints the ``kernels`` JSON line (all six kernels; a group run, the
 launches of the paths it ran), and as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -332,6 +350,8 @@ CKPT_LAUNCHES_PER_FORWARD = 9
 CKPT_OVERRIDES = ["model.score_model.nf=32",
                   "model.score_model.ch_mult=(1,1,2,2)",
                   "model.score_model.attn_resolutions=(32,)"]
+# the flagship's 4 seeded items land in 3 buckets, one of 2 items (a
+# batch-2 call)
 EVAL_TRAINED_ITEMS, EVAL_ITEMS, EVAL_BATCH = 8, 4, 4
 SI_SDR_BAR_DB, MASKED_RUNS_APART_DB = 8.5, 1.0  # the bars of PERF.md §2
 # the latent path's bf16 stems against its f32 (TF32 convs) stems, same
@@ -350,7 +370,7 @@ BF16_WITNESS_SAMPLES = 4000
 BF16_WITNESS_T = (0.9, 0.3, 0.05)
 BF16_WITNESS_JAX = (4.257e-2, 3.527e-2, 4.498e-2)
 BF16_WITNESS_RATIO = (0.5, 1.5)
-LONGFORM_S, CHUNK_S, OVERLAP_S = 14.0, 4.0, 1.0
+LONGFORM_S, CHUNK_S, OVERLAP_S = 10.0, 4.0, 1.0
 # a train step runs two forwards (init hack 5: the t=T PIT loss and the
 # shuffled score loss); its backward takes fir_up2d for the 12 down-block
 # downsamples of each (h and the skip x; the input pyramid acts on data)
@@ -366,7 +386,8 @@ GROUPS = {
         "phase_train_parity", "phase_train_path", "phase_masked_parity",
         "phase_evaluate_trained", "phase_evaluate", "phase_longform",
         "phase_upsample", "phase_families", "phase_families_train",
-        "phase_media", "phase_import"),
+        "phase_media", "phase_import", "phase_sepformer", "phase_backbones",
+        "phase_ncsnpp_options", "phase_streaming_bench"),
     2: ("phase_latent_kernel", "phase_latent_parity", "phase_latent_flagship",
         "phase_latent_train", "phase_ldm_parity", "phase_ldm_train",
         "phase_serving_parity", "phase_serving", "phase_serving_latent",
@@ -1652,6 +1673,9 @@ def phase_evaluate(ctx):
     runs = {name: run_evaluate([*extra, *base], LAUNCHES_PER_FORWARD)
             for name, extra in (("unmasked", []),
                                 ("masked", ["--mask-padding"]))}
+    for name, run in runs.items():
+        check(max(run["buckets"].values()) > 1,
+              f"{name}: no call batched two items, buckets {run['buckets']}")
     ctx["eval_launches"] = {k: v["launches"] for k, v in runs.items()}
     emit({"phase": "evaluate", "config": "diffsep_icassp (nf=128, random "
           "weights seed 0)", "items": EVAL_ITEMS, "batch": EVAL_BATCH,
@@ -1663,7 +1687,7 @@ def phase_evaluate(ctx):
 
 
 def phase_longform(ctx):
-    """cli.separate --chunk-seconds at the flagship width on one 14 s
+    """cli.separate --chunk-seconds at the flagship width on one 10 s
     synthetic file written to build/."""
     import shutil
 
@@ -1947,7 +1971,7 @@ def write_vctk(root: Path, n_train: int, n_test: int, seconds: float):
 # (12 synthetic items of 5 s, batch 6: two epochs), enhancement on a
 # VCTK-layout directory of 13 synthetic pairs (12 train, 1 held out for
 # validation), batch 4 x 3 s crops at 16 kHz: one epoch
-FAMILY_TRAIN_STEPS = 3
+FAMILY_TRAIN_STEPS = 2
 ENH_TRAIN_FILES, ENH_BATCH = 13, 4
 
 
@@ -2074,8 +2098,8 @@ def phase_families_train(ctx):
 # the media path (phase media): cli.train_diffsep at the flagship width
 # for one step of one batch of 6 x 5 s, a demo separation of the first
 # two validation items after it (--demo-every 1), then the epoch's
-# validation (its 4 items fill one batch of 6: the score loss and a PC-30
-# separation) with its media
+# validation (its 4 items fill one batch of 6: the score loss and a PC
+# separation) with its media; every separation at N=MEDIA_N
 MEDIA_ITEMS, MEDIA_STEPS, MEDIA_DEMO_ITEMS = 6, 1, 2
 MEDIA_EVAL_ITEMS, MEDIA_EVAL_LEN_S, MEDIA_N = 2, 2.0, 5
 # the reference checkpoint (phase import): a short separation at N = 2
@@ -2177,6 +2201,7 @@ def phase_media(ctx):
                 "--synthetic-items", str(MEDIA_ITEMS), "--synthetic-len-s",
                 str(TRAIN_LEN_S), "--batch-size", str(TRAIN_BATCH),
                 "--max-steps", str(MEDIA_STEPS), "--demo-every", "1",
+                "--override", f"model.sampler.N={MEDIA_N}",
                 "--workdir", str(work)])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
@@ -2189,7 +2214,7 @@ def phase_media(ctx):
         check(sizes == [MEDIA_DEMO_ITEMS, TRAIN_BATCH],
               f"separate calls of batch {sizes}")
         nfes = [c["nfe"] for c in calls]
-        check(all(n == 2 * N_STEPS for n in nfes), f"NFE {nfes}")
+        check(all(n == 2 * MEDIA_N for n in nfes), f"NFE {nfes}")
         want = {"fir_down2d": LAUNCHES_PER_FORWARD * (
                     MEDIA_STEPS * 2 + VAL_BATCHES * 2 + sum(nfes)),
                 "fir_up2d": MEDIA_STEPS * 2 * UP_LAUNCHES_PER_BACKWARD}
@@ -2429,13 +2454,266 @@ def phase_import(ctx):
     torch.cuda.empty_cache()
 
 
+# the baselines, backbones, NCSN++ options and the streaming bench (no kernel
+# of the port lies on the SepFormer's or the backbones' paths; the option
+# configs and the streaming bench run fir_down2d)
+SEPFORMER_LENGTHS = (67320, 16000, 30976, 52815)  # 8.415 s first, 2-8.415 s
+SEPFORMER_SMALL = dict(enc_channels=64, out_channels=64, chunk_size=50,
+                       num_dp_layers=2, num_tf_layers=2, n_heads=4,
+                       d_ffn=128)
+CARD_CPU_REL = 1e-3  # card vs CPU, TF32 off, of max|cpu|
+BACKBONE_FRAMES = 2000  # 2 s at the Conv-TasNet encoder's stride 8
+DIFFUSE_SAMPLES = 8000
+# the two NCSN++ option configs at the flagship's width (nf=128, 7 levels,
+# attention at 16), each one score forward at batch 4 x 8.415 s, f32: DDPM
+# blocks with FIR Downsample between levels (fir_down2d 6) and the
+# input_skip pyramid (6); BigGAN blocks (12) with both pyramids residual
+# (their resamplers conv-fused, no fir_down2d): 12 launches a forward each
+OPTION_CONFIGS = {
+    "ddpm_fir": {"resblock_type": "ddpm", "resamp_with_conv": False},
+    "biggan_residual": {"progressive": "residual",
+                        "progressive_input": "residual"}}
+OPTION_LAUNCHES_PER_FORWARD = 12
+OPTION_REPS = 5
+OPTION_PARITY_SAMPLES = 16000
+STREAM_BENCH_S = 16.0
+
+
+def card_vs_cpu(module, args: tuple, seed: int) -> float:
+    """``module`` seeded from ``seed`` on the CPU, then moved to the card:
+    max|card - cpu| / max|cpu| of one forward on the same inputs, TF32
+    off. The module stays on the card."""
+    import torch
+    module.reset_parameters(torch.Generator().manual_seed(seed))
+    module.eval()
+    with torch.no_grad():
+        want = module(*args)
+        with full_f32():
+            got = module.cuda()(*(a.cuda() for a in args))
+    return _rel(got, want)
+
+
+def phase_sepformer(ctx):
+    """The SepFormer baseline at sepformer-wsj02mix's widths (seeded
+    weights): ``ditsep_tpu_torch.cli.sepformer_baseline`` (its ``main``,
+    the ``python -m`` entry) on 4 written mixtures of 2-8.415 s at 8 kHz
+    (--bucket 8192): the written stems, its parameter count, each file's
+    seconds (the steady state: those after the first), peak GiB, every
+    launch count 0; then a small SepFormer card vs CPU."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.cli import sepformer_baseline
+    from ditsep_tpu_torch.data import read_wav, write_wav
+    from ditsep_tpu_torch.models.sepformer import SepFormer
+
+    rng = np.random.default_rng(16)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        ind, outd = Path(tmp, "in"), Path(tmp, "out")
+        ind.mkdir()
+        names = []
+        for i, n in enumerate(SEPFORMER_LENGTHS):
+            names.append(f"mix{i}.wav")
+            write_wav(str(ind / names[-1]), (0.1 * rng.standard_normal(
+                n)).astype(np.float32), FS)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            sepformer_baseline.main(["--input", str(ind), "--output",
+                                     str(outd)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        summary = json.loads(out.getvalue().strip().splitlines()[-1])
+        for name, n in zip(names, SEPFORMER_LENGTHS):
+            for s in range(2):
+                est, fs = read_wav(str(outd / f"s{s}" / name))
+                check(fs == FS and est.shape == (n,)
+                      and bool(np.isfinite(est).all()),
+                      f"sepformer stem s{s}/{name}: {est.shape}")
+    check(summary["files"] == len(SEPFORMER_LENGTHS)
+          and "RANDOM weights" in out.getvalue(), f"sepformer: {summary}")
+    g = torch.Generator().manual_seed(4)
+    mix = 0.1 * torch.randn(2, 12000, generator=g)
+    reset_counts()
+    rel = card_vs_cpu(SepFormer(**SEPFORMER_SMALL), (mix,), 5)
+    small_launches = counts()
+    check(not any(launches.values()) and not any(small_launches.values()),
+          f"sepformer launches {launches}, {small_launches}")
+    check(rel <= CARD_CPU_REL, f"small SepFormer card vs CPU {rel}")
+    ctx.setdefault("slice_launches", {}).update({
+        "sepformer_cli": launches, "sepformer_parity": small_launches})
+    torch.cuda.empty_cache()
+    emit({"phase": "sepformer", "config": "sepformer-wsj02mix widths "
+          "(encoder 256, kernel 16 / stride 8, chunk 250, 2 dual-path "
+          "layers of 8-layer transformers, 8 heads, FFN 1024), seeded; "
+          f"{len(SEPFORMER_LENGTHS)} files {list(SEPFORMER_LENGTHS)} samples "
+          "at 8 kHz, bucket 8192", "params": summary["params"],
+          "file_s": summary["file_s"],
+          "s_per_file_steady": float(np.mean(summary["file_s"][1:])),
+          "cli_s": cli_s, "peak_gib": peak, "launches": launches,
+          "small_card_vs_cpu_rel": rel, "tolerance": CARD_CPU_REL,
+          "card": ctx["card"]})
+
+
+def phase_backbones(ctx):
+    """One forward each of the alternative backbones card vs CPU (TF32
+    off, within 1e-3 of max|cpu|), then its time on the card (TF32 convs,
+    CUDA events): the Conv-TasNet TCN at its defaults (N=B=256, H=512,
+    P=3, X=8, R=4) on 2 x 2,000 frames, DPTNet (64 wide, hidden 128, 4
+    heads, 2 layers, chunk 100) with LSTM and with GRU, DiffuSE at 64 x 30
+    on 2 x 8,000 samples. No kernel of the port lies on them."""
+    import torch
+    from ditsep_tpu_torch.models import backbones as B
+    from ditsep_tpu_torch.utils.timing import call_ms
+
+    g = torch.Generator().manual_seed(6)
+    w = torch.randn(2, 256, BACKBONE_FRAMES, generator=g)
+    d = torch.randn(2, 64, BACKBONE_FRAMES, generator=g)
+    xt = torch.randn(2, 1, DIFFUSE_SAMPLES, generator=g)
+    cases = {
+        "tcn": (B.TemporalConvNet(), (w,)),
+        "dptnet_lstm": (B.DPTNet(64, 128, rnn_type="lstm"), (d,)),
+        "dptnet_gru": (B.DPTNet(64, 128, rnn_type="gru"), (d,)),
+        "diffuse": (B.DiffuSE(64, 30),
+                    (xt, torch.tensor([0.2, 0.7]),
+                     torch.randn(2, 1, DIFFUSE_SAMPLES, generator=g)))}
+    rows = {}
+    reset_counts()
+    for i, (name, (model, args)) in enumerate(cases.items()):
+        rel = card_vs_cpu(model, args, 10 + i)
+        check(rel <= CARD_CPU_REL, f"{name}: card vs CPU {rel}")
+        cuda_args = [a.cuda() for a in args]
+        with torch.no_grad():
+            ms = call_ms(lambda: model(*cuda_args), iters=5, warmup=2)
+        rows[name] = {"card_vs_cpu_rel": rel, "ms": ms,
+                      "params": sum(p.numel() for p in model.parameters()),
+                      "input": [list(a.shape) for a in args]}
+        del model, cuda_args
+    launches = counts()
+    check(not any(launches.values()), f"backbones launches {launches}")
+    ctx.setdefault("slice_launches", {})["backbones"] = launches
+    torch.cuda.empty_cache()
+    emit({"phase": "backbones", "rows": rows, "tolerance": CARD_CPU_REL,
+          "launches": launches, "card": ctx["card"]})
+
+
+def option_score_model(nf: int, opts: dict, seed: int):
+    """The flagship score model (7 levels, attention at 16) at width
+    ``nf`` with the NCSN++ options ``opts``, seeded on the CPU, the
+    zero-init layers at unit scale, in eval mode."""
+    import torch
+    from ditsep_tpu_torch.models import NCSNpp
+    from ditsep_tpu_torch.models.score_models import ScoreModelNCSNpp
+    sm = ScoreModelNCSNpp(num_sources=2, nf=nf)
+    sm.backbone = NCSNpp(nf=nf, ch_mult=(1, 1, 2, 2, 2, 2, 2),
+                         num_res_blocks=2, attn_resolutions=(16,),
+                         image_size=256, num_channels_in=6,
+                         num_channels_out=4, **opts)
+    sm.backbone.reset_parameters(torch.Generator().manual_seed(seed))
+    unit_scale_zero_init_layers(sm, seed + 1)
+    return sm.eval()
+
+
+def phase_ncsnpp_options(ctx):
+    """NCSN++'s other block options (OPTION_CONFIGS): each as a score
+    model at the flagship's width, one forward at batch 4 x 8.415 s in
+    f32 (TF32 convs) timed over OPTION_REPS after warm-up, its fir_down2d
+    launches a forward against OPTION_LAUNCHES_PER_FORWARD; then at
+    nf=16 card vs CPU, TF32 off, within 1e-3 of max|cpu|."""
+    import torch
+
+    rows = {}
+    g = torch.Generator().manual_seed(7)
+    for i, (name, opts) in enumerate(OPTION_CONFIGS.items()):
+        sm = option_score_model(16, opts, 20 + i)
+        n = OPTION_PARITY_SAMPLES
+        args = (torch.randn(1, 2, n, generator=g), torch.tensor([0.5]),
+                torch.randn(1, 1, n, generator=g))
+        with torch.no_grad():
+            want = sm(*args)
+            with full_f32():
+                got = sm.cuda()(*(a.cuda() for a in args))
+        rel = _rel(got, want)
+        check(rel <= CARD_CPU_REL, f"{name} nf=16: card vs CPU {rel}")
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sm = option_score_model(128, opts, 30 + i).cuda()
+        x, y = (torch.randn(BATCH, c, FLAGSHIP_SAMPLES, generator=g).cuda()
+                for c in (2, 1))
+        t = torch.full((BATCH,), 0.5).cuda()
+        predicted = OPTION_LAUNCHES_PER_FORWARD
+        with torch.no_grad():
+            for _ in range(2):  # cuDNN's set-up
+                sm(x, t, y)
+            torch.cuda.synchronize()
+            reset_counts()
+            out = sm(x, t, y)
+            torch.cuda.synchronize()
+            launches = counts()
+            ms = []
+            for _ in range(OPTION_REPS):
+                t0 = time.perf_counter()
+                sm(x, t, y)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+        check(launches["fir_down2d"] == predicted and sum(
+            launches.values()) == predicted, f"{name}: launches {launches}")
+        check(bool(torch.isfinite(out).all()) and out.shape == x.shape,
+              f"{name}: output {tuple(out.shape)}")
+        ctx.setdefault("slice_launches", {})[f"ncsnpp_{name}"] = launches
+        rows[name] = {"options": opts, "card_vs_cpu_rel_nf16": rel,
+                      "forward_ms": ms, "fir_down2d_launches": launches[
+                          "fir_down2d"], "predicted": predicted,
+                      "params": sum(p.numel() for p in sm.parameters()),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del sm, x, y, out
+        torch.cuda.empty_cache()
+    emit({"phase": "ncsnpp_options", "config": "score model nf=128, 7 "
+          "levels, attention at 16, seeded (zero-init layers at unit "
+          f"scale), batch {BATCH} x {FLAGSHIP_SAMPLES} samples, f32 (TF32 "
+          "convs)", "rows": rows, "tolerance": CARD_CPU_REL,
+          "card": ctx["card"]})
+
+
+def phase_streaming_bench(ctx):
+    """``ditsep_tpu_torch.scripts.streaming_bench`` on 16 s of stream (the
+    flagship in bf16, PC N=30, 8 s windows, 1 s overlap, 0.25 s blocks):
+    its JSON line, and fir_down2d's launches = 18 x the NFE of every
+    window, the warm-up's included."""
+    import torch
+    from ditsep_tpu_torch.scripts import streaming_bench
+
+    reset_counts()
+    result, nfe = streaming_bench.run(STREAM_BENCH_S)
+    launches = counts()
+    want = LAUNCHES_PER_FORWARD * (nfe["warmup"] + sum(nfe["windows"]))
+    check(launches["fir_down2d"] == want and sum(launches.values()) == want,
+          f"streaming bench launches {launches}, predicted {want}")
+    check(result["n_windows"] == len(nfe["windows"]) and all(
+        n == 2 * N_STEPS for n in nfe["windows"]), f"streaming {nfe}")
+    ctx.setdefault("slice_launches", {})["streaming_bench"] = launches
+    emit(result)
+    emit({"phase": "streaming_bench", "nfe": nfe, "launches": launches,
+          "predicted_fir_down2d": want, "card": ctx["card"]})
+    torch.cuda.empty_cache()
+
+
 # the latent path (latent_diffsep_ouve): the latent U-Net downsamples at
 # its two level transitions, twice in the down block and once on the input
 # pyramid; a forward's backward takes fir_up2d for the down blocks' two
 LATENT_LAUNCHES_PER_FORWARD = 6
 LATENT_UP_LAUNCHES_PER_BACKWARD = 4
 LATENT_BATCH = 4                  # the direct separate_latent calls
-LATENT_EVAL_ITEMS = 8             # cli.evaluate --latent, batch 4
+LATENT_EVAL_ITEMS = 4             # cli.evaluate --latent, batch 4
 # cli.train_diffsep_latent: the config's batch 16 of 5 s crops, 64 items:
 # 4 steps in one epoch, ending in one validation (its 4 items fill one
 # batch of 16: the score loss, 2 forwards, and a PC-30 separation, 60)
@@ -2868,10 +3146,11 @@ LDM_PARITY_DISC = {"filters": 8, "n_ffts": (1024, 256),
 LDM_PARITY_LR = 1.0   # the schedule's first rates are 1e-3 lr: above ulps
 LDM_PARITY_SAMPLES = 8192  # 128 latent frames at hop 64
 LDM_CACHE_ITEMS, LDM_LEN_S, LDM_BATCH = 8, 5.12, 4  # 40,960 samples
+LDM_CACHE_N = 10  # the cache's PC steps: the finetune's data, not measured
 LDM_STEPS, LDM_RESUME_STEPS = 6, 8  # gen on even steps, disc on odd
-LDM_TIMED_STEPS, LDM_PROFILED_STEPS = 5, 3  # of each kind, after warm-up
+LDM_TIMED_STEPS, LDM_PROFILED_STEPS = 3, 3  # of each kind, after warm-up
 AE_SAMPLES, AE_BATCH = 247808, 2  # oobleck_finetune sample_size
-AE_TIMED_STEPS = 5  # of each kind, after a warm gen + disc pair
+AE_TIMED_STEPS = 3  # of each kind, after a warm gen + disc pair
 
 
 CLIP_ADAMW = {"b1": 0.8, "b2": 0.99, "weight_decay": 1e-3}
@@ -3223,10 +3502,10 @@ def phase_ldm_parity(ctx):
 
 def phase_ldm_train(ctx):
     """The decoder finetune at full width through its CLIs: cli.
-    cache_latents on 8 synthetic 5.12 s items at N = 30 (fir_down2d's
+    cache_latents on 8 synthetic 5.12 s items at N = 10 (fir_down2d's
     launches), cli.train_ldm --use-disc at batch 4 for 6 steps (peak
     memory), then --resume to 8; cli.validate_vae over the seeded and the
-    finetuned VAE; the steady rates from 5 gen and 5 disc steps after a
+    finetuned VAE; the steady rates from 3 gen and 3 disc steps after a
     warm pair, alternating, each timed alone, then 3 gen steps under the
     profiler; then AutoencoderTrainer gen and disc steps at the VAE's
     sample_size of 247,808 samples, batch 2, timed the same way."""
@@ -3252,18 +3531,18 @@ def phase_ldm_train(ctx):
         n = cache_latents.main([
             "--config", "ldm", "--synthetic", "--synthetic-items",
             str(LDM_CACHE_ITEMS), "--synthetic-len-s", str(LDM_LEN_S),
-            "--sampler-N", str(N_STEPS), "--out-dir", str(cache),
+            "--sampler-N", str(LDM_CACHE_N), "--out-dir", str(cache),
             "--seed", "0"])
         torch.cuda.synchronize()
         cache_launches = counts()
-        want = LATENT_LAUNCHES_PER_FORWARD * 2 * N_STEPS * n
+        want = LATENT_LAUNCHES_PER_FORWARD * 2 * LDM_CACHE_N * n
         check(n == LDM_CACHE_ITEMS and cache_launches["fir_down2d"] == want
               and all(v == 0 for k, v in cache_launches.items()
                       if k != "fir_down2d"),
               f"cache_latents: {n} items, launches {cache_launches}, want "
               f"fir_down2d {want}")
         ctx["ldm_cache_launches"] = cache_launches["fir_down2d"]
-        result["cache_latents"] = {"items": n, "N": N_STEPS,
+        result["cache_latents"] = {"items": n, "N": LDM_CACHE_N,
                                    "seconds": time.perf_counter() - t0,
                                    "fir_down2d_launches": want}
 
@@ -3344,7 +3623,7 @@ def phase_ldm_train(ctx):
         result["validate_vae"] = rows
 
         # the steady rates: after a warm gen + disc pair (cuDNN's set-up),
-        # 5 steps of each kind, alternating as train_ldm does; then 3 gen
+        # 3 steps of each kind, alternating as train_ldm does; then 3 gen
         # steps under the profiler
         trainer = train_ldm.build_ldm_trainer(
             cfg, build_latent_trainer(cfg, device="cuda", seed=0),
@@ -3470,7 +3749,7 @@ SERVE_PARITY_LENGTHS, SERVE_PARITY_N, SERVE_PARITY_SEED = (7000, 6500,
 SERVE_LEVELS, SERVE_WAVES, SERVE_MAX_BATCH = (1, 4, 8), 1, 8
 SERVE_WAIT_MS = 100.0
 SERVE_VARIANT_N = 5               # the variant engines' PC steps (NFE 10)
-STREAM_S, STREAM_BLOCK_S, STREAMS = 10.0, 0.5, 2  # CHUNK_S, OVERLAP_S too
+STREAM_S, STREAM_BLOCK_S, STREAMS = 8.0, 0.5, 2  # CHUNK_S, OVERLAP_S too
 STREAM_CLI_N = 10                 # the streaming CLI's PC steps (NFE 20)
 LATENT_SERVE_LEVELS = (4, 8)
 LATENT_BUCKET = 65536             # 16 VAE hops of 2048
@@ -4871,7 +5150,7 @@ SAO_AE = {"model_type": "autoencoder", "sample_rate": 44100, "model": {
 STABLE_CHILDREN = {
     "lm": ({**LM_FULL, "training": {"learning_rate": 1e-4,
                                     "demo": {"num_demos": 1}}},
-           4, 352256, 4, 3),
+           4, 176128, 4, 3),  # 86 frames a row and a demo
     "diffusion_uncond": ({**DAU_FULL, "sample_rate": 44100, "training": {
         "learning_rate": 1e-4, "demo": {"demo_steps": DAU_STEPS,
                                         "num_demos": 1}}},
@@ -5348,7 +5627,7 @@ def phase_stable_train(ctx):
           "explains", "card": ctx["card"]})
     emit({"phase": "stable_train_cli", "config": "cli.train_stable: the LM "
           "at MusicGen-small's widths over DAC 44 kHz's 9 x 1024 codes, "
-          "batch 4 x 172 frames; DAU1d at its defaults, batch 2 x 65,536 "
+          "batch 4 x 86 frames; DAU1d at its defaults, batch 2 x 65,536 "
           "stereo; the Stable Audio Open 1.0 VAE (128 channels, strides 2, "
           "4, 4, 8, 8, 64 latents, stereo, 44.1 kHz) against the DAC "
           "discriminator (periods 2, 3, 5, 7, 11; fft 2048, 1024, 512; "
@@ -5369,6 +5648,7 @@ def phase_stable_train(ctx):
 
 
 MESH_STEPS, MESH_ITEMS = 2, 12     # one epoch of 2 steps at batch 6
+MESH_LEN_S = 2.0                   # 16,384 samples a batch row
 MESH_VAL_N = 3                     # the validation's PC steps in both runs
 MESH_EVAL_ITEMS, MESH_GLOO_ITEMS = 1, 3
 MESH_CHILD_TIMEOUT_S = 300  # all of a run_children call's children
@@ -5666,7 +5946,7 @@ def phase_mesh(ctx):
         (hook / "sitecustomize.py").write_text(MESH_HOOK)
         train = ["--config", "diffsep_icassp", "--synthetic",
                  "--synthetic-items", str(MESH_ITEMS), "--synthetic-len-s",
-                 str(TRAIN_LEN_S), "--batch-size", str(TRAIN_BATCH),
+                 str(MESH_LEN_S), "--batch-size", str(TRAIN_BATCH),
                  "--max-steps", str(MESH_STEPS), "--override",
                  f"model.sampler.N={MESH_VAL_N}", "--workdir"]
         mesh_cmd = torchrun(1, "ditsep_tpu_torch.cli.train_diffsep")
@@ -5724,7 +6004,7 @@ def phase_mesh(ctx):
         step = {k: sum(r["step_s"][1:]) / (MESH_STEPS - 1)
                 for k, r in (("plain", plain), ("mesh", mesh))}
         emit({"phase": "mesh_train", "what": "cli.train_diffsep "
-              "diffsep_icassp (nf=128, seeded weights), batch 6 x 40,960, "
+              "diffsep_icassp (nf=128, seeded weights), batch 6 x 16,384, "
               f"{MESH_STEPS} steps and a validation (PC N={MESH_VAL_N}), "
               "TF32 off, deterministic cuDNN: plain vs python -m "
               "torch.distributed.run --nproc-per-node 1 ... --mesh (NCCL, "
@@ -5794,7 +6074,7 @@ def kernels_line(ctx, torch) -> list:
             if "ldm_cache_launches" in ctx:
                 paths["ldm_cache_latents"] = ctx["ldm_cache_launches"]
             paths.update(ctx.get("serve_launches", {}))
-        for key in ("media_launches", "mesh_launches"):
+        for key in ("media_launches", "mesh_launches", "slice_launches"):
             paths.update({k: v[kernel] for k, v in ctx.get(key, {}).items()})
         if "generation_launches" in ctx:
             paths["generation_full"] = ctx["generation_launches"][kernel]

@@ -5,10 +5,11 @@ Runs on the CUDA card unless --cpu is given.
 
     python -m ditsep_tpu_torch.cli.serve --config diffsep \\
         [--params X.npz] [--vae-config vae.json [--vae-params V.npz]] \\
-        [--port 7860] [--cpu]
+        [--port 7860] [--gradio] [--cpu]
 
-The gradio shell (``--gradio``) is not ported yet (ROADMAP A16.4b) and
-raises.
+``--gradio`` launches the gradio widget shell (``interface.gradio_ui``)
+over the same backends instead; without the gradio package it raises
+ImportError.
 """
 from __future__ import annotations
 
@@ -67,13 +68,9 @@ def main(argv=None):
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=7860)
     p.add_argument("--gradio", action="store_true",
-                   help="the gradio widget shell (not ported yet, ROADMAP "
-                        "A16.4b)")
+                   help="launch the gradio widget shell instead of the "
+                        "stdlib UI (needs the gradio package)")
     args = p.parse_args(argv)
-    if args.gradio:
-        raise NotImplementedError(
-            "--gradio is not ported yet (ROADMAP A16.4b, interface/"
-            "gradio_ui.py)")
     device = "cpu" if args.cpu else "cuda"
     cfg = load_config(args.config, args.override)
     separation = build_separation_app(cfg, args.params, device=device,
@@ -81,6 +78,12 @@ def main(argv=None):
     autoencoder = (build_autoencoder_app(args.vae_config, args.vae_params,
                                          device=device, seed=args.seed)
                    if args.vae_config else None)
+    if args.gradio:
+        from ditsep_tpu_torch.interface import create_ui
+        create_ui(separation=separation, autoencoder=autoencoder,
+                  fs=separation.fs).launch(server_name=args.host,
+                                           server_port=args.port)
+        return
     DemoServer(separation=separation, autoencoder=autoencoder,
                host=args.host, port=args.port).serve_forever()
 

@@ -4,19 +4,7 @@ inference/utils.py:5-40): numpy, run before the transfer to the device.
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
-
-
-def _resample(audio: np.ndarray, fs: int, target: int) -> np.ndarray:
-    """Polyphase resampling of (C, T) audio from fs to target Hz (scipy's
-    ``resample_poly``, as the JAX package's data/webdataset.py)."""
-    from scipy.signal import resample_poly
-
-    g = math.gcd(fs, target)
-    return np.asarray(resample_poly(audio, target // g, fs // g, axis=-1),
-                      np.float32)
 
 
 def set_audio_channels(audio: np.ndarray, target_channels: int
@@ -45,6 +33,7 @@ def prepare_audio(audio: np.ndarray, in_sr: int, target_sr: int,
     elif audio.ndim == 2:
         audio = audio[None, :, :]
     if in_sr != target_sr:
+        from ditsep_tpu_torch.data.webdataset import _resample
         audio = np.stack([_resample(a, in_sr, target_sr) for a in audio])
     t = audio.shape[-1]
     if t >= target_length:

@@ -1,8 +1,15 @@
 """Models of the PyTorch port, mirroring ditsep_tpu.models."""
+from ditsep_tpu_torch.models.layers import (  # noqa: F401
+    Downsample, ResampleConv2d, ResnetBlockBigGANpp, ResnetBlockDDPMpp,
+    Upsample,
+)
 from ditsep_tpu_torch.models.ncsnpp import NCSNpp  # noqa: F401
 from ditsep_tpu_torch.models.oobleck import OobleckVAE  # noqa: F401
 from ditsep_tpu_torch.models.score_models import (  # noqa: F401
     LatentScoreModelNCSNpp, ScoreModelNCSNpp,
+)
+from ditsep_tpu_torch.models.sepformer import (  # noqa: F401
+    SepFormer, sepformer_params_from_torch,
 )
 from ditsep_tpu_torch.models.torch_import import (  # noqa: F401
     dau1d_reference_state, diffsep_ema_param_order, dit_reference_state,

@@ -67,10 +67,10 @@ class Conv2d(nn.Conv2d):
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, *,
                  padding: int = 0, bias: bool = True, init_scale: float = 1.0,
-                 dtype: Optional[torch.dtype] = None):
+                 stride: int = 1, dtype: Optional[torch.dtype] = None):
         self.init_scale = init_scale
         super().__init__(in_ch, out_ch, kernel_size, padding=padding,
-                         bias=bias)
+                         bias=bias, stride=stride)
         self.compute_dtype = dtype
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -85,7 +85,7 @@ class Conv2d(nn.Conv2d):
         dt = _compute_dtype(self.compute_dtype, x)
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), b,
-                        padding=self.padding)
+                        padding=self.padding, stride=self.stride)
 
 
 def conv3x3(in_ch: int, out_ch: int, *, bias: bool = True,
@@ -299,36 +299,141 @@ class AttnBlockpp(nn.Module):
         return (x + h) / math.sqrt(2.0)
 
 
-class Upsample(nn.Module):
-    """2x upsampling without conv: FIR or nearest (the conv variants,
-    used only by configs not ported yet, are left out)."""
+class ResampleConv2d(Conv2d):
+    """The StyleGAN2 conv with fused FIR up- or downsampling
+    (ditsep_tpu/models/layers.py:211-245): ``up`` a stride-2 transposed
+    conv then the FIR filter (``fir.upsample_conv_2d``), ``down`` the
+    filter then a stride-2 conv (``fir.conv_downsample_2d``), else a 'SAME'
+    conv. DDPM-initialized; the weight OIHW."""
 
-    def __init__(self, fir: bool = True,
-                 fir_kernel: Sequence[float] = (1, 3, 3, 1)):
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 up: bool = False, down: bool = False,
+                 resample_kernel: Sequence[float] = (1, 3, 3, 1),
+                 use_bias: bool = True, dtype=None):
+        assert not (up and down)
+        super().__init__(in_ch, out_ch, kernel, bias=use_bias, dtype=dtype)
+        self.up, self.down = up, down
+        self.resample_kernel = tuple(resample_kernel)
+
+    def forward(self, x: Tensor) -> Tensor:
+        dt = _compute_dtype(self.compute_dtype, x)
+        x, w = x.to(dt), self.weight.to(dt)
+        if self.up:
+            x = fir.upsample_conv_2d(x, w, k=self.resample_kernel)
+        elif self.down:
+            x = fir.conv_downsample_2d(x, w, k=self.resample_kernel)
+        else:
+            x = F.conv2d(x, w, padding=self.kernel_size[0] // 2)
+        if self.bias is not None:
+            x = x + self.bias.to(dt)[None, :, None, None]
+        return x
+
+
+class Upsample(nn.Module):
+    """2x upsampling: FIR, optionally fused with a 3x3 conv
+    (``Conv2d_0``, a ``ResampleConv2d``), or nearest, optionally followed
+    by a 3x3 conv (``Conv_0``). ``in_ch`` is needed with a conv (flax
+    infers it); ``out_ch`` defaults to it."""
+
+    def __init__(self, in_ch: Optional[int] = None,
+                 out_ch: Optional[int] = None, with_conv: bool = False,
+                 fir: bool = True,
+                 fir_kernel: Sequence[float] = (1, 3, 3, 1), dtype=None):
         super().__init__()
-        self.fir = fir
+        self.fir, self.with_conv = fir, with_conv
         self.fir_kernel = tuple(fir_kernel)
+        out_ch = out_ch or in_ch
+        if with_conv and fir:
+            self.Conv2d_0 = ResampleConv2d(in_ch, out_ch, 3, up=True,
+                                           resample_kernel=fir_kernel,
+                                           dtype=dtype)
+        elif with_conv:
+            self.Conv_0 = conv3x3(in_ch, out_ch, dtype=dtype)
 
     def forward(self, x: Tensor) -> Tensor:
         if self.fir:
+            if self.with_conv:
+                return self.Conv2d_0(x)
             return fir.upsample_2d(x, self.fir_kernel, factor=2)
-        return fir.naive_upsample_2d(x, factor=2)
+        h = fir.naive_upsample_2d(x, factor=2)
+        return self.Conv_0(h) if self.with_conv else h
 
 
 class Downsample(nn.Module):
-    """2x downsampling without conv: FIR or average pooling (the conv
-    variants, used only by configs not ported yet, are left out)."""
+    """2x downsampling: FIR (``fir_down2d`` on the card), optionally fused
+    with a 3x3 conv (``Conv2d_0``, a ``ResampleConv2d``), or average
+    pooling, or with a conv a zero pad (right and bottom) and a stride-2
+    3x3 conv (``Conv_0``)."""
 
-    def __init__(self, fir: bool = True,
-                 fir_kernel: Sequence[float] = (1, 3, 3, 1)):
+    def __init__(self, in_ch: Optional[int] = None,
+                 out_ch: Optional[int] = None, with_conv: bool = False,
+                 fir: bool = True,
+                 fir_kernel: Sequence[float] = (1, 3, 3, 1), dtype=None):
         super().__init__()
-        self.fir = fir
+        self.fir, self.with_conv = fir, with_conv
         self.fir_kernel = tuple(fir_kernel)
+        out_ch = out_ch or in_ch
+        if with_conv and fir:
+            self.Conv2d_0 = ResampleConv2d(in_ch, out_ch, 3, down=True,
+                                           resample_kernel=fir_kernel,
+                                           dtype=dtype)
+        elif with_conv:
+            self.Conv_0 = Conv2d(in_ch, out_ch, 3, stride=2, dtype=dtype)
 
     def forward(self, x: Tensor) -> Tensor:
         if self.fir:
+            if self.with_conv:
+                return self.Conv2d_0(x)
             return fir.downsample_2d(x, self.fir_kernel, factor=2)
+        if self.with_conv:
+            return self.Conv_0(F.pad(x, (0, 1, 0, 1)))
         return F.avg_pool2d(x, 2, 2)
+
+
+class ResnetBlockDDPMpp(nn.Module):
+    """The DDPM residual block (ditsep_tpu/models/layers.py:316-354): norm,
+    act, 3x3 conv, + the time embedding, norm, act, dropout, 3x3 conv; the
+    shortcut a 3x3 conv (``conv_shortcut``) or NIN where the width
+    changes."""
+
+    def __init__(self, act: Callable[[Tensor], Tensor], in_ch: int,
+                 out_ch: Optional[int] = None, temb_dim: Optional[int] = None,
+                 conv_shortcut: bool = False, dropout: float = 0.1,
+                 skip_rescale: bool = False, init_scale: float = 0.0,
+                 dtype=None):
+        super().__init__()
+        out_ch = out_ch or in_ch
+        self.act, self.skip_rescale = act, skip_rescale
+        self.GroupNorm_0 = group_norm(in_ch, dtype=dtype)
+        self.Conv_0 = conv3x3(in_ch, out_ch, dtype=dtype)
+        if temb_dim is not None:
+            self.Dense_0 = Linear(temb_dim, out_ch, dtype=dtype)
+        self.GroupNorm_1 = group_norm(out_ch, dtype=dtype)
+        self.Dropout_0 = nn.Dropout(dropout)
+        self.Conv_1 = conv3x3(out_ch, out_ch, init_scale=init_scale,
+                              dtype=dtype)
+        if in_ch != out_ch:
+            if conv_shortcut:
+                self.Conv_2 = conv3x3(in_ch, out_ch, dtype=dtype)
+            else:
+                self.NIN_0 = NIN(in_ch, out_ch, dtype=dtype)
+
+    def forward(self, x: Tensor, temb: Optional[Tensor] = None, *,
+                tmask: Optional[Tensor] = None) -> Tensor:
+        """``tmask`` masks both GroupNorms' statistics (the block keeps
+        its resolution)."""
+        gm = time_mask_to_gn(tmask)
+        h = self.Conv_0(self.act(self.GroupNorm_0(x, gm)))
+        if temb is not None:
+            h = h + self.Dense_0(self.act(temb))[:, :, None, None]
+        h = self.Conv_1(self.Dropout_0(self.act(self.GroupNorm_1(h, gm))))
+        if hasattr(self, "Conv_2"):
+            x = self.Conv_2(x)
+        elif hasattr(self, "NIN_0"):
+            x = self.NIN_0(x)
+        if not self.skip_rescale:
+            return x + h
+        return (x + h) / math.sqrt(2.0)
 
 
 class ResnetBlockBigGANpp(nn.Module):

@@ -171,9 +171,13 @@ def params_from_jax(flat: Mapping[str, np.ndarray],
                     ) -> Dict[str, torch.Tensor]:
     """``{"a/b/c": array}`` JAX parameters -> ``{torch_key: tensor}``.
     Given ``model``, each path is walked through its modules (their
-    ``flax_names``; weight-normed convs' ``v`` / ``g``). Without one, an
+    ``flax_names``; weight-normed convs' ``v`` / ``g``), or by the model's
+    own ``params_from_jax`` where it has one. Without one, an
     OobleckVAE's tree (every key under ``encoder/`` or ``decoder/``) goes
     through ``oobleck_params_from_jax``, as with an OobleckVAE ``model``."""
+    own = getattr(model, "params_from_jax", None)
+    if callable(own):  # a model with a layout of its own (the SepFormer)
+        return own(flat)
     paths = {key: tuple(p for p in key.split("/") if p != "params")
              for key in flat}
     if isinstance(model, OobleckVAE) or (model is None and paths and all(

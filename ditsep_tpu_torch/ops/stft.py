@@ -17,6 +17,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
@@ -96,3 +97,18 @@ def istft(spec: Tensor, n_fft: int = 510, hop_length: int = 128,
         _window(n_fft, spec), center=center, normalized=False,
         onesided=True, length=length)
     return x.reshape(lead + x.shape[-1:])
+
+
+def overlap_add(frames: Tensor, hop_length: int) -> Tensor:
+    """(..., n_frames, C*hop) -> (..., (n_frames + C - 1)*hop): frame f's
+    chunk j (hop samples) added at row f + j. The JAX op's shift-and-sum
+    (ditsep_tpu/ops/stft.py:93): chunk j of every frame padded j rows down,
+    the C copies summed."""
+    h = hop_length
+    n_frames, c = frames.shape[-2], frames.shape[-1] // h
+    chunks = frames.reshape(frames.shape[:-1] + (c, h))
+    total = None
+    for j in range(c):
+        shifted = F.pad(chunks[..., j, :], (0, 0, j, c - 1 - j))
+        total = shifted if total is None else total + shifted
+    return total.reshape(frames.shape[:-2] + ((n_frames + c - 1) * h,))

@@ -240,6 +240,18 @@ def shard_batch(mesh: Mesh, batch):
     return _tree_map(take, batch)
 
 
+def process_index() -> int:
+    """This process's rank in the process group, 0 without one (JAX's
+    ``jax.process_index``)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The process group's size, 1 without one (JAX's
+    ``jax.process_count``)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def is_rank_zero() -> bool:
     """(reference: src/utils/ddp.py:4-10)."""
     return not dist.is_initialized() or dist.get_rank() == 0

@@ -267,7 +267,7 @@ def test_stable_train_phase_is_in_group_2_and_lists_its_paths(smoke):
 def test_stable_train_children_are_the_published_widths(smoke):
     """The children's configs: the Stable Audio Open 1.0 VAE (157 M
     parameters, hop 2048, 64 latents, stereo) against DAC's published
-    discriminator, counted on the meta device; the LM's 172 frames."""
+    discriminator, counted on the meta device; the LM's 86 frames."""
     from ditsep_tpu_torch.models.factory import create_model_from_config
     from ditsep_tpu_torch.training.factory import create_trainer_from_config
     cfg, batch, size, steps, demo = smoke.STABLE_CHILDREN["autoencoder"]
@@ -281,6 +281,58 @@ def test_stable_train_children_are_the_published_widths(smoke):
     assert [m.window_length for m in tr.disc.mrds] == [2048, 1024, 512]
     assert len(tr.disc.mrds[0].bands) == 5 and (batch, size) == (2, 65536)
     lm_cfg, batch, size, steps, demo = smoke.STABLE_CHILDREN["lm"]
-    assert (batch, size // 2048, steps) == (4, 172, 4)
+    assert (batch, size // 2048, steps) == (4, 86, 4)
     assert 0 < demo < steps
 
+
+
+def test_slice_phases_are_in_group_1_and_list_their_paths(smoke):
+    """The SepFormer, backbones, NCSN++ option and streaming-bench phases
+    are in group 1; the kernels line lists their paths (the option configs'
+    and the streaming bench's fir_down2d launches, the others 0)."""
+    g1 = smoke.GROUPS[1]
+    new = ("phase_sepformer", "phase_backbones", "phase_ncsnpp_options",
+           "phase_streaming_bench")
+    assert all(n in g1 for n in new)
+    assert g1.index("phase_import") < g1.index("phase_sepformer")
+    zero = {k: 0 for k in ("fir_down2d", "fir_up2d", "fba_fwd", "fba_bwd",
+                           "conv3x3_9tap", "conv3x3_async_halo")}
+    paths = {"sepformer_cli": zero, "sepformer_parity": zero,
+             "backbones": zero, "ncsnpp_ddpm_fir": {**zero, "fir_down2d": 12},
+             "ncsnpp_biggan_residual": {**zero, "fir_down2d": 12},
+             "streaming_bench": {**zero, "fir_down2d": 4320}}
+    by = {k["name"]: k for k in smoke.kernels_line(
+        {"slice_launches": paths}, torch)}
+    assert by["fir_down2d"]["launches_by_path"] == {
+        k: v["fir_down2d"] for k, v in paths.items()}
+    assert by["fir_down2d"]["launches"] == 12 + 12 + 4320
+    assert by["fir_up2d"]["launches"] == 0
+    assert set(by["fir_up2d"]["launches_by_path"]) == set(paths)
+
+
+def test_option_configs_launch_fir_down2d_twelve_times(smoke, monkeypatch):
+    """A forward of each option config at the flagship's depth (7 levels,
+    attention at 16; nf=4 on a 64 x 64 input on the CPU) calls
+    ``ops.fir.downsample_2d``, fir_down2d's wrapper on the card,
+    OPTION_LAUNCHES_PER_FORWARD (12) times; the flagship's own BigGAN +
+    input_skip config LAUNCHES_PER_FORWARD (18) times."""
+    from ditsep_tpu_torch.models import NCSNpp
+    from ditsep_tpu_torch.ops import fir
+    calls = []
+    real = fir.downsample_2d
+    monkeypatch.setattr(fir, "downsample_2d",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    kw = dict(nf=4, ch_mult=(1, 1, 2, 2, 2, 2, 2), attn_resolutions=(16,),
+              image_size=64, num_channels_in=6, num_channels_out=4)
+
+    def fir_downsamples(opts):
+        model = NCSNpp(**kw, **opts).eval()
+        calls.clear()
+        with torch.no_grad():
+            model(torch.zeros(1, 6, 64, 64), torch.full((1,), 0.5))
+        return len(calls)
+
+    assert smoke.OPTION_LAUNCHES_PER_FORWARD == 12
+    for opts in smoke.OPTION_CONFIGS.values():
+        assert fir_downsamples(opts) == smoke.OPTION_LAUNCHES_PER_FORWARD
+    assert fir_downsamples({}) == smoke.LAUNCHES_PER_FORWARD

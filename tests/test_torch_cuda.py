@@ -1276,3 +1276,32 @@ def test_stable_train_vae_dac_step_on_card(cuda_device):
                              **stable_ae_case(STABLE_AE_DISCS["dac"], g))
     assert res["loss_rel"] <= 1e-4
     assert max(res["grad_over_bar"].values()) <= 1
+
+
+@pytest.mark.cuda
+def test_sepformer_and_ncsnpp_option_on_card_match_cpu(cuda_device):
+    """A small SepFormer and a DDPM NCSN++ option config (its FIR
+    Downsample between levels and the input pyramid's run the kernel: 2
+    a level transition) on the card against the CPU, TF32 off, within
+    1e-3 of max|cpu| (chip_smoke.card_vs_cpu); the SepFormer launches no
+    kernel."""
+    from chip_smoke import SEPFORMER_SMALL, card_vs_cpu
+    from ditsep_tpu_torch.models.sepformer import SepFormer
+
+    g = torch.Generator().manual_seed(2)
+    before = dict((n, getattr(cuda_kernels, n).launches)
+                  for n in ("fir_down2d", "fir_up2d"))
+    rel = card_vs_cpu(SepFormer(**SEPFORMER_SMALL),
+                      (0.1 * torch.randn(2, 5000, generator=g),), 3)
+    assert rel <= 1e-3
+    assert all(getattr(cuda_kernels, n).launches == v
+               for n, v in before.items())
+    model = NCSNpp(nf=16, ch_mult=(1, 2, 1), num_res_blocks=1,
+                   attn_resolutions=(8,), image_size=32, num_channels_in=6,
+                   num_channels_out=4, resblock_type="ddpm",
+                   resamp_with_conv=False)
+    down = cuda_kernels.fir_down2d.launches
+    rel = card_vs_cpu(model, (torch.randn(2, 6, 32, 64, generator=g),
+                              torch.tensor([0.3, 0.8])), 4)
+    assert rel <= 1e-3
+    assert cuda_kernels.fir_down2d.launches - down == 4

@@ -4,6 +4,7 @@ DiffSepTrainer.separate with matched noise (1e-3 relative, the bar of
 tests/test_full_pipeline_parity.py), the CLI, and the port's import rule.
 """
 import ast
+import sys
 from pathlib import Path
 
 import jax
@@ -201,8 +202,10 @@ def test_cli_separate_on_cpu(tmp_path):
                                   "ldm_config", "save_figures",
                                   "serve_api_mesh", "serve_gradio"])
 def test_unported_options_raise(what, tmp_path, monkeypatch):
-    """What is not ported yet raises: the demo server's gradio shell
-    (A16.4b). A mesh on either training CLI and on
+    """The demo server's gradio shell, once unported, now reaches
+    ``create_ui``, which raises ImportError naming gradio where the
+    package is absent (as the JAX package's). A mesh on either training
+    CLI and on
     serve_api raises without a card and without --cpu (no fallback to the
     CPU). The latent CLI's demo callbacks, train_ldm's demo decodes and
     cli.evaluate's figures, once unported, now run (their flag alone
@@ -236,8 +239,10 @@ def test_unported_options_raise(what, tmp_path, monkeypatch):
             eval_cli.main(["--save-figures", "1", "--cpu", "--synthetic",
                            "--params", str(tmp_path / "no.npz")])
         return
-    with pytest.raises(NotImplementedError):
-        serve.main(["--gradio", "--cpu"])
+    monkeypatch.setitem(sys.modules, "gradio", None)  # absent
+    with pytest.raises(ImportError, match="gradio"):
+        serve.main(["--gradio", "--cpu", "--override"]
+                   + [f"{k}={v}" for k, v in TINY.items()])
 
 
 def test_serve_vae_config_builds_the_autoencoder_tab(tmp_path, monkeypatch):
@@ -317,7 +322,10 @@ def test_port_imports_no_jax_and_nothing_of_ditsep_tpu(root):
             "training/autoencoder", "utils/checkpoint", "cli/train_ldm",
             "cli/validate_vae", "training/diffusion", "training/lm",
             "training/semantic", "training/factory", "training/demo",
-            "cli/train_stable")} <= names
+            "cli/train_stable", "data/dataset", "data/webdataset",
+            "interface/gradio_ui", "scripts/streaming_bench",
+            "models/normalization", "models/backbones", "models/sepformer",
+            "cli/sepformer_baseline")} <= names
     for path in paths:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
