@@ -4,10 +4,10 @@
     python3 chip_smoke.py [--group 1|2] [--phase NAME ...]
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, all at once) and runs thirty-four phases, each printing
+nvcc per source, all at once) and runs thirty-five phases, each printing
 JSON lines and, after it, ``{"phase": NAME, "phase_s": seconds}``; any
 failure raises and the exit code is non-zero. ``--group 1`` runs phases
-2-20 and ``--group 2`` phases 21-34 (``GROUPS``: each group fits one
+2-21 and ``--group 2`` phases 22-35 (``GROUPS``: each group fits one
 900 s chip call); ``--phase`` runs the named phases alone:
 
 1. device   -- card name and power limit (nvidia-smi), kernel build time;
@@ -86,7 +86,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                finite metrics, runtime of each mode and the host seconds
                of the metrics;
 11. longform -- ``cli.separate --chunk-seconds 4 --overlap-seconds 1`` at the
-               flagship width on one 10 s file: its length and its windows'
+               flagship width on one 7 s file: its length and its windows'
                launches;
 12. upsample_2d -- ``ops.fir.upsample_2d`` on the card against the CPU at the
                flagship's 6 up-path shapes, within 1e-5 (TF32 off);
@@ -135,7 +135,9 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                ``import_diffsep_ema`` into a fresh nf=128 model on the
                card: the parameters are the shadows bit for bit, and a
                separation with matched noise equals the .npz-loaded
-               weights'; the full-width OobleckVAE from a weight_g /
+               weights'; ``utils.hub.load_reference_diffsep_params`` on
+               the same file gives the ``import_params`` route's weights
+               bit for bit; the full-width OobleckVAE from a weight_g /
                weight_v state dict, encode and decode equal to the
                .npz-loaded VAE's;
 17. sepformer -- the SepFormer baseline at sepformer-wsj02mix's widths,
@@ -152,22 +154,35 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                the flagship's width, one forward at batch 4 x 8.415 s in
                f32 (ms, fir_down2d 12 launches a forward as the code
                predicts), and at nf=16 card vs CPU (1e-3 relative);
-20. streaming_bench -- ``scripts/streaming_bench.py`` on 16 s of stream
+20. streaming_bench -- ``scripts/streaming_bench.py`` on 12 s of stream
                (the flagship in bf16, N=30, 8 s windows): its JSON line and
                fir_down2d's launches, 18 x the NFE of every window;
-21. latent_kernel -- fir_down2d and fir_up2d at every latent-U-Net shape
+21. facodec -- FACodec, which no kernel of the port lies on:
+               ``ditsep_tpu_torch.cli.facodec_demo`` (its ``main``) at the
+               shipped widths with seeded weights on 4 written 16 kHz
+               files of 2-8.415 s (seconds a file after the first, peak
+               GiB, codes in [0, 1024) of shape (T / 200, 6), finite audio
+               of each input's length, 0 launches, the WAVs read through
+               the native library), one forward of it profiled (device
+               busy ms, idle share); a small codec card vs CPU, TF32 off
+               (the encoder, the decoder's ``return_info`` with its codes
+               equal wherever the top-2 cosine margin clears 1e-4,
+               ``vq2emb`` and ``decode_with_timbre``, 1e-3 relative); then
+               ``cli.model_info --facodec`` and ``--config diffsep_icassp``
+               (the meta device) against the JAX package's counts;
+22. latent_kernel -- fir_down2d and fir_up2d at every latent-U-Net shape
                (36 and 20 latent frames, batch 1, 4 and 16, f32 and bf16)
                against their plain versions bit for bit, fir_down2d on its
                scalar path (fir_up2d's vector path, at level 0 in f32,
                equal to its scalar one); their times there
                (``scripts/fir_timing.py --latent [--backward]``);
-22. latent_parity -- a small latent_diffsep_ouve (VAE 32 channels, hop 64,
+23. latent_parity -- a small latent_diffsep_ouve (VAE 32 channels, hop 64,
                16 latent channels; U-Net nf=32), seeded weights, on the
                card (TF32 off) against the CPU with the same draws: VAE
                encode (mode and sample), decode and ``separate_latent`` at
                N=3 within 1e-3 relative; two ``train_step_latent`` steps
                at the train-step bars;
-23. latent_flagship -- latent_diffsep_ouve at full width (VAE hop 2048, 64
+24. latent_flagship -- latent_diffsep_ouve at full width (VAE hop 2048, 64
                latent channels; U-Net nf=128), seeded weights:
                ``cli.evaluate --latent`` on 4 synthetic 8.415 s items at
                batch 4, N=30; ``separate_latent`` at batch 4 in f32 and
@@ -176,11 +191,11 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                worst item and source); one call split into VAE encode,
                sampler and VAE decode; one replayed at N=2 under the
                profiler;
-24. latent_train -- ``cli.train_diffsep_latent`` at the config's batch 16
+25. latent_train -- ``cli.train_diffsep_latent`` at the config's batch 16
                of 5 s crops, 4 steps and one validation (steps/s, peak
                memory, launches), then ``cli.cache_latents`` on 2 items
                at N=30;
-25. ldm_parity -- the small latent config of latent_parity with a
+26. ldm_parity -- the small latent config of latent_parity with a
                two-scale Encodec discriminator (filters 8), seeded weights,
                on the card (TF32 off) against the CPU with the same inputs
                and draws: the perceptual MRSTFT at the ldm config's 7
@@ -188,7 +203,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                and feature maps, gen -> disc -> gen ``LDMTrainer`` steps
                and an ``AutoencoderTrainer`` gen + disc pair at the
                train-step bars;
-26. ldm_train -- the decoder finetune at full width (the ldm config:
+27. ldm_train -- the decoder finetune at full width (the ldm config:
                VAE hop 2048, 64 latent channels, 78.1 M decoder
                parameters; the nf=128 latent U-Net): ``cli.cache_latents``
                on 8 synthetic 5.12 s items at N=10 (fir_down2d's launches
@@ -200,30 +215,30 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                device's idle share); ``AutoencoderTrainer`` gen and disc
                steps at the VAE's sample_size of 247,808 samples, batch 2
                (halved on running out of memory, and why);
-27. serving_parity -- ``cli.serve_api.build_engine`` on the trained nf=32
+28. serving_parity -- ``cli.serve_api.build_engine`` on the trained nf=32
                checkpoint, masked, TF32 off: three requests of different
                lengths in one bucket at max_batch 4 (a padded row); each
                served stem equals the same row of a direct
                ``trainer.separate`` on the padded batch bit for bit (the
                engine's generator seeded alike, and its draws replayed by
                ``pc_generator_noise``), and the card the CPU within 1e-3;
-28. serving -- the flagship behind ``SeparationAPIServer`` on 127.0.0.1
+29. serving -- the flagship behind ``SeparationAPIServer`` on 127.0.0.1
                (``scripts/serving_bench``'s lengths, one 65,153-sample
                bucket): every batch size warmed, then concurrency 1, 4 and
                8 over HTTP, one wave each (utt/s, wave latency, p50 / p95,
                occupancy from /v1/stats, batches, peak GiB, launches =
                batches x 60 x 18); one wave at 8 with pipeline_depth=1 and
                one with the int16 wire (N=5); /metrics parsed once;
-29. serving_stream -- two concurrent /v1/stream sessions of 8 s on the
+30. serving_stream -- two concurrent /v1/stream sessions of 8 s on the
                same engine, pushed in real time in 0.5 s blocks, 4 s
                windows with 1 s overlap: emitted = pushed, the windows
                sharing batches, each response's wait; then ``cli.separate
                --chunk-seconds 4 --overlap-seconds 1
                --streaming-block-seconds 0.5`` on one 8 s file (N=10);
-30. serving_latent -- ``build_engine(latent=True)`` on latent_diffsep_ouve
+31. serving_latent -- ``build_engine(latent=True)`` on latent_diffsep_ouve
                at full width behind the API: the 65,536-sample bucket,
                concurrency 4 and 8, launches = batches x 60 x 6;
-31. generation -- the stable-audio generation path, which no kernel of
+32. generation -- the stable-audio generation path, which no kernel of
                the port lies on (every launch count 0): a small config of
                Stable Audio Open's schema (Oobleck VAE pretransform, a
                t5-style prompt embedding and the two seconds conditioners,
@@ -244,7 +259,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                share, TFLOP/s, a bf16 step's distance from f32; and the
                DiT importer at full width, bit-equal to the same weights
                through ``params_from_jax``;
-32. stable_models -- the rest of the stable-audio models, which no kernel
+33. stable_models -- the rest of the stable-audio models, which no kernel
                of the port lies on (every launch count 0): card vs CPU
                (TF32 off, the card's draws) on small configs, an
                ``AudioLM`` (depth 2, width 64, 4 codebooks of 32,
@@ -268,7 +283,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                (stereo, depth 14), 8 sampler steps of 65,536 samples, one
                step profiled, and its importer bit-equal to the
                ``params_from_jax`` load;
-33. stable_train -- the stable-audio training path, which no kernel of
+34. stable_train -- the stable-audio training path, which no kernel of
                the port lies on (every launch count 0): card vs CPU (TF32
                off, the card's draws) on small configs, two steps each of
                ``DiffusionTrainer`` (a DiT 64 wide with cross-attention,
@@ -286,7 +301,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                last, 0 failed media calls; ``DiffusionTrainer`` on the
                conditional DiT at Stable Audio Open 1.0's widths (1.09 B
                parameters), batch 1, 2 steps;
-34. mesh    -- data parallelism (``ditsep_tpu_torch.parallel``) in child
+35. mesh    -- data parallelism (``ditsep_tpu_torch.parallel``) in child
                processes on 127.0.0.1, each under a hard timeout, TF32
                off and deterministic cuDNN: ``cli.train_diffsep`` at the
                flagship width (batch 6 x 16,384, 2 steps, a validation)
@@ -312,8 +327,9 @@ serving
 warmup and level, the stream sessions and the streaming CLI, the
 generation, stable_models and stable_train paths (the stable_train
 children count their own), the SepFormer CLI and its small parity, the
-backbones, each NCSN++ option config's forward and the streaming bench;
-the mesh phase's children count their own) and read just after it. The script
+backbones, each NCSN++ option config's forward, the streaming bench, the
+FACodec demo and its small parity; the mesh phase's children count their
+own) and read just after it. The script
 then prints the ``kernels`` JSON line (all six kernels; a group run, the
 launches of the paths it ran), and as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -370,7 +386,7 @@ BF16_WITNESS_SAMPLES = 4000
 BF16_WITNESS_T = (0.9, 0.3, 0.05)
 BF16_WITNESS_JAX = (4.257e-2, 3.527e-2, 4.498e-2)
 BF16_WITNESS_RATIO = (0.5, 1.5)
-LONGFORM_S, CHUNK_S, OVERLAP_S = 10.0, 4.0, 1.0
+LONGFORM_S, CHUNK_S, OVERLAP_S = 7.0, 4.0, 1.0
 # a train step runs two forwards (init hack 5: the t=T PIT loss and the
 # shuffled score loss); its backward takes fir_up2d for the 12 down-block
 # downsamples of each (h and the skip x; the input pyramid acts on data)
@@ -387,7 +403,7 @@ GROUPS = {
         "phase_evaluate_trained", "phase_evaluate", "phase_longform",
         "phase_upsample", "phase_families", "phase_families_train",
         "phase_media", "phase_import", "phase_sepformer", "phase_backbones",
-        "phase_ncsnpp_options", "phase_streaming_bench"),
+        "phase_ncsnpp_options", "phase_streaming_bench", "phase_facodec"),
     2: ("phase_latent_kernel", "phase_latent_parity", "phase_latent_flagship",
         "phase_latent_train", "phase_ldm_parity", "phase_ldm_train",
         "phase_serving_parity", "phase_serving", "phase_serving_latent",
@@ -1687,7 +1703,7 @@ def phase_evaluate(ctx):
 
 
 def phase_longform(ctx):
-    """cli.separate --chunk-seconds at the flagship width on one 10 s
+    """cli.separate --chunk-seconds at the flagship width on one 7 s
     synthetic file written to build/."""
     import shutil
 
@@ -2337,9 +2353,11 @@ def phase_import(ctx):
     perturbation of its parameter) written with torch.save, read back and
     loaded by ``import_diffsep_ema`` into a fresh nf=128 model on the
     card: its parameters are the shadows bit for bit, and a separation
-    with matched noise equals the same weights' from an .npz. Then the
-    full-width OobleckVAE from a ``weight_g`` / ``weight_v`` state dict:
-    encode and decode equal the .npz-loaded VAE's."""
+    with matched noise equals the same weights' from an .npz;
+    ``utils.hub.load_reference_diffsep_params`` on the same file gives
+    ``import_params(prefix="score_model.")``'s weights bit for bit. Then
+    the full-width OobleckVAE from a ``weight_g`` / ``weight_v`` state
+    dict: encode and decode equal the .npz-loaded VAE's."""
     import numpy as np
     import torch
     from ditsep_tpu_torch.configs import (
@@ -2347,9 +2365,10 @@ def phase_import(ctx):
     )
     from ditsep_tpu_torch.configs.build import build_oobleck_vae
     from ditsep_tpu_torch.models import (
-        import_diffsep_ema, import_oobleck_params, load_torch_ckpt,
-        save_params_npz,
+        import_diffsep_ema, import_oobleck_params, import_params,
+        load_torch_ckpt, save_params_npz,
     )
+    from ditsep_tpu_torch.utils.hub import load_reference_diffsep_params
 
     cfg = diffsep_icassp()
     src = build_diffsep_trainer(cfg, device="cpu", seed=0)
@@ -2418,7 +2437,24 @@ def phase_import(ctx):
               "the imported checkpoint separates unlike its .npz")
         ctx["media_launches"] = {**ctx.get("media_launches", {}),
                                  "import_separate": out["import_launches"]}
-        del fresh, via_npz, ests
+        del ests
+
+        # the hub loader on the same file into the imported model, the
+        # import_params route into the .npz one: the same bits
+        t0 = time.perf_counter()
+        check(load_reference_diffsep_params(fresh.model, str(path))
+              is fresh.model, "the hub loader returns its model")
+        out["hub_s"] = time.perf_counter() - t0
+        import_params(via_npz.model, load_torch_ckpt(str(path)),
+                      prefix="score_model.")
+        got, want = fresh.model.state_dict(), via_npz.model.state_dict()
+        check(got.keys() == want.keys()
+              and all(torch.equal(v, want[k]) for k, v in got.items()),
+              "the hub loader's weights are not import_params'")
+        check(torch.equal(got[f"backbone.{trainable[0]}"].cpu(),
+                          sd[f"score_model.backbone.{trainable[0]}"]),
+              "the hub loader did not load the checkpoint's state_dict")
+        del fresh, via_npz, got, want
         torch.cuda.empty_cache()
 
         # the OobleckVAE from a weight_g / weight_v state dict
@@ -2448,8 +2484,9 @@ def phase_import(ctx):
     emit({"phase": "import", "config": "diffsep_icassp (nf=128) from a "
           "Lightning-layout checkpoint, EMA shadows applied by parameter "
           f"order; separate at N={IMPORT_N} on 2 x {n} samples, matched "
-          "noise, deterministic cuDNN; latent_diffsep_ouve's VAE (channels "
-          "128, hop 2048) from weight_g / weight_v", **out,
+          "noise, deterministic cuDNN; the hub loader on the same file; "
+          "latent_diffsep_ouve's VAE (channels 128, hop 2048) from weight_g "
+          "/ weight_v", **out,
           "card": ctx["card"]})
     torch.cuda.empty_cache()
 
@@ -2476,7 +2513,7 @@ OPTION_CONFIGS = {
 OPTION_LAUNCHES_PER_FORWARD = 12
 OPTION_REPS = 5
 OPTION_PARITY_SAMPLES = 16000
-STREAM_BENCH_S = 16.0
+STREAM_BENCH_S = 12.0
 
 
 def card_vs_cpu(module, args: tuple, seed: int) -> float:
@@ -2685,7 +2722,7 @@ def phase_ncsnpp_options(ctx):
 
 
 def phase_streaming_bench(ctx):
-    """``ditsep_tpu_torch.scripts.streaming_bench`` on 16 s of stream (the
+    """``ditsep_tpu_torch.scripts.streaming_bench`` on 12 s of stream (the
     flagship in bf16, PC N=30, 8 s windows, 1 s overlap, 0.25 s blocks):
     its JSON line, and fir_down2d's launches = 18 x the NFE of every
     window, the warm-up's included."""
@@ -2705,6 +2742,260 @@ def phase_streaming_bench(ctx):
     emit({"phase": "streaming_bench", "nfe": nfe, "launches": launches,
           "predicted_fir_down2d": want, "card": ctx["card"]})
     torch.cuda.empty_cache()
+
+
+# FACodec (no kernel of the port lies on it): the demo at the shipped widths
+# on 16 kHz files of 2-8.415 s, 8.415 s first; a small codec card vs CPU;
+# the parameter counts of the JAX package's ``jax.eval_shape`` (the card's
+# machine has no JAX), which model_info must print
+FACODEC_FS = 16000
+FACODEC_LENGTHS = (134640, 32000, 61952, 105630)
+FACODEC_SMALL_ENC = dict(ngf=4, up_ratios=(2, 5), out_channels=32)
+FACODEC_SMALL_DEC = dict(in_channels=32, ngf=4, up_ratios=(5, 2),
+                         upsample_initial_channel=64, codebook_size=16,
+                         codebook_dim=4, phone_classes=7, timbre_layers=2,
+                         timbre_heads=2)
+FACODEC_SMALL_SAMPLES = 4000
+FACODEC_MARGIN = 1e-4  # the top-2 cosine margin where codes must agree
+JAX_PARAMS = {"FACodecEncoder": 4_210_528, "FACodecDecoder": 16_742_447,
+              "ScoreModelNCSNpp": 65_623_366}
+FACODEC_DEMO_DECODER_PARAMS = 29_079_407  # upsample_initial_channel 1024
+
+
+def vq_margins(dec, h):
+    """The top-2 cosine margin of every quantizer of ``dec`` at each of
+    ``h``'s frames (B, T): the least over the layers, each on the residual
+    it quantizes."""
+    import torch
+    from ditsep_tpu_torch.models.facodec import FactorizedVQ
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: seen.append(mod.scores(mod.proj_in(args[0]))))
+        for m in dec.modules() if isinstance(m, FactorizedVQ)]
+    try:
+        with torch.no_grad():
+            dec.quantize(h.transpose(1, 2))
+    finally:
+        for hk in hooks:
+            hk.remove()
+    top2 = [s.topk(2, dim=-1).values for s in seen]
+    return torch.stack([t[..., 0] - t[..., 1] for t in top2]).amin(0)
+
+
+def facodec_parity(device: str = "cuda") -> dict:
+    """The small codec seeded on the CPU, then on ``device``, TF32 off:
+    the encoder, the decoder's ``return_info`` (codes equal wherever every
+    quantizer's margin clears FACODEC_MARGIN; the audio and the heads when
+    all codes agree), ``vq2emb`` of the CPU's codes and
+    ``decode_with_timbre`` under another speaker, each max|dev - cpu| /
+    max|cpu|."""
+    import copy
+
+    import torch
+    from ditsep_tpu_torch.models.facodec import (
+        FACodecDecoder, FACodecEncoder,
+    )
+
+    # seed 30: every frame's margin clears FACODEC_MARGIN on the CPU
+    g = torch.Generator().manual_seed(30)
+    enc, dec = FACodecEncoder(**FACODEC_SMALL_ENC), FACodecDecoder(
+        **FACODEC_SMALL_DEC)
+    enc.reset_parameters(g)
+    dec.reset_parameters(g)
+    enc.eval()
+    dec.eval()
+    x = 0.3 * torch.randn(2, 1, FACODEC_SMALL_SAMPLES, generator=g)
+    spk = torch.randn(2, FACODEC_SMALL_DEC["in_channels"], generator=g)
+
+    def run(e, d, dev):
+        with torch.no_grad():
+            h = e(x.to(dev))
+            audio, info = d(h, return_info=True)
+            return {"h": h, "audio": audio, "info": info,
+                    "emb": d.vq2emb(want_codes.to(dev)),
+                    "vc": d.decode_with_timbre(emb_cpu.to(dev), spk.to(dev))}
+
+    with torch.no_grad():
+        h_cpu = enc(x)
+        want_codes = dec(h_cpu, return_info=True)[1]["codes"]
+        emb_cpu = dec.vq2emb(want_codes)
+    cpu = run(enc, dec, "cpu")
+    with full_f32():
+        got = run(copy.deepcopy(enc).to(device), copy.deepcopy(dec).to(
+            device), device)
+    clear = vq_margins(dec, h_cpu) > FACODEC_MARGIN
+    codes_cpu, codes_dev = cpu["info"]["codes"], got["info"]["codes"].cpu()
+    check(torch.equal(codes_cpu[:, clear], codes_dev[:, clear]),
+          "FACodec codes differ where the margin clears")
+    out = {"encoder_rel": _rel(got["h"], cpu["h"]),
+           "vq2emb_rel": _rel(got["emb"], cpu["emb"]),
+           "decode_with_timbre_rel": _rel(got["vc"], cpu["vc"]),
+           "frames_clearing_margin": int(clear.sum()),
+           "frames": clear.numel(),
+           "codes_equal": bool(torch.equal(codes_cpu, codes_dev))}
+    if out["codes_equal"]:
+        out["return_info_rel"] = max(
+            [_rel(got["audio"], cpu["audio"])]
+            + [_rel(got["info"][k], cpu["info"][k])
+               for k in ("f0", "uv", "phone", "spk_embs")])
+    rels = [v for k, v in out.items() if k.endswith("_rel")]
+    check(max(rels) <= CARD_CPU_REL, f"FACodec card vs CPU {out}")
+    return out
+
+
+def facodec_demo(ctx, device: str = "cuda",
+                 lengths=FACODEC_LENGTHS) -> dict:
+    """``cli.facodec_demo``'s ``main`` at the shipped widths (seeded) on
+    seeded files of ``lengths`` samples at 16 kHz, then again on the same
+    files: the first pass's files checked, each file's seconds in both
+    passes, peak GiB, the launches, the native library's reads."""
+    import io
+
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch import native
+    from ditsep_tpu_torch.cli import facodec_demo as cli
+    from ditsep_tpu_torch.data import read_wav, write_wav
+
+    cuda = device != "cpu"
+    rng = np.random.default_rng(21)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        ind, outd = Path(tmp, "in"), Path(tmp, "out")
+        ind.mkdir()
+        names = []
+        for i, n in enumerate(lengths):
+            names.append(f"utt{i}.wav")
+            write_wav(str(ind / names[-1]), (0.1 * rng.standard_normal(
+                n)).astype(np.float32), FACODEC_FS)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        reads = native.calls["load_wav"]
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--in-dir", str(ind), "--out-dir", str(outd)]
+                     + ([] if cuda else ["--cpu"]))
+        if cuda:
+            torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        # the same files again: no length is new, so these seconds are the
+        # steady work, and the first pass's excess is per-shape set-up
+        buf_repeat = io.StringIO()
+        with contextlib.redirect_stdout(buf_repeat):
+            cli.main(["--in-dir", str(ind), "--out-dir", str(outd / "repeat")]
+                     + ([] if cuda else ["--cpu"]))
+        file_s_repeat = json.loads(
+            buf_repeat.getvalue().strip().splitlines()[-1])["file_s"]
+        launches = counts()
+        native_reads = native.calls["load_wav"] - reads
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+        lines = buf.getvalue().strip().splitlines()
+        summary = json.loads(lines[-1])
+        for name, n in zip(names, lengths):
+            stem = name[:-4]
+            codes = np.load(outd / f"{stem}_codes.npy")
+            check(codes.shape == (-(-n // 200), 6) and codes.min() >= 0
+                  and codes.max() < 1024, f"{name} codes {codes.shape}")
+            rec, fs = read_wav(str(outd / f"{stem}_reconstructed.wav"))
+            check(fs == FACODEC_FS and rec.shape == (n,)
+                  and bool(np.isfinite(rec).all()), f"{name} audio")
+    check(summary["files"] == len(lengths) and len(lines) == len(lengths) + 1
+          and all(ln.startswith(f"utt{i}.wav: ") for i, ln in
+                  enumerate(lines[:-1])), f"facodec demo output {lines}")
+    check(summary["params"] == JAX_PARAMS["FACodecEncoder"]
+          + FACODEC_DEMO_DECODER_PARAMS, f"demo params {summary['params']}")
+    check(not any(launches.values()), f"facodec demo launches {launches}")
+    check(native_reads >= 2 * len(lengths) and native.available(),
+          f"the native library read {native_reads} files")
+    return {"file_s": summary["file_s"], "cli_s": cli_s,
+            "s_per_file_new_length": float(np.mean(summary["file_s"][1:])),
+            "file_s_repeat": file_s_repeat,
+            "s_per_file_repeat": float(np.mean(file_s_repeat)),
+            "peak_gib": peak, "params": summary["params"],
+            "launches": launches, "native_reads": native_reads,
+            "native_calls": dict(native.calls),
+            "native_library": str(native.library_path().relative_to(REPO))}
+
+
+def model_info_totals(argv) -> dict:
+    """``cli.model_info``'s ``main`` in-process: each printed model's
+    parameter total, by name."""
+    import io
+
+    from ditsep_tpu_torch.cli import model_info
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        model_info.main(argv)
+    out = {}
+    for ln in buf.getvalue().splitlines():
+        m = re.fullmatch(r"(\w+): ([\d,]+) parameters", ln)
+        if m:
+            out[m.group(1)] = int(m.group(2).replace(",", ""))
+    return out
+
+
+def facodec_profile() -> dict:
+    """One forward of the shipped codec (encoder, then the decoder with
+    ``return_info``) on the first file's length, profiled: the device's
+    busy ms and idle share (``profile_replay``, "nfe" 1)."""
+    import torch
+    from ditsep_tpu_torch.cli.facodec_demo import build_codec
+
+    enc, dec = build_codec("cuda")
+    n = FACODEC_LENGTHS[0]
+    x = 0.1 * torch.randn(1, 1, -(-n // 200) * 200, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(3))
+
+    def run():
+        dec(enc(x), return_info=True)
+        return 1
+
+    out = profile_replay(run)
+    del enc, dec
+    return {"samples": x.shape[-1], **out}
+
+
+def phase_facodec(ctx):
+    """FACodec: the demo CLI at the shipped widths (and one forward
+    profiled), the small codec card vs CPU, model_info's counts against
+    the JAX package's."""
+    import torch
+
+    t0 = time.perf_counter()
+    demo = facodec_demo(ctx)
+    demo_s = time.perf_counter() - t0
+    reset_counts()
+    prof = facodec_profile()
+    check(not any(counts().values()), f"facodec profile {counts()}")
+    reset_counts()
+    t0 = time.perf_counter()
+    parity = facodec_parity()
+    parity_s = time.perf_counter() - t0
+    parity_launches = counts()
+    check(not any(parity_launches.values()),
+          f"facodec parity launches {parity_launches}")
+    t0 = time.perf_counter()
+    totals = {**model_info_totals(["--facodec"]),
+              **model_info_totals(["--config", "diffsep_icassp"])}
+    info_s = time.perf_counter() - t0
+    check(totals == JAX_PARAMS, f"model_info totals {totals}")
+    ctx.setdefault("slice_launches", {}).update({
+        "facodec_demo": demo["launches"], "facodec_parity": parity_launches})
+    torch.cuda.empty_cache()
+    emit({"phase": "facodec", "config": "FACodec as shipped (encoder ngf "
+          "32, ratios (2, 4, 5, 5), 256 out; decoder 1024 initial channels, "
+          "ratios (5, 5, 4, 2), VQ 1 + 2 + 3 x 1024 x 8, 5,003 phones, "
+          "timbre 4 x 4), seeded; 4 files "
+          f"{list(FACODEC_LENGTHS)} samples at 16 kHz", **demo,
+          "demo_s": demo_s, "profile": prof, "small_card_vs_cpu": parity,
+          "tolerance": CARD_CPU_REL, "parity_s": parity_s,
+          "model_info_totals": totals, "jax_eval_shape_totals": JAX_PARAMS,
+          "model_info_s": info_s, "card": ctx["card"]})
 
 
 # the latent path (latent_diffsep_ouve): the latent U-Net downsamples at

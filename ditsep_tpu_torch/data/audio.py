@@ -1,15 +1,27 @@
-"""WAV reading and writing through scipy (the port's copy of the scipy path
-of ditsep_tpu/data/wsj0_mix.py:read_wav / write_wav)."""
+"""WAV reading and writing (the port's copy of ditsep_tpu/data/wsj0_mix.py:
+read_wav / write_wav): reading through the native library
+(``ditsep_tpu_torch.native``) when it is built, else scipy; writing
+through scipy."""
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
 from scipy.io import wavfile
 
 
-def read_wav(path: str) -> Tuple[np.ndarray, int]:
-    """Load a wav file as float32 in [-1, 1]: (T,) mono or (C, T)."""
+def read_wav(path) -> Tuple[np.ndarray, int]:
+    """Load a wav file as float32 in [-1, 1]: (T,) mono or (C, T). A path
+    goes through the native decoder when it is built; a file object (a tar
+    member's bytes) through scipy."""
+    from ditsep_tpu_torch import native
+
+    r = native.load_wav(path) if isinstance(path, (str, os.PathLike)) \
+        else None
+    if r is not None:
+        data, fs = r
+        return (data[0] if data.shape[0] == 1 else data), fs
     fs, data = wavfile.read(path)
     if data.dtype == np.int16:
         data = data.astype(np.float32) / 32768.0

@@ -152,21 +152,48 @@ def max_collator(batch: Sequence[Tuple[np.ndarray, ...]],
                  pad_to: Optional[int] = None, align: str = "center"):
     """Pad every signal to the longest (or to ``pad_to``) and stack, field
     by field; padding centered (the reference's training collator) or, with
-    ``align='left'``, all at the end."""
+    ``align='left'``, all at the end. Centred float32 (C, T) fields go
+    through the native library when it is built."""
     max_len = max(b[0].shape[-1] for b in batch)
     if pad_to is not None:
         max_len = max(max_len, pad_to)
     out: List[np.ndarray] = []
     for i in range(len(batch[0])):
+        field = [item[i] for item in batch]
+        native_out = (_native_collate_center(field, max_len)
+                      if align == "center" else None)
+        if native_out is not None:
+            out.append(native_out)
+            continue
         arrs = []
-        for item in batch:
-            x = item[i]
+        for x in field:
             pad = max_len - x.shape[-1]
             lo = 0 if align == "left" else pad // 2
             arrs.append(np.pad(x, [(0, 0)] * (x.ndim - 1)
                                + [(lo, pad - lo)]))
         out.append(np.stack(arrs))
     return tuple(out)
+
+
+def _native_collate_center(field: Sequence[np.ndarray], max_len: int
+                           ) -> Optional[np.ndarray]:
+    """Centred collation of one batch field through the native library
+    (native/ditsep_io.cpp ditsep_collate_center): each (C, T) item's
+    channels as mono rows into one (sum C, max_len) buffer, reshaped back.
+    None (the numpy path) without the library or for a field that is not
+    uniform float32 (C, T)."""
+    from ditsep_tpu_torch import native
+
+    if not all(x.ndim == 2 and x.dtype == np.float32 for x in field):
+        return None
+    c = field[0].shape[0]
+    if any(x.shape[0] != c for x in field):
+        return None
+    rows = [x[j] for x in field for j in range(c)]
+    flat = native.collate_center(rows, max_len)
+    if flat is None:
+        return None
+    return flat.reshape(len(field), c, max_len)
 
 
 def length_buckets(lengths: Sequence[int], n_buckets: int = 8,

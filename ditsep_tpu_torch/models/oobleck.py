@@ -118,13 +118,16 @@ class WNConv1d(nn.Module):
 
 
 class WNConvTranspose1d(nn.Module):
-    """Weight-normalized ConvTranspose1d: out = (T - 1) s - 2 p + k."""
+    """Weight-normalized ConvTranspose1d: out = (T - 1) s - 2 p + k +
+    ``output_padding``, which extends the right edge only (torch's, and the
+    JAX package's)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, *,
-                 stride: int, padding: int, bias: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 stride: int, padding: int, output_padding: int = 0,
+                 bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stride, self.padding = stride, padding
+        self.output_padding = output_padding
         self.compute_dtype = dtype
         self.weight_v = nn.Parameter(torch.empty(in_ch, out_ch, kernel_size))
         self.weight_g = nn.Parameter(torch.empty(in_ch, 1, 1))
@@ -142,7 +145,8 @@ class WNConvTranspose1d(nn.Module):
         w = _weight_norm(self.weight_v, self.weight_g, dt)
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv_transpose1d(x.to(dt), w, b, stride=self.stride,
-                                  padding=self.padding)
+                                  padding=self.padding,
+                                  output_padding=self.output_padding)
 
 
 class NearestUpsampleConv(WNConv1d):

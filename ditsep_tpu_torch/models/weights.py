@@ -17,10 +17,10 @@ The stable-audio models (the DiT, the conditioners, the residual VQs)
 carry the flax names themselves, so the same rule covers them, with three
 more leaves: a conv1d kernel WIO (1, in, out) <-> OIW (out, in, 1), an
 ``Embed``'s ``embedding`` <-> ``nn.Embedding.weight``, and any other leaf
-(``to_scale_shift_gate``, LayerScale's ``gamma``, ``codebook_{q}``, the
-Fourier features' ``weight``) copied under its own name. A ``params``
-level anywhere in a path (a conditioner's variables under its name) is
-dropped.
+(``to_scale_shift_gate``, LayerScale's ``gamma``, ``codebook_{q}``,
+FACodec's ``codebook``, the Fourier features' ``weight``) copied under
+its own name. A ``params`` level anywhere in a path (a conditioner's
+variables under its name) is dropped.
 
 Given the ``model``, ``params_from_jax(flat, model)`` walks its module
 tree beside each flax path, so a module may name its children otherwise
@@ -31,7 +31,8 @@ reference ``nn.Sequential`` layout: ``res_0`` -> ``layers.0``, ``down`` ->
 ``v`` / ``g`` become ``weight_v`` (WIO (k, in, out) <-> (out, in, k), a
 transposed conv's (k, out, in) <-> (in, out, k)) and ``weight_g`` ((n,)
 <-> (n, 1, 1)), a 2-D one's (the discriminators') HWIO <-> OIHW and (n,)
-<-> (n, 1, 1, 1); SnakeBeta's ``alpha`` / ``beta``, the DAU1d's
+<-> (n, 1, 1, 1), FACodec's weight-normed Dense's (in, out) <-> (out,
+in) and (n,) <-> (n, 1); SnakeBeta's ``alpha`` / ``beta``, the DAU1d's
 ``timestep_embed`` and ``snake_a_{c}`` keep their names.
 ``params_to_jax(model)`` walks the same way back.
 
@@ -96,7 +97,7 @@ def _to_torch_layout(a: np.ndarray, leaf: str) -> np.ndarray:
 # flax leaves outside ``flax_path_to_torch_key``'s map that keep a name of
 # their own in the port (the stable-audio models')
 _OWN_NAME_LEAVES = ("to_scale_shift_gate", "gamma", "weight", "alpha",
-                    "beta", "timestep_embed")
+                    "beta", "timestep_embed", "codebook")
 _OWN_NAME_PREFIXES = ("codebook_", "snake_a_")
 # a weight-normed conv's flax leaves and the port's
 _WN_LEAVES = {"v": "weight_v", "g": "weight_g", "bias": "bias"}
@@ -122,20 +123,28 @@ def _flax_names(module: nn.Module) -> Dict[str, str]:
     return getattr(module, "flax_names", None) or {}
 
 
-def _is_wn_conv(module: nn.Module) -> bool:
+def _is_weight_normed(module: nn.Module) -> bool:
+    """A weight-normed conv or FACodec's weight-normed Dense: ``v`` / ``g``
+    as ``weight_v`` / ``weight_g``."""
     from ditsep_tpu_torch.models.discriminators import WNConv2d
+    from ditsep_tpu_torch.models.facodec import WNDense
     from ditsep_tpu_torch.models.oobleck import WNConv1d, WNConvTranspose1d
-    return isinstance(module, (WNConv1d, WNConvTranspose1d, WNConv2d))
+    return isinstance(module, (WNConv1d, WNConvTranspose1d, WNConv2d,
+                               WNDense))
 
 
 def _wn_v_to_torch(a: np.ndarray) -> np.ndarray:
     """A weight-normed conv's flax ``v`` (k, in, out) / HWIO -> the port's
     (out, in, k) / OIHW (a transposed conv's (k, out, in) -> (in, out,
-    k))."""
+    k)); a weight-normed Dense's (in, out) -> (out, in)."""
+    if a.ndim == 2:
+        return a.T
     return a.transpose(2, 1, 0) if a.ndim == 3 else a.transpose(3, 2, 0, 1)
 
 
 def _wn_v_to_jax(a: np.ndarray) -> np.ndarray:
+    if a.ndim == 2:
+        return a.T
     return a.transpose(2, 1, 0) if a.ndim == 3 else a.transpose(2, 3, 1, 0)
 
 
@@ -189,7 +198,7 @@ def params_from_jax(flat: Mapping[str, np.ndarray],
         parts, owner = path[:-1], None
         if model is not None:
             parts, owner = _walk_from_jax(model, path[:-1], key)
-        if owner is not None and _is_wn_conv(owner):
+        if owner is not None and _is_weight_normed(owner):
             leaf = _WN_LEAVES.get(path[-1])
             tkey = None if leaf is None else ".".join(parts + [leaf])
             if path[-1] == "v":
@@ -230,54 +239,79 @@ def params_to_jax(model) -> Dict[str, np.ndarray]:
     state = model.state_dict() if module is not None else model
     out = {}
     for key, t in state.items():
-        parts = key.split(".")
-        leaf = parts[-1]
-        a = t.detach().float().cpu().numpy()
-        if module is not None:
-            path, owner = _walk_to_jax(module, parts[:-1])
-            if _is_wn_conv(owner):
-                wn = {v: k for k, v in _WN_LEAVES.items()}
-                if leaf == "weight_v":
-                    a = _wn_v_to_jax(a)
-                elif leaf == "weight_g":
-                    a = a.reshape(-1)
-                out["/".join(path + [wn[leaf]])] = np.ascontiguousarray(a)
-                continue
-        if leaf == "weight":
-            if module is not None:
-                kind = next((k for cls, k in _weight_kinds()
-                             if isinstance(owner, cls)), None)
-                what = f"a weight of {type(owner).__name__}"
-            else:
-                kind = {1: "scale", 4: "conv", 2: "dense"}.get(a.ndim)
-                what = f"a {a.ndim}-D weight"
-            if kind is None:
-                raise KeyError(f"{key}: {what} has no JAX counterpart")
-            if kind == "scale":  # GroupNorm, LayerNorm
-                leaf = "scale"
-            elif kind == "conv":  # OIHW -> HWIO
-                leaf, a = "kernel", a.transpose(2, 3, 1, 0)
-            elif kind == "conv1d":  # OIW -> WIO
-                leaf, a = "kernel", a.transpose(2, 1, 0)
-            elif kind == "embedding":
-                leaf = "embedding"
-            elif kind == "dense":
-                leaf, a = "kernel", a.T
-        elif not (leaf in ("bias", "W", "b")
-                  or (module is not None and _own_name(leaf))):
-            raise KeyError(f"{key} has no JAX counterpart")
-        if module is None:
-            path = []
-            i = 0
-            while i < len(parts) - 1:
-                if parts[i] == "all_modules":
-                    path.append(f"all_modules_{parts[i + 1]}")
-                    i += 2
-                else:
-                    path.append(parts[i])
-                    i += 1
-        out["/".join(path + [leaf])] = np.ascontiguousarray(a)
+        name, a = _leaf_to_jax(module, key, t.detach().float().cpu().numpy())
+        out[name] = np.ascontiguousarray(a)
     return out
+
+
+def jax_param_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """The names and shapes ``params_to_jax(model)`` gives, read from the
+    module's tensors without their data (a model on the meta device
+    allocates nothing); an OobleckVAE's as ``oobleck_params_to_jax``."""
+    if isinstance(model, OobleckVAE):
+        n_blocks = len(model.strides)
+
+        def convert(key, a):
+            return _oobleck_leaf_to_jax(key, a, n_blocks)
+    else:
+        def convert(key, a):
+            return _leaf_to_jax(model, key, a)
+    out = {}
+    for key, t in model.state_dict().items():
+        name, a = convert(key, np.broadcast_to(np.float32(0), t.shape))
+        out[name] = tuple(a.shape)
+    return out
+
+
+def _leaf_to_jax(module: Optional[nn.Module], key: str, a: np.ndarray):
+    """One state_dict entry -> (its flax path "a/b/c", the array in the
+    JAX layout), by its owner's type in ``module`` or, with no module, by
+    its rank."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if module is not None:
+        path, owner = _walk_to_jax(module, parts[:-1])
+        if _is_weight_normed(owner):
+            wn = {v: k for k, v in _WN_LEAVES.items()}
+            if leaf == "weight_v":
+                a = _wn_v_to_jax(a)
+            elif leaf == "weight_g":
+                a = a.reshape(-1)
+            return "/".join(path + [wn[leaf]]), a
+    if leaf == "weight":
+        if module is not None:
+            kind = next((k for cls, k in _weight_kinds()
+                         if isinstance(owner, cls)), None)
+            what = f"a weight of {type(owner).__name__}"
+        else:
+            kind = {1: "scale", 4: "conv", 2: "dense"}.get(a.ndim)
+            what = f"a {a.ndim}-D weight"
+        if kind is None:
+            raise KeyError(f"{key}: {what} has no JAX counterpart")
+        if kind == "scale":  # GroupNorm, LayerNorm
+            leaf = "scale"
+        elif kind == "conv":  # OIHW -> HWIO
+            leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+        elif kind == "conv1d":  # OIW -> WIO
+            leaf, a = "kernel", a.transpose(2, 1, 0)
+        elif kind == "embedding":
+            leaf = "embedding"
+        elif kind == "dense":
+            leaf, a = "kernel", a.T
+    elif not (leaf in ("bias", "W", "b")
+              or (module is not None and _own_name(leaf))):
+        raise KeyError(f"{key} has no JAX counterpart")
+    if module is None:
+        path = []
+        i = 0
+        while i < len(parts) - 1:
+            if parts[i] == "all_modules":
+                path.append(f"all_modules_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+    return "/".join(path + [leaf]), a
 
 
 def _walk_to_jax(model: nn.Module, parts: List[str]):
@@ -477,14 +511,20 @@ def oobleck_params_to_jax(vae: nn.Module) -> Dict[str, np.ndarray]:
     n_blocks = len(vae.strides)
     out = {}
     for key, t in vae.state_dict().items():
-        a = t.detach().float().cpu().numpy()
-        if key.endswith("weight_v"):
-            a = a.transpose(2, 1, 0)
-        elif key.endswith("weight_g"):
-            a = a.reshape(-1)
-        out[oobleck_torch_key_to_flax_path(key, n_blocks)] = (
-            np.ascontiguousarray(a))
+        name, a = _oobleck_leaf_to_jax(key, t.detach().float().cpu().numpy(),
+                                       n_blocks)
+        out[name] = np.ascontiguousarray(a)
     return out
+
+
+def _oobleck_leaf_to_jax(key: str, a: np.ndarray, n_blocks: int):
+    """One OobleckVAE state_dict entry -> (its flax path, the array in the
+    flax layout)."""
+    if key.endswith("weight_v"):
+        a = a.transpose(2, 1, 0)
+    elif key.endswith("weight_g"):
+        a = a.reshape(-1)
+    return oobleck_torch_key_to_flax_path(key, n_blocks), a
 
 
 # ------------------------------------------- MultiScaleSTFTDiscriminator --

@@ -336,3 +336,49 @@ def test_option_configs_launch_fir_down2d_twelve_times(smoke, monkeypatch):
     for opts in smoke.OPTION_CONFIGS.values():
         assert fir_downsamples(opts) == smoke.OPTION_LAUNCHES_PER_FORWARD
     assert fir_downsamples({}) == smoke.LAUNCHES_PER_FORWARD
+
+
+def test_facodec_phase_is_in_group_1_once(smoke):
+    grouped = [n for g in smoke.GROUPS.values() for n in g]
+    assert grouped.count("phase_facodec") == 1
+    assert "phase_facodec" in smoke.GROUPS[1]
+
+
+def test_facodec_phase_rehearsed_on_the_cpu(smoke):
+    """The phase's parts on the CPU: the small codec (card and CPU both
+    the CPU here), the demo CLI at the shipped widths on two short files
+    (its WAVs read through the native library where it builds), and
+    model_info's totals, which are the JAX package's ``eval_shape``
+    counts written into the script (the demo's decoder counted here by
+    ``jax.eval_shape``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ditsep_tpu.models.facodec import FACodecDecoder
+    from ditsep_tpu_torch import native
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        par = smoke.facodec_parity(device="cpu")
+        assert par["codes_equal"]
+        assert par["frames_clearing_margin"] == par["frames"] == 800
+        assert all(v == 0.0 for k, v in par.items() if k.endswith("_rel"))
+        if native.available():
+            demo = smoke.facodec_demo({"card": "CPU"}, device="cpu",
+                                      lengths=(3210, 2400))
+            assert demo["native_reads"] == 4
+            assert not any(demo["launches"].values())
+            assert demo["peak_gib"] is None and len(demo["file_s"]) == 2
+            assert len(demo["file_s_repeat"]) == 2
+        totals = {**smoke.model_info_totals(["--facodec"]),
+                  **smoke.model_info_totals(["--config", "diffsep_icassp"])}
+        assert totals == smoke.JAX_PARAMS
+    finally:
+        torch.set_num_threads(n)
+    shapes = jax.eval_shape(lambda k, h: FACodecDecoder(
+        upsample_initial_channel=1024).init(k, h, return_info=True),
+        jax.random.PRNGKey(0), jax.ShapeDtypeStruct((1, 256, 8),
+                                                    jnp.float32))
+    assert sum(s.size for s in jax.tree.leaves(shapes)) \
+        == smoke.FACODEC_DEMO_DECODER_PARAMS

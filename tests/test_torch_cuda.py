@@ -1305,3 +1305,21 @@ def test_sepformer_and_ncsnpp_option_on_card_match_cpu(cuda_device):
                               torch.tensor([0.3, 0.8])), 4)
     assert rel <= 1e-3
     assert cuda_kernels.fir_down2d.launches - down == 4
+
+
+@pytest.mark.cuda
+def test_facodec_small_config_on_card_matches_cpu(cuda_device):
+    """The small FACodec (chip_smoke.FACODEC_SMALL_*) on the card against
+    the CPU, TF32 off (chip_smoke.facodec_parity): the encoder, the
+    decoder's codes wherever the top-2 cosine margin clears 1e-4, its
+    audio and heads, ``vq2emb`` and ``decode_with_timbre`` within 1e-3 of
+    max|cpu|; no kernel launched."""
+    from chip_smoke import facodec_parity
+
+    names = ("fir_down2d", "fir_up2d", "fused_bias_act_fwd",
+             "fused_bias_act_bwd", "conv3x3_9tap", "conv3x3_async_halo")
+    before = {n: getattr(cuda_kernels, n).launches for n in names}
+    out = facodec_parity("cuda")
+    assert out["frames_clearing_margin"] > 0
+    assert max(v for k, v in out.items() if k.endswith("_rel")) <= 1e-3
+    assert {n: getattr(cuda_kernels, n).launches for n in names} == before
