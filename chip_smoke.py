@@ -4,10 +4,10 @@
     python3 chip_smoke.py [--group 1|2] [--phase NAME ...]
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, all at once) and runs thirty-five phases, each printing
+nvcc per source, all at once) and runs thirty-six phases, each printing
 JSON lines and, after it, ``{"phase": NAME, "phase_s": seconds}``; any
 failure raises and the exit code is non-zero. ``--group 1`` runs phases
-2-21 and ``--group 2`` phases 22-35 (``GROUPS``: each group fits one
+2-22 and ``--group 2`` phases 23-36 (``GROUPS``: each group fits one
 900 s chip call); ``--phase`` runs the named phases alone:
 
 1. device   -- card name and power limit (nvidia-smi), kernel build time;
@@ -65,7 +65,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                the CPU with the same batch and draws; the flagship
                training path, ``ditsep_tpu_torch.cli.train_diffsep`` on
                diffsep_icassp at batch 6 x 40,960 samples for 4 steps
-               (two epochs, each ending in a validation with a PC-30
+               (two epochs, each ending in a validation with a PC-10
                separation), its steps/s, peak memory, launches, checkpoints
                and EMA export (loaded back and separating a file); and a
                profile of one train step;
@@ -76,10 +76,10 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
 9. evaluate_trained -- ``ditsep_tpu_torch.cli.evaluate`` on that checkpoint
                over 8 synthetic items of 2-6 s: masked with the default
                buckets and with one bucket (every item padded past its own
-               frame block), then unmasked with the default buckets and
-               with one; mean SI-SDR / SI-SIR / SI-SAR / PESQ / STOI, the
-               buckets, runtime and launches of each, the masked ones held
-               to the SI-SDR bars of PERF.md;
+               frame block), then unmasked on the first 4 items with the
+               default buckets and with one; mean SI-SDR / SI-SIR /
+               SI-SAR / PESQ / STOI, the buckets, runtime and launches of
+               each, the masked ones held to the SI-SDR bars of PERF.md;
 10. evaluate -- the same CLI at the flagship width (diffsep_icassp, seeded
                random weights) over 2 items, batch 4, N=30, unmasked and
                masked, without warm-up calls: the reference schema,
@@ -107,10 +107,11 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
 14. families_train -- ``cli.train_diffsep`` on the card: diffsep_sb (the EDM
                loss) at batch 6 x 40,960 samples and enhancement (PriorMix,
                init hack 4) at batch 4 x 3 s crops of a VCTK-layout
-               directory of synthetic WAVs, 2 steps each: steps/s, peak
-               memory, launches; then two EDM train steps at nf=32 on the
-               card against the CPU with the same batches and draws, each
-               step's gradient leaf by leaf within 1e-3 of its max|ref|;
+               directory of synthetic WAVs, 2 steps each, validating at
+               N=10: steps/s, peak memory, launches; then two EDM train
+               steps at nf=32 on the card against the CPU with the same
+               batches and draws, each step's gradient leaf by leaf within
+               1e-3 of its max|ref|;
 15. media   -- ``cli.train_diffsep --demo-every 1`` at the flagship
                width (diffsep_icassp, batch 6 x 40,960 samples, one step,
                a demo separation of the first two validation items, then
@@ -154,7 +155,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                the flagship's width, one forward at batch 4 x 8.415 s in
                f32 (ms, fir_down2d 12 launches a forward as the code
                predicts), and at nf=16 card vs CPU (1e-3 relative);
-20. streaming_bench -- ``scripts/streaming_bench.py`` on 12 s of stream
+20. streaming_bench -- ``scripts/streaming_bench.py`` on 8 s of stream
                (the flagship in bf16, N=30, 8 s windows): its JSON line and
                fir_down2d's launches, 18 x the NFE of every window;
 21. facodec -- FACodec, which no kernel of the port lies on:
@@ -170,19 +171,34 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                ``vq2emb`` and ``decode_with_timbre``, 1e-3 relative); then
                ``cli.model_info --facodec`` and ``--config diffsep_icassp``
                (the meta device) against the JAX package's counts;
-22. latent_kernel -- fir_down2d and fir_up2d at every latent-U-Net shape
+22. learning -- fir_down2d and fir_up2d at the learning loop's shapes
+               (batch 8, 256 frames) against their plain versions bit
+               for bit, each vector path against its scalar path; then
+               the loop: ``ditsep_tpu_torch.examples.
+               train_synthetic`` (its ``main``) at the long run's widths
+               (nf=32, 4 levels, attention at 32, batch 8 x 4 s, lr
+               5e-4), seeded weights, 200 steps on 256 items, evaluated at
+               PC N=5 after step 100 and at the end, its EMA written to a
+               .npz: every loss finite, the mean of steps 151-200 below
+               that of steps 1-50, fir_down2d 18 and fir_up2d 12 launches
+               a step and fir_down2d 180 an evaluation, the export loaded
+               into a model of other weights equal to the EMA bit for
+               bit; then ``examples.nfe_study`` on that export with 2
+               seeds of pc_N30 and pc_N15 (fir_down2d 9 x NFE a
+               separation); steps/s;
+23. latent_kernel -- fir_down2d and fir_up2d at every latent-U-Net shape
                (36 and 20 latent frames, batch 1, 4 and 16, f32 and bf16)
                against their plain versions bit for bit, fir_down2d on its
                scalar path (fir_up2d's vector path, at level 0 in f32,
                equal to its scalar one); their times there
                (``scripts/fir_timing.py --latent [--backward]``);
-23. latent_parity -- a small latent_diffsep_ouve (VAE 32 channels, hop 64,
+24. latent_parity -- a small latent_diffsep_ouve (VAE 32 channels, hop 64,
                16 latent channels; U-Net nf=32), seeded weights, on the
                card (TF32 off) against the CPU with the same draws: VAE
                encode (mode and sample), decode and ``separate_latent`` at
                N=3 within 1e-3 relative; two ``train_step_latent`` steps
                at the train-step bars;
-24. latent_flagship -- latent_diffsep_ouve at full width (VAE hop 2048, 64
+25. latent_flagship -- latent_diffsep_ouve at full width (VAE hop 2048, 64
                latent channels; U-Net nf=128), seeded weights:
                ``cli.evaluate --latent`` on 4 synthetic 8.415 s items at
                batch 4, N=30; ``separate_latent`` at batch 4 in f32 and
@@ -191,11 +207,11 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                worst item and source); one call split into VAE encode,
                sampler and VAE decode; one replayed at N=2 under the
                profiler;
-25. latent_train -- ``cli.train_diffsep_latent`` at the config's batch 16
+26. latent_train -- ``cli.train_diffsep_latent`` at the config's batch 16
                of 5 s crops, 4 steps and one validation (steps/s, peak
                memory, launches), then ``cli.cache_latents`` on 2 items
                at N=30;
-26. ldm_parity -- the small latent config of latent_parity with a
+27. ldm_parity -- the small latent config of latent_parity with a
                two-scale Encodec discriminator (filters 8), seeded weights,
                on the card (TF32 off) against the CPU with the same inputs
                and draws: the perceptual MRSTFT at the ldm config's 7
@@ -203,7 +219,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                and feature maps, gen -> disc -> gen ``LDMTrainer`` steps
                and an ``AutoencoderTrainer`` gen + disc pair at the
                train-step bars;
-27. ldm_train -- the decoder finetune at full width (the ldm config:
+28. ldm_train -- the decoder finetune at full width (the ldm config:
                VAE hop 2048, 64 latent channels, 78.1 M decoder
                parameters; the nf=128 latent U-Net): ``cli.cache_latents``
                on 8 synthetic 5.12 s items at N=10 (fir_down2d's launches
@@ -215,30 +231,30 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                device's idle share); ``AutoencoderTrainer`` gen and disc
                steps at the VAE's sample_size of 247,808 samples, batch 2
                (halved on running out of memory, and why);
-28. serving_parity -- ``cli.serve_api.build_engine`` on the trained nf=32
+29. serving_parity -- ``cli.serve_api.build_engine`` on the trained nf=32
                checkpoint, masked, TF32 off: three requests of different
                lengths in one bucket at max_batch 4 (a padded row); each
                served stem equals the same row of a direct
                ``trainer.separate`` on the padded batch bit for bit (the
                engine's generator seeded alike, and its draws replayed by
                ``pc_generator_noise``), and the card the CPU within 1e-3;
-29. serving -- the flagship behind ``SeparationAPIServer`` on 127.0.0.1
+30. serving -- the flagship behind ``SeparationAPIServer`` on 127.0.0.1
                (``scripts/serving_bench``'s lengths, one 65,153-sample
                bucket): every batch size warmed, then concurrency 1, 4 and
                8 over HTTP, one wave each (utt/s, wave latency, p50 / p95,
                occupancy from /v1/stats, batches, peak GiB, launches =
                batches x 60 x 18); one wave at 8 with pipeline_depth=1 and
                one with the int16 wire (N=5); /metrics parsed once;
-30. serving_stream -- two concurrent /v1/stream sessions of 8 s on the
+31. serving_stream -- two concurrent /v1/stream sessions of 8 s on the
                same engine, pushed in real time in 0.5 s blocks, 4 s
                windows with 1 s overlap: emitted = pushed, the windows
                sharing batches, each response's wait; then ``cli.separate
                --chunk-seconds 4 --overlap-seconds 1
                --streaming-block-seconds 0.5`` on one 8 s file (N=10);
-31. serving_latent -- ``build_engine(latent=True)`` on latent_diffsep_ouve
+32. serving_latent -- ``build_engine(latent=True)`` on latent_diffsep_ouve
                at full width behind the API: the 65,536-sample bucket,
                concurrency 4 and 8, launches = batches x 60 x 6;
-32. generation -- the stable-audio generation path, which no kernel of
+33. generation -- the stable-audio generation path, which no kernel of
                the port lies on (every launch count 0): a small config of
                Stable Audio Open's schema (Oobleck VAE pretransform, a
                t5-style prompt embedding and the two seconds conditioners,
@@ -259,7 +275,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                share, TFLOP/s, a bf16 step's distance from f32; and the
                DiT importer at full width, bit-equal to the same weights
                through ``params_from_jax``;
-33. stable_models -- the rest of the stable-audio models, which no kernel
+34. stable_models -- the rest of the stable-audio models, which no kernel
                of the port lies on (every launch count 0): card vs CPU
                (TF32 off, the card's draws) on small configs, an
                ``AudioLM`` (depth 2, width 64, 4 codebooks of 32,
@@ -283,7 +299,7 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                (stereo, depth 14), 8 sampler steps of 65,536 samples, one
                step profiled, and its importer bit-equal to the
                ``params_from_jax`` load;
-34. stable_train -- the stable-audio training path, which no kernel of
+35. stable_train -- the stable-audio training path, which no kernel of
                the port lies on (every launch count 0): card vs CPU (TF32
                off, the card's draws) on small configs, two steps each of
                ``DiffusionTrainer`` (a DiT 64 wide with cross-attention,
@@ -301,10 +317,10 @@ failure raises and the exit code is non-zero. ``--group 1`` runs phases
                last, 0 failed media calls; ``DiffusionTrainer`` on the
                conditional DiT at Stable Audio Open 1.0's widths (1.09 B
                parameters), batch 1, 2 steps;
-35. mesh    -- data parallelism (``ditsep_tpu_torch.parallel``) in child
+36. mesh    -- data parallelism (``ditsep_tpu_torch.parallel``) in child
                processes on 127.0.0.1, each under a hard timeout, TF32
                off and deterministic cuDNN: ``cli.train_diffsep`` at the
-               flagship width (batch 6 x 16,384, 2 steps, a validation)
+               flagship width (batch 6 x 1 s, 2 steps, a validation)
                under ``python -m torch.distributed.run --nproc-per-node
                1 ... --mesh`` (NCCL, world size 1) against the same run
                without --mesh, losses, validation and EMA export bit
@@ -328,8 +344,9 @@ warmup and level, the stream sessions and the streaming CLI, the
 generation, stable_models and stable_train paths (the stable_train
 children count their own), the SepFormer CLI and its small parity, the
 backbones, each NCSN++ option config's forward, the streaming bench, the
-FACodec demo and its small parity; the mesh phase's children count their
-own) and read just after it. The script
+FACodec demo and its small parity, the learning loop's training and its
+study; the mesh phase's children count their own) and read just after
+it. The script
 then prints the ``kernels`` JSON line (all six kernels; a group run, the
 launches of the paths it ran), and as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -340,6 +357,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import sys
 import tempfile
@@ -361,6 +379,7 @@ CONV_STACK, CONV_REPS = 10, 5     # the conv probe's timed stacks
 TRAIN_ITEMS, TRAIN_LEN_S, TRAIN_BATCH, TRAIN_STEPS = 12, 5.0, 6, 4
 TRAIN_EPOCHS = -(-TRAIN_STEPS // (TRAIN_ITEMS // TRAIN_BATCH))  # 2
 VAL_BATCHES = 1                   # 4 validation items fill one batch of 6
+TRAIN_VAL_N = 10  # the train CLIs' validation sampler steps (30 until PR 19)
 # the trained nf=32 checkpoint: 3 down blocks + 3 input-pyramid levels
 CKPT_LAUNCHES_PER_FORWARD = 9
 CKPT_OVERRIDES = ["model.score_model.nf=32",
@@ -369,6 +388,9 @@ CKPT_OVERRIDES = ["model.score_model.nf=32",
 # the flagship's 4 seeded items land in 3 buckets, one of 2 items (a
 # batch-2 call)
 EVAL_TRAINED_ITEMS, EVAL_ITEMS, EVAL_BATCH = 8, 4, 4
+# the trained checkpoint's unmasked runs (held to no bar): the first 4 of
+# those items
+EVAL_TRAINED_UNMASKED_ITEMS = 4
 SI_SDR_BAR_DB, MASKED_RUNS_APART_DB = 8.5, 1.0  # the bars of PERF.md §2
 # the latent path's bf16 stems against its f32 (TF32 convs) stems, same
 # weights and draws, by SI-SDR, the worst item and source (PERF.md §2;
@@ -403,7 +425,8 @@ GROUPS = {
         "phase_evaluate_trained", "phase_evaluate", "phase_longform",
         "phase_upsample", "phase_families", "phase_families_train",
         "phase_media", "phase_import", "phase_sepformer", "phase_backbones",
-        "phase_ncsnpp_options", "phase_streaming_bench", "phase_facodec"),
+        "phase_ncsnpp_options", "phase_streaming_bench", "phase_facodec",
+        "phase_learning"),
     2: ("phase_latent_kernel", "phase_latent_parity", "phase_latent_flagship",
         "phase_latent_train", "phase_ldm_parity", "phase_ldm_train",
         "phase_serving_parity", "phase_serving", "phase_serving_latent",
@@ -1479,7 +1502,8 @@ def phase_train_path(ctx):
                 "--config", "diffsep_icassp", "--synthetic",
                 "--synthetic-items", str(TRAIN_ITEMS), "--synthetic-len-s",
                 str(TRAIN_LEN_S), "--max-steps", str(TRAIN_STEPS),
-                "--workdir", str(work)])
+                "--workdir", str(work), "--override",
+                f"model.sampler.N={TRAIN_VAL_N}"])
             torch.cuda.synchronize()
             total_s = time.perf_counter() - t0
             launches = counts()
@@ -1490,8 +1514,8 @@ def phase_train_path(ctx):
               f"train steps {state.step}, timed {len(losses)}")
         check(all(math.isfinite(v) for v in losses), f"losses {losses}")
         # fir_down2d: 2 forwards a train step; a validation runs the score
-        # loss (2 forwards) and a PC-30 separation (60) on its batch
-        per_val = VAL_BATCHES * (2 + 2 * N_STEPS) * LAUNCHES_PER_FORWARD
+        # loss (2 forwards) and a PC separation (2N) on its batch
+        per_val = VAL_BATCHES * (2 + 2 * TRAIN_VAL_N) * LAUNCHES_PER_FORWARD
         want = {"fir_down2d": TRAIN_STEPS * 2 * LAUNCHES_PER_FORWARD
                 + TRAIN_EPOCHS * per_val,
                 "fir_up2d": TRAIN_STEPS * 2 * UP_LAUNCHES_PER_BACKWARD}
@@ -1650,16 +1674,18 @@ def phase_evaluate_trained(ctx):
     """cli.evaluate on the trained checkpoint: masked at the default
     buckets and at one (every item padded past its own frame block), then
     unmasked at both; the masked runs held to PERF.md's SI-SDR bars."""
-    base = ["--config", "diffsep", "--synthetic", "--synthetic-items",
-            str(EVAL_TRAINED_ITEMS), "--eval-batch-size", str(EVAL_BATCH),
-            "--params", str(CKPT), "--seed", "0", "--override",
-            *CKPT_OVERRIDES]
+    base = ["--config", "diffsep", "--synthetic", "--eval-batch-size",
+            str(EVAL_BATCH), "--params", str(CKPT), "--seed", "0",
+            "--override", *CKPT_OVERRIDES]
+    masked = ["--synthetic-items", str(EVAL_TRAINED_ITEMS), "--mask-padding"]
+    unmasked = ["--synthetic-items", str(EVAL_TRAINED_UNMASKED_ITEMS)]
     runs = {}
-    for name, extra in (("masked", ["--mask-padding"]),
-                        ("masked_max_buckets_1", ["--mask-padding",
-                                                  "--max-buckets", "1"]),
-                        ("unmasked", []),
-                        ("unmasked_max_buckets_1", ["--max-buckets", "1"])):
+    for name, extra in (("masked", masked),
+                        ("masked_max_buckets_1", [*masked, "--max-buckets",
+                                                  "1"]),
+                        ("unmasked", unmasked),
+                        ("unmasked_max_buckets_1", [*unmasked,
+                                                    "--max-buckets", "1"])):
         runs[name] = run_evaluate([*extra, *base], CKPT_LAUNCHES_PER_FORWARD)
     a, b = runs["masked"]["si_sdr"], runs["masked_max_buckets_1"]["si_sdr"]
     check(runs["masked_max_buckets_1"]["merged_utterances"] > 0,
@@ -1673,7 +1699,9 @@ def phase_evaluate_trained(ctx):
     emit({"phase": "evaluate_trained",
           "checkpoint": str(CKPT.relative_to(REPO)),
           "config": "nf=32 ch_mult=(1,1,2,2) attn=(32,)",
-          "items": EVAL_TRAINED_ITEMS, "batch": EVAL_BATCH, "N": N_STEPS,
+          "items": {"masked": EVAL_TRAINED_ITEMS,
+                    "unmasked": EVAL_TRAINED_UNMASKED_ITEMS},
+          "batch": EVAL_BATCH, "N": N_STEPS,
           "bars": {"masked_si_sdr_db_min": SI_SDR_BAR_DB,
                    "masked_runs_apart_db_max": MASKED_RUNS_APART_DB},
           "runtime_unit": "s/utt", "runs": runs, "card": ctx["card"]})
@@ -2025,18 +2053,20 @@ def phase_families_train(ctx):
         # per run: its arguments, the forwards of a train step, and the
         # forwards of its validations: each validation batch runs the
         # score loss, the first valid_max_sep_batches (2 and 1) of them a
-        # separation too (SB-30: 30 evaluations, PC-30: 60)
+        # separation too (SB: N evaluations, PC: 2N; N = TRAIN_VAL_N)
         val_batches = -(-n_val // ENH_BATCH)
         for config, args, forwards, val in (
                 ("diffsep_sb", ["--synthetic", "--synthetic-items",
                                 str(TRAIN_ITEMS), "--synthetic-len-s",
                                 str(TRAIN_LEN_S), "--batch-size",
-                                str(TRAIN_BATCH)],
+                                str(TRAIN_BATCH), "--override",
+                                f"model.sde.N={TRAIN_VAL_N}"],
                  2, -(-FAMILY_TRAIN_STEPS // (TRAIN_ITEMS // TRAIN_BATCH))
-                 * (2 + N_STEPS)),
+                 * (2 + TRAIN_VAL_N)),
                 ("enhancement", ["--data-path", str(vctk), "--batch-size",
-                                 str(ENH_BATCH)],
-                 1, val_batches + min(val_batches, 1) * 2 * N_STEPS)):
+                                 str(ENH_BATCH), "--override",
+                                 f"model.sampler.N={TRAIN_VAL_N}"],
+                 1, val_batches + min(val_batches, 1) * 2 * TRAIN_VAL_N)):
             spans.clear()
             DiffSepTrainer.train_step = timed_step
             try:
@@ -2513,7 +2543,7 @@ OPTION_CONFIGS = {
 OPTION_LAUNCHES_PER_FORWARD = 12
 OPTION_REPS = 5
 OPTION_PARITY_SAMPLES = 16000
-STREAM_BENCH_S = 12.0
+STREAM_BENCH_S = 8.0  # one 8 s window (12 until PR 19)
 
 
 def card_vs_cpu(module, args: tuple, seed: int) -> float:
@@ -2722,7 +2752,7 @@ def phase_ncsnpp_options(ctx):
 
 
 def phase_streaming_bench(ctx):
-    """``ditsep_tpu_torch.scripts.streaming_bench`` on 12 s of stream (the
+    """``ditsep_tpu_torch.scripts.streaming_bench`` on 8 s of stream (the
     flagship in bf16, PC N=30, 8 s windows, 1 s overlap, 0.25 s blocks):
     its JSON line, and fir_down2d's launches = 18 x the NFE of every
     window, the warm-up's included."""
@@ -2998,6 +3028,152 @@ def phase_facodec(ctx):
           "model_info_s": info_s, "card": ctx["card"]})
 
 
+# the learning loop (ditsep_tpu_torch/examples): train_synthetic at the long
+# run's widths (nf=32, batch 8 x 4 s, lr 5e-4) for 200 steps on 256 items,
+# evaluated at N=5 after 100 steps and at the end; then nfe_study on its EMA
+# export, 2 seeds of the two PC configurations. The mean loss of the last
+# LEARN_WINDOW steps is below that of the first.
+LEARN = dict(nf=32, batch=8, len_s=4.0, steps=200, items=256, eval_n=5,
+             eval_every=100)
+LEARN_WINDOW = 50
+LEARN_STUDY, LEARN_STUDY_SEEDS = ("pc_N30", "pc_N15"), 2
+# the nf=32 U-Net's backward: fir_up2d for its 3 down blocks' downsamples
+# of h and of the skip x
+CKPT_UP_LAUNCHES_PER_BACKWARD = 6
+
+
+def learning_loop(device: str = "cuda", nf: int = 32, batch: int = 8,
+                  len_s: float = 4.0, steps: int = 200, items: int = 256,
+                  eval_n: int = 5, eval_every: int = 100) -> dict:
+    """``train_synthetic.main`` with these arguments and ``--save-params``,
+    then ``nfe_study.main`` on that export. Checks
+    finite losses and the export loaded into a model of other weights
+    equal to the EMA bit for bit. Returns the run's and the study's
+    results, every loss, seconds, the launches of each path and the
+    launches the config implies (``launches_want``: 2 forwards a train
+    step, each with its backward; an evaluation separates with the
+    parameters and with the EMA at NFE 2N; the study's NFE by
+    configuration)."""
+    import torch
+    from ditsep_tpu_torch.configs import build_diffsep_trainer
+    from ditsep_tpu_torch.examples import nfe_study, train_synthetic
+
+    cpu = ["--cpu"] if device == "cpu" else []
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = str(Path(tmp) / "ema.npz")
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        run = train_synthetic.main([
+            "--steps", str(steps), "--nf", str(nf), "--batch", str(batch),
+            "--len-s", str(len_s), "--n-train", str(items), "--lr", "5e-4",
+            "--eval-N", str(eval_n), "--eval-every", str(eval_every),
+            "--save-params", npz, *cpu])
+        sync()
+        train_s = time.perf_counter() - t0
+        train_launches = counts()
+        losses = run["losses"]
+        check(len(losses) == steps and all(map(math.isfinite, losses)),
+              f"losses {losses}")
+        back = build_diffsep_trainer(train_synthetic.synthetic_config(nf),
+                                     device=device, seed=1,
+                                     params_npz=npz).model.state_dict()
+        ema = run["state"].ema.state_dict()
+        check(back.keys() == ema.keys()
+              and all(torch.equal(back[k], ema[k]) for k in ema),
+              "the EMA export does not load back to the EMA's bits")
+        del run["state"], back, ema
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        study = nfe_study.main([
+            "--params", npz, "--nf", str(nf), "--len-s", str(len_s),
+            "--n-seeds", str(LEARN_STUDY_SEEDS), "--configs", *LEARN_STUDY,
+            *cpu])
+        sync()
+        study_s = time.perf_counter() - t0
+        study_launches = counts()
+    check(all(math.isfinite(c["si_sdr_mean"])
+              for c in study["configs"].values()), f"study {study}")
+    evals = len(run["interims"]) + 1
+    zero = dict.fromkeys(train_launches, 0)
+    want = {"learning_train": {
+        **zero, "fir_down2d": (steps * 2 + evals * 2 * 2 * eval_n)
+        * CKPT_LAUNCHES_PER_FORWARD,
+        "fir_up2d": steps * 2 * CKPT_UP_LAUNCHES_PER_BACKWARD},
+        "learning_nfe_study": {**zero, "fir_down2d": LEARN_STUDY_SEEDS * sum(
+            c["nfe"] for c in study["configs"].values())
+            * CKPT_LAUNCHES_PER_FORWARD}}
+    return {"result": run["result"], "interims": run["interims"],
+            "losses": losses, "study": study, "train_s": train_s,
+            "study_s": study_s, "evaluations": evals,
+            "launches": {"learning_train": train_launches,
+                         "learning_nfe_study": study_launches},
+            "launches_want": want}
+
+
+def learning_fir_check() -> dict:
+    """fir_down2d and fir_up2d at the learning loop's shapes (``scripts/
+    fir_timing.py``'s ``learning_path_shapes``: batch 8, 256 frames; f32,
+    as the loop runs them) against their plain versions bit for bit, each
+    vector path against its scalar path (``check_fir_pair``). fir_up2d
+    runs at every shape; the backward takes it at the down blocks'."""
+    import numpy as np
+    import torch
+    from ditsep_tpu_torch.ops import cuda_kernels as ck
+    from ditsep_tpu_torch.scripts import fir_timing
+
+    k = fir_timing.FIR_K
+    taps = ck.separable_taps(np.asarray(k), 1.0)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    worst, rows = [0.0, 0.0], []
+    for kind, level, shape in fir_timing.learning_path_shapes():
+        x = torch.randn(shape, generator=g, device="cuda")
+        *errs, down_path, up_path = check_fir_pair(x, g, taps, k)
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        rows.append([kind, level, list(shape), down_path, up_path])
+    return {"max_abs_err": dict(zip(("fir_down2d", "fir_up2d"), worst)),
+            "tolerance": "the plain versions' bits; each vector path equal "
+                         "to its scalar path",
+            "columns": ["kind", "level", "shape", "fir_down2d_path",
+                        "fir_up2d_path"], "rows": rows}
+
+
+def phase_learning(ctx):
+    """The learning loop at the long run's widths (``learning_loop``): its
+    kernels at its shapes against their plain versions
+    (``learning_fir_check``), its launches as the config implies, the
+    mean loss of the last LEARN_WINDOW steps below that of the first."""
+    t0 = time.perf_counter()
+    fir_check = learning_fir_check()
+    rec = learning_loop(**LEARN)
+    for path, got in rec["launches"].items():
+        check(got == rec["launches_want"][path],
+              f"{path} launches {got}, want {rec['launches_want'][path]}")
+    losses = rec.pop("losses")
+    first = sum(losses[:LEARN_WINDOW]) / LEARN_WINDOW
+    last = sum(losses[-LEARN_WINDOW:]) / LEARN_WINDOW
+    check(last < first, f"mean loss of the last {LEARN_WINDOW} steps "
+                        f"{last} not below the first's {first}")
+    ctx.setdefault("slice_launches", {}).update(rec["launches"])
+    emit({"phase": "learning", "what": "ditsep_tpu_torch.examples."
+          "train_synthetic (nf=32, ch_mult (1,1,2,2), attention at 32, "
+          "batch 8 x 4 s, lr 5e-4, seeded weights) for "
+          f"{LEARN['steps']} steps on {LEARN['items']} items, PC N="
+          f"{LEARN['eval_n']} evaluations, then nfe_study on its EMA export "
+          f"({LEARN_STUDY_SEEDS} seeds, {', '.join(LEARN_STUDY)})", **rec,
+          "fir_check": fir_check,
+          "loss_mean_first": first, "loss_mean_last": last,
+          "window": LEARN_WINDOW,
+          "steps_per_s": rec["result"]["steps_per_s"],
+          "learning_s": time.perf_counter() - t0, "card": ctx["card"]})
+
+
 # the latent path (latent_diffsep_ouve): the latent U-Net downsamples at
 # its two level transitions, twice in the down block and once on the input
 # pyramid; a forward's backward takes fir_up2d for the down blocks' two
@@ -3036,33 +3212,32 @@ def latent_trainer(cfg, device: str, dtype: str = "f32"):
 
 def check_fir_pair(x, g, taps, plain_k) -> tuple:
     """fir_down2d on ``x`` and fir_up2d on a gradient of its output's
-    shape (drawn from ``g``), each against its plain version bit for bit.
-    fir_down2d's plan must take the scalar path (no latent width is a
-    multiple of 2V = 8 / 16); fir_up2d's vector path (W a multiple of 2V =
-    4 f32 / 8 bf16) must give its scalar path's bits. Returns the two max
-    abs errors and fir_up2d's path."""
+    shape (drawn from ``g``), each against its plain version bit for bit,
+    and each one's vector path against its scalar path where its plan
+    takes the vector path (fir_down2d's needs W a multiple of 2V = 8 f32 /
+    16 bf16, fir_up2d's 4 / 8). Returns the two max abs errors and the two
+    kernels' paths."""
     import torch
     from ditsep_tpu_torch.ops import cuda_kernels as ck
     hw = tuple(x.shape[2:])
-    check(ck.fir_down2d.plan(x)["path"] == "scalar",
-          f"fir_down2d plan at latent shape {tuple(x.shape)} {x.dtype}: "
-          "not the scalar path")
+    down_path = ck.fir_down2d.plan(x)["path"]
     y = ck.fir_down2d(x, *taps)
     ref = ck.downsample_2d_plain(x, plain_k)
     gy = torch.randn(y.shape, generator=g, device="cuda").to(x.dtype)
     up_path = ck.fir_up2d.plan(gy, hw)["path"]
     dx = ck.fir_up2d(gy, *taps, hw)
     dref = ck.downsample_2d_bwd_plain(gy, plain_k, hw)
-    same = (torch.equal(ck.fir_up2d(gy, *taps, hw, force_path="scalar"), dx)
-            if up_path == "vector" else True)
+    same = ((down_path == "scalar" or torch.equal(
+        ck.fir_down2d(x, *taps, force_path="scalar"), y))
+        and (up_path == "scalar" or torch.equal(
+            ck.fir_up2d(gy, *taps, hw, force_path="scalar"), dx)))
     torch.cuda.synchronize()
     errs = ((y.float() - ref.float()).abs().max().item(),
             (dx.float() - dref.float()).abs().max().item())
     check(torch.equal(y, ref) and torch.equal(dx, dref) and same,
-          f"fir kernels at latent shape {tuple(x.shape)} {x.dtype}: not the "
-          f"plain versions' bits (max errs {errs}), or fir_up2d's paths "
-          "differ")
-    return errs + (up_path,)
+          f"fir kernels at {tuple(x.shape)} {x.dtype}: not the plain "
+          f"versions' bits (max errs {errs}), or a kernel's paths differ")
+    return errs + (down_path, up_path)
 
 
 def phase_latent_kernel(ctx):
@@ -3084,7 +3259,11 @@ def phase_latent_kernel(ctx):
         for kind, _, shape in fir_timing.latent_path_shapes(batch, tl):
             base = torch.randn(shape, generator=g, device="cuda")
             for dtype in (torch.float32, torch.bfloat16):
-                *errs, up_path = check_fir_pair(base.to(dtype), g, taps, k)
+                *errs, down_path, up_path = check_fir_pair(base.to(dtype), g,
+                                                           taps, k)
+                check(down_path == "scalar", f"fir_down2d plan at latent "
+                                             f"shape {shape} {dtype}: not "
+                                             "the scalar path")
                 name = str(dtype).split(".")[-1]
                 worst[name] = [max(a, b) for a, b in zip(worst[name], errs)]
                 cases += 1
@@ -5939,7 +6118,7 @@ def phase_stable_train(ctx):
 
 
 MESH_STEPS, MESH_ITEMS = 2, 12     # one epoch of 2 steps at batch 6
-MESH_LEN_S = 2.0                   # 16,384 samples a batch row
+MESH_LEN_S = 1.0                   # a batch row's seconds (2 until PR 19)
 MESH_VAL_N = 3                     # the validation's PC steps in both runs
 MESH_EVAL_ITEMS, MESH_GLOO_ITEMS = 1, 3
 MESH_CHILD_TIMEOUT_S = 300  # all of a run_children call's children
@@ -6025,7 +6204,6 @@ atexit.register(_dump)
 def child_env(hook_dir: Path, out_dir: Path) -> dict:
     """A child's environment: the hook's directory and the repository on
     PYTHONPATH, the hook's output directory (made)."""
-    import os
     out_dir.mkdir(parents=True, exist_ok=True)
     return {**os.environ, "PYTHONPATH": f"{hook_dir}:{REPO}",
             "CHIP_SMOKE_HOOK_OUT": str(out_dir),
@@ -6295,7 +6473,8 @@ def phase_mesh(ctx):
         step = {k: sum(r["step_s"][1:]) / (MESH_STEPS - 1)
                 for k, r in (("plain", plain), ("mesh", mesh))}
         emit({"phase": "mesh_train", "what": "cli.train_diffsep "
-              "diffsep_icassp (nf=128, seeded weights), batch 6 x 16,384, "
+              "diffsep_icassp (nf=128, seeded weights), batch 6 x "
+              f"{MESH_LEN_S} s, "
               f"{MESH_STEPS} steps and a validation (PC N={MESH_VAL_N}), "
               "TF32 off, deterministic cuDNN: plain vs python -m "
               "torch.distributed.run --nproc-per-node 1 ... --mesh (NCCL, "
@@ -6439,6 +6618,19 @@ def kernels_line(ctx, torch) -> list:
     return kernels
 
 
+def share_bytecode_cache() -> None:
+    """The run's processes (this one and every child) keep their compiled
+    bytecode in one cache in the checkout (``build/pycache``): where the
+    installed packages carry none that is valid, each new process would
+    compile torch's 2,000 modules again (8.5 s of a mesh train child on
+    the H100's machine, PERF.md section 6); so only the first does."""
+    prefix = str(REPO / "build" / "pycache")
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6457,6 +6649,8 @@ def main(argv=None) -> int:
         phases = list(GROUPS[args.group])
     else:
         phases = [n for g in sorted(GROUPS) for n in GROUPS[g]]
+    if (REPO / "ditsep_tpu_torch").is_dir():
+        share_bytecode_cache()
     try:
         import torch
     except ImportError:

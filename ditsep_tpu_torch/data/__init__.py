@@ -13,6 +13,6 @@ from ditsep_tpu_torch.data.webdataset import (  # noqa: F401
     create_dataloader_from_config,
 )
 from ditsep_tpu_torch.data.wsj0_mix import (  # noqa: F401
-    BucketedLoader, SyntheticMixDataset, WSJ0Mix, length_buckets,
-    max_collator,
+    BucketedLoader, SyntheticMixDataset, SyntheticTonalMixDataset, WSJ0Mix,
+    length_buckets, max_collator,
 )

@@ -74,16 +74,36 @@ LATENT_PYRAMID_CHANNELS = 3        # the sources and the mixture
 # (batch, latent frames): an 8.415 s separation at batch 1 and 4, a 5 s
 # train crop at batch 1 and the config's 16
 LATENT_CASES = ((1, 36), (4, 36), (1, 20), (16, 20))
+# the learning loop's U-Net (examples/train_synthetic: nf 32, ch_mult
+# (1, 1, 2, 2)): 3 down blocks and 3 pyramid levels, its train, evaluation
+# and study batches of 8 items of 4 s (250 frames padded to 256)
+LEARN_DOWN_CHANNELS = (32, 32, 64)
+LEARN_BATCH, LEARN_FRAMES = 8, 256
+
+
+def unet_shapes(batch: int, channels, hw, pyramid: int) -> list:
+    """(kind, level, NCHW shape) of a U-Net's fir_down2d inputs: at each
+    level i, the down block's on (batch, channels[i], hw >> i) and the
+    input pyramid's on (batch, pyramid, hw >> i)."""
+    out = []
+    for i, c in enumerate(channels):
+        h, w = hw[0] >> i, hw[1] >> i
+        out += [("down", i, (batch, c, h, w)),
+                ("pyramid", i, (batch, pyramid, h, w))]
+    return out
 
 
 def main_path_shapes(batch: int) -> list:
     """(kind, level, NCHW shape) of the main path's fir_down2d inputs."""
-    out = []
-    for i, c in enumerate(DOWN_CHANNELS):
-        h, w = LEVEL0_HW[0] >> i, LEVEL0_HW[1] >> i
-        out += [("down", i, (batch, c, h, w)),
-                ("pyramid", i, (batch, PYRAMID_CHANNELS, h, w))]
-    return out
+    return unet_shapes(batch, DOWN_CHANNELS, LEVEL0_HW, PYRAMID_CHANNELS)
+
+
+def learning_path_shapes(batch: int = LEARN_BATCH,
+                         frames: int = LEARN_FRAMES) -> list:
+    """(kind, level, NCHW shape) of the learning loop's fir_down2d inputs
+    (``examples/train_synthetic``'s U-Net) at ``frames`` STFT frames."""
+    return unet_shapes(batch, LEARN_DOWN_CHANNELS, (LEVEL0_HW[0], frames),
+                       PYRAMID_CHANNELS)
 
 
 def graph_ms(fns, iters: int = 30, warmup: int = 3, reps: int = 3) -> float:
@@ -321,12 +341,8 @@ def time_main_path(bandwidth: float, batches=(1, 4), iters: int = 30,
 def latent_path_shapes(batch: int, tl: int) -> list:
     """(kind, level, NCHW shape) of the latent U-Net's fir_down2d inputs
     at ``tl`` latent frames."""
-    out = []
-    for i, c in enumerate(LATENT_DOWN_CHANNELS):
-        h, w = LATENT_D >> i, tl >> i
-        out += [("down", i, (batch, c, h, w)),
-                ("pyramid", i, (batch, LATENT_PYRAMID_CHANNELS, h, w))]
-    return out
+    return unet_shapes(batch, LATENT_DOWN_CHANNELS, (LATENT_D, tl),
+                       LATENT_PYRAMID_CHANNELS)
 
 
 def time_latent_path(bandwidth: float, backward: bool = False,

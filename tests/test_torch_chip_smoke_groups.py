@@ -317,6 +317,7 @@ def test_option_configs_launch_fir_down2d_twelve_times(smoke, monkeypatch):
     OPTION_LAUNCHES_PER_FORWARD (12) times; the flagship's own BigGAN +
     input_skip config LAUNCHES_PER_FORWARD (18) times."""
     from ditsep_tpu_torch.models import NCSNpp
+    from ditsep_tpu_torch.examples import nfe_study
     from ditsep_tpu_torch.ops import fir
     calls = []
     real = fir.downsample_2d
@@ -382,3 +383,60 @@ def test_facodec_phase_rehearsed_on_the_cpu(smoke):
                                                     jnp.float32))
     assert sum(s.size for s in jax.tree.leaves(shapes)) \
         == smoke.FACODEC_DEMO_DECODER_PARAMS
+
+
+def test_learning_phase_is_in_group_1_once(smoke):
+    grouped = [n for g in smoke.GROUPS.values() for n in g]
+    assert grouped.count("phase_learning") == 1
+    assert "phase_learning" in smoke.GROUPS[1]
+
+
+def test_learning_loop_rehearsed_on_the_cpu(smoke, monkeypatch):
+    """The learning phase's loop on the CPU at a tiny size (4 steps, N=2,
+    the study's configurations at N=2): finite losses, the interim and the
+    final evaluation, the EMA export equal to the EMA bit for bit (checked
+    inside), and the calls of ``ops.fir.downsample_2d`` (fir_down2d's
+    wrapper on the card) of each path as ``launches_want`` counts them."""
+    from ditsep_tpu_torch.examples import nfe_study
+    from ditsep_tpu_torch.ops import fir
+
+    calls = []
+    real = fir.downsample_2d
+    monkeypatch.setattr(fir, "downsample_2d",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    monkeypatch.setattr(smoke, "reset_counts", calls.clear)
+    monkeypatch.setattr(smoke, "counts", lambda: {"fir_down2d": len(calls),
+                                                  "fir_up2d": 0})
+    monkeypatch.setattr(nfe_study, "CONFIGS", {
+        name: (sampler, 2) for name, (sampler, _) in
+        nfe_study.CONFIGS.items()})
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        rec = smoke.learning_loop(device="cpu", nf=16, batch=2, len_s=0.5,
+                                  steps=4, items=4, eval_n=2, eval_every=2)
+    finally:
+        torch.set_num_threads(n)
+    assert len(rec["losses"]) == 4 and rec["evaluations"] == 2
+    assert [i["interim_step"] for i in rec["interims"]] == [2]
+    assert set(rec["study"]["configs"]) == set(smoke.LEARN_STUDY)
+    for path, got in rec["launches"].items():
+        assert got["fir_down2d"] == rec["launches_want"][path]["fir_down2d"]
+    assert rec["launches"]["learning_train"]["fir_down2d"] == (
+        (4 * 2 + 2 * 2 * 4) * smoke.CKPT_LAUNCHES_PER_FORWARD)
+
+
+def test_run_shares_one_bytecode_cache(smoke, monkeypatch):
+    """``share_bytecode_cache`` points this process and its children at
+    one bytecode cache in the checkout and lets them write it."""
+    import os
+    import sys
+    monkeypatch.setattr(sys, "pycache_prefix", None)
+    monkeypatch.setattr(sys, "dont_write_bytecode", True)
+    monkeypatch.setenv("PYTHONDONTWRITEBYTECODE", "1")
+    monkeypatch.setenv("PYTHONPYCACHEPREFIX", "elsewhere")
+    smoke.share_bytecode_cache()
+    want = str(smoke.REPO / "build" / "pycache")
+    assert sys.pycache_prefix == want == os.environ["PYTHONPYCACHEPREFIX"]
+    assert not sys.dont_write_bytecode
+    assert "PYTHONDONTWRITEBYTECODE" not in os.environ

@@ -829,6 +829,30 @@ def test_fir_kernels_at_latent_shapes_match_plain(
 
 
 @pytest.mark.cuda
+def test_fir_kernels_at_learning_shapes_match_plain(cuda_device):
+    """The learning loop's fir_down2d inputs (examples/train_synthetic's
+    U-Net at batch 8 x 256 frames, f32) and their gradients: both kernels
+    the plain versions' bits, each vector path equal to its scalar path."""
+    from ditsep_tpu_torch.scripts.fir_timing import learning_path_shapes
+    k = (1, 3, 3, 1)
+    taps = _fir_taps()
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    for _, _, shape in learning_path_shapes():
+        x = torch.randn(shape, generator=g, device=cuda_device)
+        y = cuda_kernels.fir_down2d(x, *taps)
+        assert torch.equal(y, cuda_kernels.downsample_2d_plain(x, k))
+        assert torch.equal(y, cuda_kernels.fir_down2d(x, *taps,
+                                                      force_path="scalar"))
+        gy = torch.randn(y.shape, generator=g, device=cuda_device)
+        hw = tuple(shape[2:])
+        dx = cuda_kernels.fir_up2d(gy, *taps, hw)
+        assert torch.equal(dx, cuda_kernels.downsample_2d_bwd_plain(
+            gy, k, hw))
+        assert torch.equal(dx, cuda_kernels.fir_up2d(gy, *taps, hw,
+                                                     force_path="scalar"))
+
+
+@pytest.mark.cuda
 def test_oobleck_vae_on_card_matches_cpu(cuda_device):
     """A small OobleckVAE with seeded weights: encode (the mode, and a
     posterior sample with one draw) and decode on the card, TF32 off,
